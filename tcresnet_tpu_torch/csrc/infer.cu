@@ -25,6 +25,8 @@
 //    DFT constant stays in global memory, where it is L2-resident, and the
 //    DFT runs directly on frames (frame[f] @ W[window, 2K]) - the same
 //    math as the hop decomposition without a shifted-add buffer.
+//  - Steps 1 and 2 are frontend.cuh, shared with K2 (mfcc.cu) and K3
+//    (frontend.cu), so the three kernels compute the same features.
 //  - The DFT is register-blocked: each thread owns 4 output columns x 14
 //    frames (56 accumulators). Columns are interleaved (re_k, im_k,
 //    re_k+1, im_k+1), so a thread turns its own accumulators into two
@@ -52,13 +54,12 @@
 // point k4_infer launches on the given stream and returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "frontend.cuh"
+
 #define K4_MAX_CONVS 32
-#define K4_THREADS 256
-#define K4_RF 14  // frames per thread in the DFT micro-tile
-#define K4_RM 7   // frames per thread in the mel / DCT micro-tile
+#define K4_THREADS FE_THREADS
 
 enum { ROLE_CONV0 = 0, ROLE_DOWN = 1, ROLE_BLOCK0 = 2, ROLE_BLOCK1 = 3 };
 
@@ -67,163 +68,39 @@ struct K4Conv {
 };
 
 struct K4Args {
+  FeArgs fe;          // the shared front end (frontend.cuh)
   const float* wavs;  // [batch, n]
   float* out;         // [batch, ncls]
-  const float* dft;   // [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1)
-  const float* mel;   // [num_bins, num_mel]
-  const float* dct;   // [num_mel, num_coef]; unused when magnitude
   const float* wts;   // folded conv weights [k*ci, co] and biases [co], by offset
   const float* fc;    // [c_last, ncls]
-  int batch, n, window, hop, frames, ncg, num_bins, num_mel, num_coef;
-  int magnitude, round_bf16, n_convs, ncls, act_max, region_a, smem_bytes;
+  int batch, n_convs, ncls, act_max, region_a, smem_bytes;
   K4Conv convs[K4_MAX_CONVS];
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // At most one block fits an SM (shared memory), and saying so to the
 // compiler (min blocks 1) gave 11% lower latency on the H100 (PERF.md).
 __global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int nbp = 2 * a.ncg;  // power bins per row, padded to the column groups
   float* reg_a = smem;
   float* reg_b = smem + a.region_a;
-  float* pooled = reg_b + a.frames * nbp;
+  float* pooled = reg_b + a.fe.frames * 2 * a.fe.ncg;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
 
   // ---- 0. the utterance into shared memory ----
-  const float* wav = a.wavs + (size_t)blockIdx.x * a.n;
-  for (int i = tid; i < a.n; i += nthr) {
-    const float v = wav[i];
-    reg_a[i] = a.round_bf16 ? round_bf16(v) : v;
-  }
+  const float* wav = a.wavs + (size_t)blockIdx.x * a.fe.n;
+  for (int i = tid; i < a.fe.n; i += nthr) reg_a[i] = fe_sample(a.fe, wav[i]);
   __syncthreads();
 
-  // ---- 1. windowed real DFT -> power / magnitude [frames, nbp] in B ----
-  {
-    const float4* dft4 = reinterpret_cast<const float4*>(a.dft);
-    const int nfg = (a.frames + K4_RF - 1) / K4_RF;
-    for (int item = tid; item < a.ncg * nfg; item += nthr) {
-      const int cg = item % a.ncg;
-      const int fg = item / a.ncg;
-      int base[K4_RF];
-#pragma unroll
-      for (int i = 0; i < K4_RF; ++i)
-        base[i] = min(fg * K4_RF + i, a.frames - 1) * a.hop;
-      float acc[K4_RF][4];
-#pragma unroll
-      for (int i = 0; i < K4_RF; ++i)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 2
-      for (int s = 0; s < a.window; s += 4) {
-        const float4 w0 = __ldg(&dft4[(s + 0) * a.ncg + cg]);
-        const float4 w1 = __ldg(&dft4[(s + 1) * a.ncg + cg]);
-        const float4 w2 = __ldg(&dft4[(s + 2) * a.ncg + cg]);
-        const float4 w3 = __ldg(&dft4[(s + 3) * a.ncg + cg]);
-#pragma unroll
-        for (int i = 0; i < K4_RF; ++i) {
-          const float4 x = *reinterpret_cast<const float4*>(reg_a + base[i] + s);
-          acc[i][0] = fmaf(x.x, w0.x, acc[i][0]);
-          acc[i][1] = fmaf(x.x, w0.y, acc[i][1]);
-          acc[i][2] = fmaf(x.x, w0.z, acc[i][2]);
-          acc[i][3] = fmaf(x.x, w0.w, acc[i][3]);
-          acc[i][0] = fmaf(x.y, w1.x, acc[i][0]);
-          acc[i][1] = fmaf(x.y, w1.y, acc[i][1]);
-          acc[i][2] = fmaf(x.y, w1.z, acc[i][2]);
-          acc[i][3] = fmaf(x.y, w1.w, acc[i][3]);
-          acc[i][0] = fmaf(x.z, w2.x, acc[i][0]);
-          acc[i][1] = fmaf(x.z, w2.y, acc[i][1]);
-          acc[i][2] = fmaf(x.z, w2.z, acc[i][2]);
-          acc[i][3] = fmaf(x.z, w2.w, acc[i][3]);
-          acc[i][0] = fmaf(x.w, w3.x, acc[i][0]);
-          acc[i][1] = fmaf(x.w, w3.y, acc[i][1]);
-          acc[i][2] = fmaf(x.w, w3.z, acc[i][2]);
-          acc[i][3] = fmaf(x.w, w3.w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < K4_RF; ++i) {
-        const int f = fg * K4_RF + i;
-        if (f < a.frames) {
-          float p0 = acc[i][0] * acc[i][0] + acc[i][1] * acc[i][1];
-          float p1 = acc[i][2] * acc[i][2] + acc[i][3] * acc[i][3];
-          if (a.magnitude) {
-            p0 = sqrtf(p0);
-            p1 = sqrtf(p1);
-          }
-          reg_b[f * nbp + 2 * cg] = p0;
-          reg_b[f * nbp + 2 * cg + 1] = p1;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. mel + log -> log-mel [frames, num_mel] in A (the wav is dead) ----
-  {
-    const int mfg = (a.frames + K4_RM - 1) / K4_RM;
-    for (int item = tid; item < a.num_mel * mfg; item += nthr) {
-      const int m = item % a.num_mel;
-      const int fg = item / a.num_mel;
-      int row[K4_RM];
-      float acc[K4_RM];
-#pragma unroll
-      for (int i = 0; i < K4_RM; ++i) {
-        row[i] = min(fg * K4_RM + i, a.frames - 1) * nbp;
-        acc[i] = 0.f;
-      }
-      for (int k = 0; k < a.num_bins; ++k) {
-        const float w = __ldg(&a.mel[k * a.num_mel + m]);
-#pragma unroll
-        for (int i = 0; i < K4_RM; ++i) acc[i] = fmaf(reg_b[row[i] + k], w, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < K4_RM; ++i) {
-        const int f = fg * K4_RM + i;
-        if (f < a.frames) reg_a[f * a.num_mel + m] = logf(acc[i] + 1e-6f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 3. features [frames, C] in B (the power spectrum is dead) ----
-  const int n_feat = a.magnitude ? a.num_mel : a.num_coef;
-  if (a.magnitude) {
-    for (int i = tid; i < a.frames * a.num_mel; i += nthr) reg_b[i] = reg_a[i];
-  } else {
-    const int mfg = (a.frames + K4_RM - 1) / K4_RM;
-    for (int item = tid; item < a.num_coef * mfg; item += nthr) {
-      const int c = item % a.num_coef;
-      const int fg = item / a.num_coef;
-      int row[K4_RM];
-      float acc[K4_RM];
-#pragma unroll
-      for (int i = 0; i < K4_RM; ++i) {
-        row[i] = min(fg * K4_RM + i, a.frames - 1) * a.num_mel;
-        acc[i] = 0.f;
-      }
-      for (int m = 0; m < a.num_mel; ++m) {
-        const float w = __ldg(&a.dct[m * a.num_coef + c]);
-#pragma unroll
-        for (int i = 0; i < K4_RM; ++i) acc[i] = fmaf(reg_a[row[i] + m], w, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < K4_RM; ++i) {
-        const int f = fg * K4_RM + i;
-        if (f < a.frames) reg_b[f * a.num_coef + c] = acc[i];
-      }
-    }
-  }
-  __syncthreads();
+  // ---- 1-3. front end: features [frames, C] in B ----
+  fe_features(a.fe, reg_a, reg_b);
+  const int n_feat = fe_width(a.fe);
 
   // ---- 4. conv stack (residual dataflow by role), buffers in A ----
   float* bufs[3] = {reg_a, reg_a + a.act_max, reg_a + 2 * a.act_max};
   const float* x = reg_b;
   const float* sc = nullptr;
-  int t_len = a.frames;
+  int t_len = a.fe.frames;
   int c_len = n_feat;
   for (int l = 0; l < a.n_convs; ++l) {
     const K4Conv cv = a.convs[l];

@@ -37,12 +37,12 @@ def build_model(
     device,
 ) -> nn.Module:
     """The configured model, in eval mode, for a front-end geometry
-    (frames, coeffs, 1), with its parameters on `device`."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port serves float32 only "
-            "(bf16 compute comes with training, ROADMAP.md Queue 1 item 7)"
-        )
+    (frames, coeffs, 1), with its parameters on `device`. `compute_dtype`
+    ("float32" or "bfloat16") is the dtype of its convs and fc; the
+    parameters stay float32."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype must be one of {sorted(dtypes)}, got {compute_dtype!r}")
     if cfg.name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md {_NOT_PORTED[cfg.name]})"
@@ -52,7 +52,8 @@ def build_model(
         raise KeyError(f"Unknown model {cfg.name!r}")
     model = builders[cfg.name](
         cfg.num_classes, cfg.width_multiplier,
-        in_channels=feature_shape[1], device=device,
+        in_channels=feature_shape[1], dropout_keep_prob=cfg.dropout_keep_prob,
+        bn_momentum=cfg.bn_momentum, dtype=dtypes[compute_dtype], device=device,
     )
     return model.eval()
 

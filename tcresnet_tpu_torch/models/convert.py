@@ -12,6 +12,7 @@ caller). Mapping is by scope name, not position:
 The port's variables are {"params": {...}, "batch_stats": {...}} with an
 optional "ema_params", each a flat {state-dict name: tensor} mapping; the
 EMA copy replaces "params" only, as in the JAX package.
+`variables_to_jax` carries them back, BN running statistics included.
 """
 
 from __future__ import annotations
@@ -60,6 +61,43 @@ def variables_from_jax(
     out = {"params": _params_from_jax(params), "batch_stats": stats}
     if ema_params is not None:
         out["ema_params"] = _params_from_jax(ema_params)
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy COPY (a CPU tensor's .numpy() would share memory
+    with a tensor that training updates in place)."""
+    return np.array(t.detach().cpu(), dtype=np.float32)
+
+
+def _params_to_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, t in params.items():
+        scope, leaf = name.rsplit(".", 1)
+        a = _host(t)
+        if scope.endswith("_bn"):
+            out.setdefault(scope, {})["scale" if leaf == "weight" else "bias"] = a
+        elif scope == "fc":
+            out[scope] = {"kernel": np.ascontiguousarray(a.T)}
+        elif scope.endswith("_conv"):
+            out[scope] = {"kernel": np.ascontiguousarray(a.transpose(2, 1, 0)[:, None])}
+        else:
+            raise KeyError(f"no Flax counterpart for port parameter {name!r}")
+    return out
+
+
+def variables_to_jax(variables: Mapping[str, Mapping[str, Any]]) -> Dict[str, Nested]:
+    """Port variables (tensors on any device) -> Flax {params, batch_stats
+    [, ema_params]} as numpy: the inverse of `variables_from_jax`, BN
+    running statistics included."""
+    stats: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, t in variables["batch_stats"].items():
+        scope, leaf = name.rsplit(".", 1)
+        key = {"running_mean": "mean", "running_var": "var"}[leaf]
+        stats.setdefault(scope, {})[key] = _host(t)
+    out = {"params": _params_to_jax(variables["params"]), "batch_stats": stats}
+    if variables.get("ema_params") is not None:
+        out["ema_params"] = _params_to_jax(variables["ema_params"])
     return out
 
 

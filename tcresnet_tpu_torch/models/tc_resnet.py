@@ -10,13 +10,14 @@ every conv is a k x 1 temporal conv:
 Submodule names follow the Flax scopes (conv0_conv, conv0_bn,
 block{i}_down_conv, block{i}_conv0_bn, fc, ...) and are registered in
 Flax's creation order, so weights map by name (models/convert.py).
-Dropout is the identity in eval mode and is left out; this slice serves
-and does not train.
+In training mode batch norm uses batch statistics and updates its running
+ones, and dropout (keep_prob) acts on the pooled vector before the fc,
+its mask drawn from the generator passed to forward().
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,9 +47,14 @@ def block_plan(channels: Tuple[int, ...]) -> List[Tuple[int, int, bool]]:
 
 class TCResNet(nn.Module):
     def __init__(self, num_classes: int, n_channels: Tuple[int, ...],
-                 in_channels: int, *, device=None):
+                 in_channels: int, *, dropout_keep_prob: float = 0.5,
+                 bn_momentum: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.n_channels = tuple(n_channels)
+        self.dropout_keep_prob = dropout_keep_prob
+        self.bn_momentum = 0.997 if bn_momentum is None else bn_momentum
+        self.dtype = dtype
         self._add_conv_bn("conv0", in_channels, n_channels[0], 3, 1, device)
         prev = n_channels[0]
         for i, n, down in block_plan(self.n_channels):
@@ -62,20 +68,19 @@ class TCResNet(nn.Module):
         nn.init.xavier_uniform_(self.fc.weight)
 
     def _add_conv_bn(self, name, ci, co, k, stride, device):
-        self.add_module(f"{name}_conv", layers.TemporalConv(ci, co, k, stride, device=device))
-        self.add_module(f"{name}_bn", layers.SlimBatchNorm(co, device=device))
+        self.add_module(f"{name}_conv", layers.TemporalConv(
+            ci, co, k, stride, dtype=self.dtype, device=device))
+        self.add_module(f"{name}_bn", layers.SlimBatchNorm(
+            co, momentum=self.bn_momentum, dtype=self.dtype, device=device))
 
     def _conv_bn(self, x, name, relu=True):
         x = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
         return F.relu(x) if relu else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, L, C] or [B, L, C, 1] features -> [B, num_classes] f32 logits."""
-        if self.training:
-            raise NotImplementedError(
-                "TCResNet is ported for eval mode only; training is ROADMAP.md "
-                "Queue 1 item 5 (call .eval())"
-            )
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, L, C] or [B, L, C, 1] features -> [B, num_classes] f32 logits.
+        In training mode the dropout mask is drawn from `generator`."""
         if x.dim() == 4:
             if x.shape[-1] != 1:
                 raise ValueError("temporal variant expects [B, L, C, 1] features")
@@ -87,16 +92,18 @@ class TCResNet(nn.Module):
             y = self._conv_bn(x, f"block{i}_conv0")
             y = self._conv_bn(y, f"block{i}_conv1", relu=False)
             x = F.relu(y + shortcut)
-        return self.fc(layers.global_avg_pool(x)).to(torch.float32)
+        x = layers.dropout(layers.global_avg_pool(x), self.dropout_keep_prob,
+                           self.training, generator)
+        return F.linear(x, self.fc.weight.to(self.dtype)).to(torch.float32)
 
 
 def tc_resnet8(num_classes: int, width_multiplier: float = 1.0, *,
-               in_channels: int, device=None) -> TCResNet:
+               in_channels: int, **kw) -> TCResNet:
     return TCResNet(num_classes, scaled_channels("TCResNet8", width_multiplier),
-                    in_channels, device=device)
+                    in_channels, **kw)
 
 
 def tc_resnet14(num_classes: int, width_multiplier: float = 1.0, *,
-                in_channels: int, device=None) -> TCResNet:
+                in_channels: int, **kw) -> TCResNet:
     return TCResNet(num_classes, scaled_channels("TCResNet14", width_multiplier),
-                    in_channels, device=device)
+                    in_channels, **kw)

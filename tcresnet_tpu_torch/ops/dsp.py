@@ -11,9 +11,11 @@ The numpy constant builders are re-implemented here (the JAX module
 imports jax) and pinned to the JAX ones by tests/test_torch_dsp.py. The
 torch functions take tensors on any device and keep them there.
 
-Not ported: the radix-4 factored DFT (`dft_variant="radix4"`) and the
-fused Pallas front end (`dsp_backend="pallas"`, kernel K2); both raise
-NotImplementedError and are listed in ROADMAP.md.
+`dsp_backend="pallas"` names the fused front-end kernel K2
+(`ops/kernels/mfcc.py`, CUDA source `csrc/mfcc.cu`); on a CPU tensor it
+runs the kernel's plain version, which is this module's path. Not ported:
+the radix-4 factored DFT (`dft_variant="radix4"`), which raises
+NotImplementedError and is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -262,22 +264,37 @@ def mfcc(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     return log_mel @ dct_w
 
 
+def resolve_dsp_backend(cfg: AudioConfig, audio: torch.Tensor) -> str:
+    """cfg.dsp_backend for this call: "auto" takes the fused kernel K2 for
+    a [B, N] batch by `ops.kernels.mfcc.auto_takes_kernel` (a CUDA device
+    and at least 2048 rows), else the plain path."""
+    backend = getattr(cfg, "dsp_backend", "xla")
+    if backend not in ("xla", "pallas", "auto"):
+        raise ValueError(f"Unknown dsp_backend {backend!r}")
+    if backend == "auto":
+        from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+
+        fused = audio.dim() == 2 and k2.auto_takes_kernel(
+            cfg, audio.device, audio.shape[0], audio.shape[-1])
+        backend = "pallas" if fused else "xla"
+    return backend
+
+
 def preprocess(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """Front-end dispatch: [..., N] wavs -> [..., H, W, 1] features, the
     JAX function's layout (trailing channel axis of 1).
 
-    dsp_backend "xla" and "auto" both run the plain per-op path here;
-    "pallas" names the fused front-end kernel, which is not ported yet."""
+    dsp_backend "pallas" runs a [B, N] batch through the fused kernel K2
+    (its plain version for a CPU tensor; a CUDA geometry the kernel does
+    not serve raises); "xla" runs the plain per-op path; "auto" picks
+    (`resolve_dsp_backend`)."""
     if cfg.preprocess_method in ("mfcc", "log_mel_spectrogram"):
-        backend = getattr(cfg, "dsp_backend", "xla")
-        if backend == "pallas":
-            raise NotImplementedError(
-                "dsp_backend='pallas' needs the fused MFCC kernel, which is "
-                "not ported yet (ROADMAP.md, Queue 2 row K2)"
-            )
-        if backend not in ("xla", "auto"):
-            raise ValueError(f"Unknown dsp_backend {backend!r}")
-        if cfg.preprocess_method == "mfcc":
+        backend = resolve_dsp_backend(cfg, audio)
+        if backend == "pallas" and audio.dim() == 2:
+            from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+
+            feats = k2.fused_mfcc(audio, cfg)
+        elif cfg.preprocess_method == "mfcc":
             feats = mfcc(audio, cfg)
         else:
             feats = log_mel_spectrogram(audio, cfg, magnitude_squared=False)

@@ -2,8 +2,9 @@
 
 Each `tcresnet_tpu_torch/csrc/<name>.cu` compiles on its own into a
 shared library with a plain C entry point (no PyTorch headers, so a
-build takes seconds). The library is named by a hash of its source and
-the compiler flags, so a stale build is never loaded, and is written
+build takes seconds). The library is named by a hash of its source, of
+every shared header (`csrc/*.cuh`, which the sources include) and of the
+compiler flags, so a stale build is never loaded, and is written
 under a temporary name and renamed into place, so a build cut off
 half-way is never loaded either. ptxas's register / shared-memory /
 spill report is kept beside it as `<lib>.log`.
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -48,30 +50,48 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu for the current source lives."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of csrc/<name>.cu for the current sources lives.
+
+    The digest covers the .cu and every csrc/*.cuh: a change to a shared
+    header alone must not load a build of the old one."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless this exact source is already built."""
-    so = library_path(name)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    return build_all([name])[name]
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Compile every csrc/<name>.cu of `names` that is not built yet, one
+    nvcc process per source, all started together; {name: library}."""
+    libs = {name: library_path(name) for name in names}
+    todo = {name: so for name, so in libs.items() if not so.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        procs = {}
+        for name, so in todo.items():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n{out}")
+                continue
+            todo[name].with_suffix(".log").write_text(out)
+            os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,3 +99,37 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed. One
     load per process: a CDLL cannot be unloaded safely."""
     return ctypes.CDLL(str(build(name)))
+
+
+def bind(name: str, args_type, entries, size_fn: str, error_fn: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu with its C entry points typed: each of
+    `entries` takes (const Args*, stream) and returns a cudaError_t. The
+    ctypes mirror `args_type` is checked against the C struct's size."""
+    lib = load_library(name)
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    getattr(lib, error_fn).argtypes = [ctypes.c_int]
+    getattr(lib, error_fn).restype = ctypes.c_char_p
+    getattr(lib, size_fn).restype = ctypes.c_int
+    c_size = getattr(lib, size_fn)()
+    if c_size != ctypes.sizeof(args_type):
+        raise RuntimeError(
+            f"{args_type.__name__} layout mismatch: C {c_size} bytes, "
+            f"ctypes {ctypes.sizeof(args_type)} bytes"
+        )
+    return lib
+
+
+def launch(lib: ctypes.CDLL, entry: str, error_fn: str, args, device) -> None:
+    """Call entry(&args, stream) on `device`'s current stream; raise if
+    the launch was refused (cudaGetLastError() != 0)."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(ctypes.byref(args), ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = getattr(lib, error_fn)(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")

@@ -1,0 +1,116 @@
+"""Single-kernel training input path (K3): int16 dataset rows by index ->
+decode -> augment -> MFCC or log-mel features [B, frames, C].
+
+Counterpart of tcresnet_tpu/ops/pallas/frontend.py (hops branch). The
+kernel is `csrc/frontend.cu`: K1's per-sample body (`augment.cuh`) writes
+the augmented row into shared memory and the shared front end
+(`frontend.cuh`) turns it into features, so the augmented wave never
+reaches device memory. Its plain version is K1's then K2's
+(`frontend_reference`); a wrapper takes it only for CPU tensors.
+
+`launches` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from tcresnet_tpu.config import AudioConfig, AugmentConfig
+from tcresnet_tpu_torch.ops import augment as aug
+from tcresnet_tpu_torch.ops.kernels import _build, mfcc
+from tcresnet_tpu_torch.ops.kernels.augment import (
+    AugmentScalars,
+    _AugArgs,
+    augment_reference,
+    check_inputs,
+    kernel_args,
+)
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+
+class _K3Args(ctypes.Structure):
+    """Mirror of struct K3Args in csrc/frontend.cu."""
+
+    _fields_ = [("fe", mfcc.FeArgs), ("aug", _AugArgs),
+                ("region_a", ctypes.c_int), ("smem_bytes", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return _build.bind("frontend", _K3Args, ["k3_frontend"], "k3_args_size",
+                       "k3_error_string")
+
+
+def build_kernels() -> None:
+    """Build (if needed) and load the kernel library now, not at first launch."""
+    _library()
+
+
+def frontend_fusable(dataset: torch.Tensor, aug_cfg: AugmentConfig,
+                     audio_cfg: AudioConfig, noise_bank: Optional[torch.Tensor],
+                     n: int) -> bool:
+    """Whether the single-kernel path applies: K1 takes the dataset and
+    config, and K2 the feature geometry (MFCC or log-mel)."""
+    return (aug.gather_fusable(dataset, aug_cfg, noise_bank, n)
+            and mfcc.fused_mfcc_available(audio_cfg, n))
+
+
+def frontend_reference(dataset: torch.Tensor, idx: torch.Tensor, scalars: AugmentScalars,
+                       noise_bank: torch.Tensor, audio_cfg: AudioConfig, n: int,
+                       quantize: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K3: K1's plain version, then K2's."""
+    wavs = augment_reference(dataset, idx, scalars, noise_bank, n, quantize)
+    return mfcc.fused_mfcc_reference(wavs, audio_cfg)
+
+
+def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: AugmentScalars,
+                      noise_bank: torch.Tensor, audio_cfg: AudioConfig, n: int,
+                      quantize: bool = False) -> torch.Tensor:
+    """[rows, S] int16 dataset + idx [B] int32 + the batch's draws ->
+    [B, frames, C] f32: K3 for CUDA tensors, its plain version for CPU."""
+    global launches
+    mfcc.resolve_dft_variant(audio_cfg)
+    if dataset.device.type == "cpu":
+        return frontend_reference(dataset, idx, scalars, noise_bank, audio_cfg, n, quantize)
+    if dataset.device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device type {dataset.device.type!r}")
+    check_inputs(dataset, idx, scalars, noise_bank, n)
+    if not mfcc.fused_mfcc_available(audio_cfg, n):
+        raise ValueError(f"K3 does not serve n={n} with this geometry "
+                         f"({audio_cfg.preprocess_method}, window "
+                         f"{audio_cfg.window_size_samples}, hop "
+                         f"{audio_cfg.window_stride_samples})")
+    fe = mfcc.front_end(audio_cfg, n, dataset.device)
+    g = fe.geom
+    out = torch.empty((idx.shape[0], g.frames, g.width), device=dataset.device,
+                      dtype=torch.float32)
+    if idx.shape[0] == 0:
+        return out
+    region_a, region_b = g.regions()
+    args = _K3Args(fe.args(), kernel_args(dataset, idx, scalars, noise_bank, out, n, quantize),
+                   region_a, 4 * (region_a + region_b))
+    _build.launch(_library(), "k3_frontend", "k3_error_string", args, dataset.device)
+    launches += 1
+    return out
+
+
+def fused_gather_augment_mfcc(dataset: torch.Tensor, idx: torch.Tensor,
+                              is_silent: torch.Tensor, generator: torch.Generator,
+                              aug_cfg: AugmentConfig, audio_cfg: AudioConfig,
+                              noise_bank: torch.Tensor, is_training: bool,
+                              n: int) -> torch.Tensor:
+    """Draw the batch's augmentation scalars and run K3 (callers check
+    `frontend_fusable` first)."""
+    if not frontend_fusable(dataset, aug_cfg, audio_cfg, noise_bank, n):
+        raise ValueError(
+            "fused_gather_augment_mfcc requires frontend_fusable(); callers "
+            "must check it and fall back")
+    scalars = aug.draw_scalars(generator, is_silent, aug_cfg, noise_bank, n, is_training)
+    return frontend_features(dataset, idx, scalars, noise_bank, audio_cfg, n,
+                             bool(getattr(aug_cfg, "noise_crop_quantize", False)))

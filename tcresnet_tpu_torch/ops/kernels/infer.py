@@ -35,13 +35,12 @@ from tcresnet_tpu.config import AudioConfig, ModelConfig
 from tcresnet_tpu_torch.models import layers
 from tcresnet_tpu_torch.models.tc_resnet import TC_CHANNELS, block_plan, scaled_channels
 from tcresnet_tpu_torch.ops import dsp
-from tcresnet_tpu_torch.ops.kernels import _build
+from tcresnet_tpu_torch.ops.kernels import _build, mfcc
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
 
 _MAX_CONVS = 32  # K4_MAX_CONVS in csrc/infer.cu
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _ROLES = {"conv0": 0, "down": 1, "block0": 2, "block1": 3}
 
 
@@ -52,12 +51,7 @@ _ROLES = {"conv0": 0, "down": 1, "block0": 2, "block1": 3}
 
 @dataclasses.dataclass(frozen=True)
 class _Geometry:
-    n: int
-    window: int
-    hop: int
-    frames: int
-    num_bins: int
-    ncg: int  # DFT column groups of 4: (re_k, im_k, re_k+1, im_k+1)
+    fe: mfcc.FrontEndGeometry  # the shared front end's (csrc/frontend.cuh)
     act_max: int  # largest conv activation, T * C floats
     region_a: int
     smem_bytes: int
@@ -75,17 +69,12 @@ def _conv_shapes(model_cfg: ModelConfig, t: int) -> List[Tuple[int, int]]:
 
 
 def _geometry(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> _Geometry:
-    n = audio_cfg.desired_samples
-    window, hop = audio_cfg.window_size_samples, audio_cfg.window_stride_samples
-    frames = dsp.num_frames_for(n, window, hop)
-    num_bins = dsp.fft_length_for(window) // 2 + 1
-    ncg = -(-num_bins // 2)
-    act_max = max(t * c for t, c in _conv_shapes(model_cfg, frames))
-    region_a = max(n, frames * audio_cfg.num_mel_bins, 3 * act_max)
-    region_a += -region_a % 4  # keeps region B 16-byte aligned
+    fe = mfcc.front_end_geometry(audio_cfg, audio_cfg.desired_samples)
+    act_max = max(t * c for t, c in _conv_shapes(model_cfg, fe.frames))
+    region_a, region_b = fe.regions(3 * act_max)
     c_last = scaled_channels(model_cfg.name, model_cfg.width_multiplier)[-1]
-    smem = 4 * (region_a + frames * 2 * ncg + c_last)
-    return _Geometry(n, window, hop, frames, num_bins, ncg, act_max, region_a, smem)
+    smem = 4 * (region_a + region_b + c_last)
+    return _Geometry(fe, act_max, region_a, smem)
 
 
 def fused_infer_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> bool:
@@ -96,19 +85,15 @@ def fused_infer_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> boo
     (every preset's), and a shared-memory plan that fits one Hopper block."""
     if model_cfg.name not in TC_CHANNELS:
         return False
-    if audio_cfg.preprocess_method not in ("mfcc", "log_mel_spectrogram"):
-        return False
     n = audio_cfg.desired_samples
     window, hop = audio_cfg.window_size_samples, audio_cfg.window_stride_samples
-    if window % hop or n % hop or n < window or hop % 4 or window % 4:
+    if window % hop or n % hop or not mfcc.front_end_supported(audio_cfg, n):
         return False
     geom = _geometry(model_cfg, audio_cfg)
-    shapes = _conv_shapes(model_cfg, geom.frames)
-    # the features overwrite the power spectrum in place: C <= 2 * ncg
-    fits = dsp.feature_width(audio_cfg) <= 2 * geom.ncg
+    shapes = _conv_shapes(model_cfg, geom.fe.frames)
     # a conv thread computes 4 output channels from 16-byte weight loads
     quads = all(c % 4 == 0 for _, c in shapes)
-    return fits and quads and geom.smem_bytes <= _SMEM_LIMIT and len(shapes) <= _MAX_CONVS
+    return quads and geom.smem_bytes <= mfcc.SMEM_LIMIT and len(shapes) <= _MAX_CONVS
 
 
 # ---------------------------------------------------------------------------
@@ -158,17 +143,6 @@ def build_layer_spec(
     return spec, np.ascontiguousarray(fc)
 
 
-def interleaved_dft_matrix(window: int, fft_length: int, ncg: int) -> np.ndarray:
-    """[window, 4*ncg] windowed real-DFT matrix with columns
-    (re_k, im_k, re_k+1, im_k+1) per group; bins past the last are zero."""
-    std = dsp.windowed_rdft_matrix(window, fft_length)
-    num_bins = fft_length // 2 + 1
-    out = np.zeros((window, 2 * ncg, 2), np.float32)
-    out[:, :num_bins, 0] = std[:, :num_bins]
-    out[:, :num_bins, 1] = std[:, num_bins:]
-    return out.reshape(window, 4 * ncg)
-
-
 # ---------------------------------------------------------------------------
 # the plan: folded constants on the device
 # ---------------------------------------------------------------------------
@@ -195,29 +169,17 @@ class _K4Args(ctypes.Structure):
     """Mirror of struct K4Args in csrc/infer.cu (checked by size at load)."""
 
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("wavs", "out", "dft", "mel", "dct", "wts", "fc")]
+        [("fe", mfcc.FeArgs)]
+        + [(f, ctypes.c_void_p) for f in ("wavs", "out", "wts", "fc")]
         + [(f, ctypes.c_int) for f in (
-            "batch", "n", "window", "hop", "frames", "ncg", "num_bins", "num_mel",
-            "num_coef", "magnitude", "round_bf16", "n_convs", "ncls", "act_max",
-            "region_a", "smem_bytes")]
+            "batch", "n_convs", "ncls", "act_max", "region_a", "smem_bytes")]
         + [("convs", _K4Conv * _MAX_CONVS)]
     )
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("infer")
-    lib.k4_infer.argtypes = [ctypes.POINTER(_K4Args), ctypes.c_void_p]
-    lib.k4_infer.restype = ctypes.c_int
-    lib.k4_error_string.argtypes = [ctypes.c_int]
-    lib.k4_error_string.restype = ctypes.c_char_p
-    lib.k4_args_size.restype = ctypes.c_int
-    if lib.k4_args_size() != ctypes.sizeof(_K4Args):
-        raise RuntimeError(
-            f"K4Args layout mismatch: C {lib.k4_args_size()} bytes, "
-            f"ctypes {ctypes.sizeof(_K4Args)} bytes"
-        )
-    return lib
+    return _build.bind("infer", _K4Args, ["k4_infer"], "k4_args_size", "k4_error_string")
 
 
 def build_kernels() -> None:
@@ -243,22 +205,15 @@ class FusedInfer:
         geom = _geometry(model_cfg, audio_cfg)
         self.device = torch.device(device)
         self.geom = geom
-        self.magnitude = audio_cfg.preprocess_method == "log_mel_spectrogram"
-        self.matmul_dtype = dsp.dsp_matmul_dtype(audio_cfg)
-        self.num_mel = audio_cfg.num_mel_bins
         self.ncls = model_cfg.num_classes
 
         def dev(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32), device=self.device)
 
-        fft_length = dsp.fft_length_for(geom.window)
-        self.dft = dsp.round_operand(
-            dev(interleaved_dft_matrix(geom.window, fft_length, geom.ncg)),
-            self.matmul_dtype,
-        )
-        self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(audio_cfg)))
-        self.dct = None if self.magnitude else dev(
-            dsp.dct_ii_matrix(audio_cfg.num_mel_bins, audio_cfg.num_mfccs))
+        self.fe = mfcc.front_end(audio_cfg, geom.fe.n, self.device)
+        self.magnitude = geom.fe.magnitude
+        self.matmul_dtype = self.fe.matmul_dtype
+        self.dft, self.mel, self.dct = self.fe.dft, self.fe.mel, self.fe.dct
 
         spec, fc = build_layer_spec(model_cfg, params, batch_stats)
         self.fc = dev(fc)
@@ -285,13 +240,9 @@ class FusedInfer:
     def kernel_args(self, wavs: torch.Tensor, out: torch.Tensor) -> _K4Args:
         g = self.geom
         args = _K4Args(
-            wavs.data_ptr(), out.data_ptr(), self.dft.data_ptr(), self.mel.data_ptr(),
-            self.mel.data_ptr() if self.dct is None else self.dct.data_ptr(),
-            self.wts.data_ptr(), self.fc.data_ptr(),
-            wavs.shape[0], g.n, g.window, g.hop, g.frames, g.ncg, g.num_bins,
-            self.num_mel, self.num_mel if self.dct is None else self.dct.shape[1],
-            int(self.magnitude), int(self.matmul_dtype == torch.bfloat16),
-            len(self.convs), self.ncls, g.act_max, g.region_a, g.smem_bytes,
+            self.fe.args(), wavs.data_ptr(), out.data_ptr(), self.wts.data_ptr(),
+            self.fc.data_ptr(), wavs.shape[0], len(self.convs), self.ncls,
+            g.act_max, g.region_a, g.smem_bytes,
         )
         for i, c in enumerate(self.convs):
             ci, co = c.w.shape[0] // c.k, c.w.shape[1]
@@ -334,7 +285,7 @@ def _conv_step(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
 
 def fused_infer_reference(wavs: torch.Tensor, plan: FusedInfer) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on the plan's constants."""
-    g = plan.geom
+    g = plan.geom.fe
     frames = dsp.round_operand(
         dsp.frame_signal(wavs.to(torch.float32), g.window, g.hop), plan.matmul_dtype)
     reim = (frames @ plan.dft).unflatten(-1, (2 * g.ncg, 2))
@@ -373,19 +324,14 @@ def fused_infer(wavs: torch.Tensor, plan: FusedInfer) -> torch.Tensor:
         raise ValueError(f"no K4 kernel for device type {wavs.device.type!r}")
     if wavs.dtype != torch.float32:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
-    if wavs.dim() != 2 or wavs.shape[1] != plan.geom.n:
-        raise ValueError(f"wavs must be [B, {plan.geom.n}], got {list(wavs.shape)}")
+    if wavs.dim() != 2 or wavs.shape[1] != plan.geom.fe.n:
+        raise ValueError(f"wavs must be [B, {plan.geom.fe.n}], got {list(wavs.shape)}")
     if not wavs.is_contiguous():
         raise ValueError("wavs must be contiguous")
     out = torch.empty((wavs.shape[0], plan.ncls), device=wavs.device, dtype=torch.float32)
     if wavs.shape[0] == 0:
         return out
-    lib = _library()
-    args = plan.kernel_args(wavs, out)
-    with torch.cuda.device(wavs.device):
-        stream = torch.cuda.current_stream(wavs.device).cuda_stream
-        rc = lib.k4_infer(ctypes.byref(args), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"K4 launch failed: {lib.k4_error_string(rc).decode()} ({rc})")
+    _build.launch(_library(), "k4_infer", "k4_error_string",
+                  plan.kernel_args(wavs, out), wavs.device)
     launches += 1
     return out

@@ -80,16 +80,19 @@ def test_preprocess_bf16_dft_matches_jax():
 
 
 def test_preprocess_backends():
-    """"auto" is the plain path; "pallas" names the unported K2 kernel;
-    radix4 is not ported; no_preprocessing adds the channel axis."""
+    """"auto" is the plain path on the CPU; "pallas" names the K2 kernel,
+    whose plain version a CPU batch runs; radix4 is not ported;
+    no_preprocessing adds the channel axis."""
     cfg = GEOMETRIES["30/10ms"]
     wavs = torch.tensor(np.random.default_rng(9).uniform(
         -1, 1, (2, cfg.desired_samples)).astype(np.float32))
     plain = tdsp.preprocess(wavs, cfg)
     auto = tdsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="auto"))
     assert torch.equal(plain, auto)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tdsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="pallas"))
+    pallas = tdsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="pallas"))
+    assert torch.equal(plain, pallas)
+    with pytest.raises(ValueError, match="dsp_backend"):
+        tdsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="mosaic"))
     with pytest.raises(NotImplementedError, match="radix4"):
         tdsp.preprocess(wavs, dataclasses.replace(cfg, dft_variant="radix4"))
     raw = tdsp.preprocess(wavs, dataclasses.replace(cfg, preprocess_method="no_preprocessing"))

@@ -15,6 +15,7 @@ from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_j
 from tcresnet_tpu_torch.ops import dsp as tdsp
 from tcresnet_tpu_torch.ops.kernels import _build
 from tcresnet_tpu_torch.ops.kernels import infer as k4
+from tcresnet_tpu_torch.ops.kernels import mfcc
 
 torch.set_num_threads(1)
 
@@ -111,7 +112,7 @@ def test_availability_gates():
 
 def test_interleaved_dft_matrix_layout():
     std = tdsp.windowed_rdft_matrix(480, 512)
-    inter = k4.interleaved_dft_matrix(480, 512, 129).reshape(480, 258, 2)
+    inter = mfcc.interleaved_dft_matrix(480, 512, 129).reshape(480, 258, 2)
     np.testing.assert_array_equal(inter[:, :257, 0], std[:, :257])
     np.testing.assert_array_equal(inter[:, :257, 1], std[:, 257:])
     assert not inter[:, 257:].any()

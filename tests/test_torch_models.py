@@ -117,8 +117,8 @@ def test_build_model_rejects_what_is_not_ported():
             build_model(ModelConfig(name=name), (98, 40, 1), device="cpu")
     with pytest.raises(KeyError):
         build_model(ModelConfig(name="NoSuchNet"), (98, 40, 1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(), (98, 40, 1), "bfloat16", device="cpu")
-    model = build_model(ModelConfig(), SHAPE, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        model(torch.zeros((1,) + SHAPE))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model(ModelConfig(), (98, 40, 1), "float16", device="cpu")
+    # training mode and bf16 compute are ported now
+    model = build_model(ModelConfig(), SHAPE, "bfloat16", device="cpu").train()
+    assert model(torch.zeros((2,) + SHAPE)).shape == (2, 12)
