@@ -36,6 +36,23 @@ weights and data made from seeds, in phases that print their lines:
  11. times    each new kernel against its plain version at batch 1536;
               ms/step, utt/s and the device's busy share of the step for
               the input legs at batch 1536 and 4096
+ 12. build    tconv.cu (K7: fwd, dx, dw), its ptxas line
+ 13. kernel   K7 against its plain version (TF32 off) at TCResNet8-1.0's ten
+              conv geometries, batch 1, 8, 1536, f32 and bf16-rounded
+              inputs, and TCResNet14-1.5's at batch 1536; launch counters;
+              dw identical on two calls
+ 14. train    the main path through K7: Trainer with conv_backend="pallas"
+              at batch 1536 in bf16, 30 steps, a checkpoint every 10; K7
+              launches per step (10 fwd, 9 dx, 10 dw) and per train-stream
+              eval (10 fwd); the loss falls; resume is exact; a float32
+              batch-100 preset leg "pallas" against "xla" over 5 steps
+ 15. evaluate the loop evaluator (tools/evaluate.py) over that run on the
+              synthetic valid split: each checkpoint scored once through
+              K7's forward, the best promoted and re-scored identically;
+              "pallas" against "xla" on one checkpoint
+ 16. times    K7 against its plain version and cuDNN over one step's ten
+              convs at batch 1536; the train step "pallas" against "xla";
+              eval utt/s
 
 then the kernel summary as one JSON line, and last
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -66,7 +83,22 @@ BF16_TOL = 5e-3
 # features: the JAX package's front-end kernel tolerance
 # (tests/test_pallas_frontend.py): float32 sums in another order
 FEATURE_ATOL = 1e-4
-SOURCES = ("infer", "augment", "mfcc", "frontend")
+# K7 fwd and dx: the JAX package's kernel test (tests/test_pallas_tconv.py):
+# float32 sums in another order
+TCONV_FWD_TOL = dict(atol=1e-5, rtol=1e-5)
+TCONV_DX_TOL = dict(atol=2e-4, rtol=1e-4)
+# K7 dw: each entry sums up to B * To = 150,528 products (conv0, batch 1536)
+# in another order than the plain einsum; relative to max|dw|
+TCONV_DW_REL = 1e-5
+# "pallas" against "xla" (cuDNN, TF32 off), float32, same weights and draws:
+# the first step's loss differs by the convs' summation order alone. A
+# later step can differ more: an activation within ~1e-6 of a ReLU's zero
+# can land on either side in the two backends, and the step's gradient then
+# differs in one BN by a sizeable share. On the CPU one such element of
+# 62,400 (a silence row) moved the step-5 loss by 1.9e-3 relative; on the
+# H100 the legs agreed within 2e-7 (PERF.md)
+FIRST_STEP_RTOL, TRAIN_LEG_RTOL = 1e-5, 1e-2
+SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv")
 
 
 def check(ok: bool, what: str) -> None:
@@ -223,7 +255,8 @@ def main() -> int:
                   f"device median {devt['median']:.1f} us (min {devt['min']:.1f}, max {devt['max']:.1f}) | "
                   f"{devt['median'] / batch:.3f} us/utt | {card}")
 
-    train_kernels = training_phases(dev, card)
+    train_kernels, ds = training_phases(dev, card)
+    tconv_kernels = tconv_phases(dev, card, ds)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -235,12 +268,33 @@ def main() -> int:
         "plain_ms": times[("kernel_plain_version", 1)] / 1e3,
         "ms_b1024": times[("kernel", 1024)] / 1e3,
         "plain_ms_b1024": times[("kernel_plain_version", 1024)] / 1e3,
-    }] + train_kernels}
+    }] + train_kernels + tconv_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def smoke_train_cfg(flagship, batch, fuse, dtype="bfloat16", conv_backend="xla", **kw):
+    """The training legs' config: batch, compute dtype, the input kernels
+    forced on (K3 with fuse "on", K1 + K2 with "off"), conv_backend, and
+    cadences of 10 steps (no checkpoints unless `kw` asks)."""
+    train = dict(max_step=10**9, step_save_checkpoint=10**6, step_evaluation=10,
+                 summary_step_verbose=10, summary_step_default=10)
+    train.update(kw)
+    return flagship.replace(
+        train=dataclasses.replace(flagship.train, batch_size=batch, compute_dtype=dtype, **train),
+        model=dataclasses.replace(flagship.model, conv_backend=conv_backend),
+        audio=dataclasses.replace(flagship.audio, dsp_backend="pallas", frontend_fuse=fuse),
+        augment=dataclasses.replace(flagship.augment, backend="pallas"),
+        data=dataclasses.replace(flagship.data, use_synthetic=True,
+                                 synthetic_num_samples=24_100))
+
+
+def train_records(trainer) -> list:
+    lines = (trainer.workdir / "train_metrics.jsonl").read_text().splitlines()
+    return [json.loads(x) for x in lines]
 
 
 def device_ms(fn, runs: int = 20) -> float:
@@ -269,8 +323,9 @@ def device_busy_ms(fn) -> float:
     return dev_us / 1e3 if dev_us > 0 else float("nan")
 
 
-def training_phases(dev: torch.device, card: str) -> list:
-    """Phases 7-11: the training slice's kernels and its main path."""
+def training_phases(dev: torch.device, card: str):
+    """Phases 7-11: the training slice's kernels and its main path;
+    (kernel summary entries, the device dataset)."""
     import tempfile
 
     from tcresnet_tpu.config import get_preset
@@ -373,17 +428,7 @@ def training_phases(dev: torch.device, card: str) -> list:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
 
     def train_cfg(batch, fuse, dtype="bfloat16", **kw):
-        return flagship.replace(
-            train=dataclasses.replace(flagship.train, batch_size=batch, compute_dtype=dtype,
-                                      max_step=10**9, step_save_checkpoint=10**6,
-                                      step_evaluation=10, summary_step_verbose=10,
-                                      summary_step_default=10, **kw),
-            audio=dataclasses.replace(flagship.audio, dsp_backend="pallas", frontend_fuse=fuse),
-            augment=dataclasses.replace(flagship.augment, backend="pallas"))
-
-    def metrics(trainer):
-        lines = (trainer.workdir / "train_metrics.jsonl").read_text().splitlines()
-        return [json.loads(x) for x in lines]
+        return smoke_train_cfg(flagship, batch, fuse, dtype, **kw)
 
     steps = 30
     k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = 0
@@ -398,7 +443,7 @@ def training_phases(dev: torch.device, card: str) -> list:
         wall = time.perf_counter() - t0
         delta = tuple(a - b for a, b in zip(
             (k16.k1_launches, k2.launches, k3.launches, k16.k6_launches), before))
-        records = metrics(trainer)
+        records = train_records(trainer)
         losses = [r["total_loss"] for r in records if "total_loss" in r]
         evals = [r for r in records if "train_stream/accuracy" in r]
         legs[fuse] = (delta, losses, evals, wall)
@@ -419,7 +464,7 @@ def training_phases(dev: torch.device, card: str) -> list:
     preset = flagship.replace(train=dataclasses.replace(flagship.train, max_step=10**9))
     trainer = Trainer(preset, ds, workdir=f"{workdir}/preset", steps_per_call=5)
     trainer.train(5)
-    losses = [r["total_loss"] for r in metrics(trainer) if "total_loss" in r]
+    losses = [r["total_loss"] for r in train_records(trainer) if "total_loss" in r]
     check(all(np.isfinite(x) for x in losses), f"preset leg: losses {losses}")
     print(f"[train] preset TCResNet8-1.0 (B=100 f32, backends auto): 5 steps, loss "
           + " -> ".join(f"{x:.4f}" for x in losses))
@@ -512,7 +557,289 @@ def training_phases(dev: torch.device, card: str) -> list:
               "tcresnet_tpu/ops/pallas/mfcc.py:410", mfcc_err, "k2"),
         entry("k3_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
               "tcresnet_tpu/ops/pallas/frontend.py:108", front_err, "k3"),
-    ]
+    ], ds
+
+
+def conv_geometries(model_cfg, t: int, in_channels: int) -> list:
+    """(k, stride, Ci, Co, T) of every conv of a TC-ResNet, in forward order."""
+    from tcresnet_tpu_torch.models.tc_resnet import block_plan, scaled_channels
+
+    channels = scaled_channels(model_cfg.name, model_cfg.width_multiplier)
+    out, prev = [(3, 1, in_channels, channels[0], t)], channels[0]
+    for _, n, down in block_plan(channels):
+        if down:
+            out += [(1, 2, prev, n, t), (9, 2, prev, n, t)]
+            t = -(-t // 2)
+        else:
+            out.append((9, 1, prev, n, t))
+        out.append((9, 1, n, n, t))
+        prev = n
+    return out
+
+
+def tconv_phases(dev: torch.device, card: str, ds) -> list:
+    """Phases 12-16: K7 and the paths through it, training and evaluation."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from tcresnet_tpu.config import get_preset
+    from tcresnet_tpu_torch.data.device_data import DeviceDataset
+    from tcresnet_tpu_torch.evaluation.evaluator import Evaluator
+    from tcresnet_tpu_torch.models.layers import same_padding
+    from tcresnet_tpu_torch.ops.kernels import tconv as k7
+    from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
+    from tcresnet_tpu_torch.tools.train import load_run_config, load_split
+    from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
+    from tcresnet_tpu_torch.train.trainer import Trainer
+
+    # ---- 12. build (compiled in phase 2, all sources at once) ----
+    print(f"[build] tconv.cu for sm_90a | {ptxas_line('tconv')}")
+    k7.build_kernels()
+
+    # ---- 13. K7 against its plain version ----
+    flagship = get_preset("TCResNet8-1.0")
+    geoms = conv_geometries(flagship.model, 98, 40)
+    geoms14 = conv_geometries(get_preset("TCResNet14-1.5").model, 98, 40)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def conv_inputs(batch, geom, bf16=False):
+        k, s, ci, co, t = geom
+        x = torch.randn(batch, ci, t, device=dev, generator=gen)
+        w = torch.randn(co, ci, k, device=dev, generator=gen) * 0.1
+        dy = torch.randn(batch, co, -(-t // s), device=dev, generator=gen)
+        if bf16:
+            x, w, dy = (a.to(torch.bfloat16).to(torch.float32) for a in (x, w, dy))
+        return x, w, dy
+
+    errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    cases = [("TCResNet8-1.0", b, geoms) for b in (1, 8, 1536)] + [("TCResNet14-1.5", 1536, geoms14)]
+    for label, batch, gs in cases:
+        for bf16 in (False, True):
+            worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_rel": 0.0}
+            for geom in gs:
+                k, s, _, _, t = geom
+                x, w, dy = conv_inputs(batch, geom, bf16)
+                before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
+                y, dx = k7.tconv_fwd(x, w, s), k7.tconv_dx(dy, w, t, s)
+                dw, dw_again = k7.tconv_dw(x, dy, k, s), k7.tconv_dw(x, dy, k, s)
+                torch.cuda.synchronize()
+                check((k7.fwd_launches, k7.dx_launches, k7.dw_launches)
+                      == (before[0] + 1, before[1] + 1, before[2] + 2),
+                      f"K7 {geom} B={batch}: launch counters did not advance by one per call")
+                want_y = k7.tconv_fwd_reference(x, w, s)
+                want_dx = k7.tconv_dx_reference(dy, w, t, s)
+                want_dw = k7.tconv_dw_reference(x, dy, k, s)
+                check(torch.allclose(y, want_y, **TCONV_FWD_TOL), f"K7 fwd {geom} B={batch}")
+                check(torch.allclose(dx, want_dx, **TCONV_DX_TOL), f"K7 dx {geom} B={batch}")
+                dw_err = (dw - want_dw).abs().max().item()
+                check(dw_err <= TCONV_DW_REL * want_dw.abs().max().item(),
+                      f"K7 dw {geom} B={batch}: max err {dw_err}")
+                check(torch.equal(dw, dw_again), f"K7 dw {geom} B={batch}: two calls differ")
+                worst["fwd"] = max(worst["fwd"], (y - want_y).abs().max().item())
+                worst["dx"] = max(worst["dx"], (dx - want_dx).abs().max().item())
+                worst["dw"] = max(worst["dw"], dw_err)
+                worst["dw_rel"] = max(worst["dw_rel"], dw_err / want_dw.abs().max().item())
+            for op in errs:
+                errs[op] = max(errs[op], worst[op])
+            print(f"[kernel] K7 {label} B={batch} {'bf16-rounded' if bf16 else 'f32'} inputs, "
+                  f"{len(gs)} convs: max |err| fwd {worst['fwd']:.2e}, dx {worst['dx']:.2e}, "
+                  f"dw {worst['dw']:.2e} ({worst['dw_rel']:.1e} of max|dw|); dw bit-identical "
+                  f"on two calls")
+
+    # ---- 14. train through K7: the main path ----
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_k7_")
+    run = f"{workdir}/run"
+    steps = 30
+    cfg = smoke_train_cfg(flagship, 1536, "on", conv_backend="pallas", step_save_checkpoint=10)
+    k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, workdir=run, steps_per_call=10)
+    trainer.train(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = {"fwd": k7.fwd_launches, "dx": k7.dx_launches, "dw": k7.dw_launches}
+    records = train_records(trainer)
+    losses = [r["total_loss"] for r in records if "total_loss" in r]
+    evals = [r for r in records if "train_stream/accuracy" in r]
+    # 10 convs: 10 fwd, 10 dw and 9 dx per step (the features need no dx),
+    # and 10 fwd per train-stream eval
+    want = {"fwd": 10 * steps + 10 * len(evals), "dx": 9 * steps, "dw": 10 * steps}
+    check(len(evals) == steps // 10, f"train K7: {len(evals)} train-stream evals")
+    check(main_launches == want, f"train K7: launches {main_launches}, want {want}")
+    check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train K7: loss did not fall: {losses}")
+    check(trainer.ckpt.all_steps() == [10, 20, 30], f"train K7: checkpoints {trainer.ckpt.all_steps()}")
+    print(f"[train] B=1536 bf16 conv_backend=pallas: {steps} steps in {wall:.1f} s, K7 launches "
+          f"fwd {main_launches['fwd']} dx {main_launches['dx']} dw {main_launches['dw']} "
+          f"(per step 10/9/10, per train-stream eval 10 fwd); loss "
+          + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; checkpoints {trainer.ckpt.all_steps()}")
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = Trainer(cfg, ds, workdir=f"{workdir}/resume", steps_per_call=2)
+        first.train(4)
+        straight = [float(first.train_steps(1, start=4 + i)["total_loss"]) for i in range(3)]
+        second = Trainer(cfg, ds, workdir=f"{workdir}/resume", steps_per_call=2)
+        check(second.maybe_restore() == 4, "resume K7: not restored at step 4")
+        resumed = [float(second.train_steps(1, start=4 + i)["total_loss"]) for i in range(3)]
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    check(resumed == straight, f"resume K7: {resumed} != {straight}")
+    print(f"[train] K7 resume at step 4: steps 5-7 losses {resumed} equal the uninterrupted run's")
+
+    preset = flagship.replace(train=dataclasses.replace(flagship.train, max_step=10**9))
+    leg = {}
+    for backend in ("pallas", "xla"):
+        legcfg = preset.replace(model=dataclasses.replace(preset.model, conv_backend=backend))
+        tr = Trainer(legcfg, ds, workdir=f"{workdir}/preset_{backend}")
+        leg[backend] = [float(tr.train_steps(1, start=i)["total_loss"]) for i in range(5)]
+    rels = [abs(a - b) / abs(b) for a, b in zip(leg["pallas"], leg["xla"])]
+    rel = max(rels)
+    check(rels[0] <= FIRST_STEP_RTOL and rel <= TRAIN_LEG_RTOL,
+          f"preset leg: pallas {leg['pallas']} vs xla {leg['xla']}")
+    print(f"[train] preset TCResNet8-1.0 (B=100 f32), same weights and draws, 5 steps: pallas "
+          + " ".join(f"{x:.6f}" for x in leg["pallas"]) + " | xla (TF32 off) "
+          + " ".join(f"{x:.6f}" for x in leg["xla"]) + " | rel diff "
+          + " ".join(f"{x:.1e}" for x in rels)
+          + f" (limits {FIRST_STEP_RTOL} at step 1, {TRAIN_LEG_RTOL} over 5)")
+
+    # ---- 15. evaluate: the loop evaluator over the run ----
+    run_cfg = load_run_config(run)
+    k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+    t0 = time.perf_counter()
+    evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
+                       "--valid-type", "loop"])
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    eval_launches = k7.fwd_launches
+    scored = {r["step"]: r for r in map(json.loads,
+                                        open(f"{run}/valid_metrics.jsonl").read().splitlines())}
+    n_valid = max(24_100 // 8, 128)
+    batches = -(-n_valid // run_cfg.data.eval_batch_size)
+    check(sorted(scored) == [10, 20, 30] and all(r["num_samples"] == n_valid
+                                                  for r in scored.values()),
+          f"evaluate: scored steps {sorted(scored)}")
+    check((eval_launches, k7.dx_launches, k7.dw_launches) == (10 * batches * 3, 0, 0),
+          f"evaluate: K7 launches fwd {eval_launches} dx {k7.dx_launches} dw {k7.dw_launches}")
+    best_step = CheckpointManager(f"{run}/best/valid/accuracy").latest_step()
+    check(best_step in scored, f"evaluate: best/valid/accuracy holds {best_step}")
+    again = evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
+                               "--valid-type", "once", "--best-metric", "accuracy"])
+    for key in ("accuracy", "loss", "mAP_macro"):
+        check(again[key] == scored[best_step][key],
+              f"evaluate once: {key} {again[key]} != {scored[best_step][key]}")
+    print(f"[evaluate] loop over {run}: checkpoints {sorted(scored)} scored once each on "
+          f"{n_valid} valid rows ({batches} batches of {run_cfg.data.eval_batch_size}, the last "
+          f"padded) in {eval_wall:.1f} s, K7 fwd launches {eval_launches} = 10 x {batches} x 3; "
+          "accuracy " + " ".join(f"{scored[s]['accuracy']:.4f}" for s in sorted(scored))
+          + f"; best/valid/accuracy = step {best_step}, re-scored identically "
+          f"(accuracy {again['accuracy']:.4f}, loss {again['loss']:.6f})")
+
+    valid = DeviceDataset(load_split(run_cfg, "valid"), dev)
+    saved = torch.load(CheckpointManager(f"{run}/ckpt").path(30), map_location="cpu",
+                       weights_only=True)
+    f32 = run_cfg.replace(train=dataclasses.replace(run_cfg.train, compute_dtype="float32"))
+    res = {}
+    for backend in ("pallas", "xla"):
+        ev = Evaluator(f32.replace(model=dataclasses.replace(f32.model, conv_backend=backend)),
+                       valid)
+        res[backend] = ev.evaluate(saved["params"], saved["batch_stats"], include_report=False)
+    # loss within 1e-5, relative once it exceeds 1 (after 30 steps the BN
+    # running statistics are still mostly their initial values, so the
+    # eval-mode loss can be large)
+    dloss = abs(res["pallas"]["loss"] - res["xla"]["loss"]) / max(1.0, abs(res["xla"]["loss"]))
+    dacc = abs(res["pallas"]["accuracy"] - res["xla"]["accuracy"]) * n_valid
+    check(dloss <= 1e-5 and dacc <= 1 + 1e-6,
+          f"evaluate pallas vs xla: loss differs by {dloss}, accuracy by {dacc} samples")
+    print(f"[evaluate] step 30, float32, pallas vs xla (TF32 off): loss "
+          f"{res['pallas']['loss']:.7f} vs {res['xla']['loss']:.7f} (rel diff {dloss:.1e}), accuracy "
+          f"{res['pallas']['accuracy']:.5f} vs {res['xla']['accuracy']:.5f} ({dacc:.0f} samples)")
+
+    # ---- 16. times ----
+    batch = 1536
+    sets = []
+    for geom in geoms:
+        k, s, ci, co, t = geom
+        x, w, dy = conv_inputs(batch, geom)
+        _, lo, hi = same_padding(t, k, s)
+        sets.append((k, s, t, lo, hi, x, w, dy, F.pad(x, (lo, hi))))
+    ops = {
+        "fwd": (lambda: [k7.tconv_fwd(x, w, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+                lambda: [k7.tconv_fwd_reference(x, w, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+                lambda: [F.conv1d(xp, w, stride=s) for k, s, t, lo, hi, x, w, dy, xp in sets]),
+        "dx": (lambda: [k7.tconv_dx(dy, w, t, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+               lambda: [k7.tconv_dx_reference(dy, w, t, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+               lambda: [torch.nn.grad.conv1d_input(xp.shape, w, dy, stride=s)[..., lo:lo + t]
+                        for k, s, t, lo, hi, x, w, dy, xp in sets]),
+        "dw": (lambda: [k7.tconv_dw(x, dy, k, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+               lambda: [k7.tconv_dw_reference(x, dy, k, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
+               lambda: [torch.nn.grad.conv1d_weight(xp, w.shape, dy, stride=s)
+                        for k, s, t, lo, hi, x, w, dy, xp in sets]),
+    }
+    ms = {}
+    for op, (kernel, plain, cudnn) in ops.items():
+        a, b, c, d = device_ms(kernel), device_ms(plain), device_ms(plain), device_ms(kernel)
+        e = device_ms(cudnn)
+        ms[op] = (min(a, d), min(b, c), e)
+        print(f"[times] K7 {op} B={batch}, the ten convs of one step: kernel {a:.4f} / {d:.4f} ms, "
+              f"plain {b:.4f} / {c:.4f} ms, cuDNN f32 (TF32 off) {e:.4f} ms (CUDA events, median "
+              f"of 20; order kernel, plain, plain, kernel, cuDNN) | {card}")
+
+    trainers, spans = {}, {"pallas": [], "xla": []}
+    for backend in spans:
+        tcfg = smoke_train_cfg(flagship, batch, "on", conv_backend=backend)
+        trainers[backend] = Trainer(tcfg, ds, workdir=f"{workdir}/t_{backend}")
+        trainers[backend].train_steps(3, start=0)
+    n_steps = 20
+    for visit, backend in enumerate(["pallas", "xla", "xla", "pallas"]):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        trainers[backend].train_steps(n_steps, start=3 + visit * n_steps)
+        ev1.record()
+        torch.cuda.synchronize()
+        spans[backend].append(((time.perf_counter() - t0) * 1e3 / n_steps,
+                               ev0.elapsed_time(ev1) / n_steps))
+    for backend, trainer in trainers.items():
+        busy_ms = device_busy_ms(lambda: trainer.train_steps(3, start=500)) / 3
+        host_ms = sum(h for h, _ in spans[backend]) / 2
+        dev_ms = sum(d for _, d in spans[backend]) / 2
+        print(f"[times] train step B={batch} bf16 conv_backend={backend} (K3 input): "
+              + " / ".join(f"{h:.3f}" for h, _ in spans[backend]) + " ms/step host, "
+              + " / ".join(f"{d:.3f}" for _, d in spans[backend]) + " ms/step CUDA events "
+              f"(two visits of {n_steps} steps), {batch / host_ms * 1e3:,.0f} utt/s, device busy "
+              f"{busy_ms:.3f} ms/step = {busy_ms / dev_ms:.1%} of the step | {card}")
+
+    evaluators = {backend: Evaluator(run_cfg.replace(model=dataclasses.replace(
+        run_cfg.model, conv_backend=backend)), valid) for backend in ("pallas", "xla")}
+    eval_s = {backend: [] for backend in evaluators}
+    for backend in evaluators:
+        evaluators[backend].evaluate(saved["params"], saved["batch_stats"], include_report=False)
+    for backend in ("pallas", "xla", "xla", "pallas"):
+        t0 = time.perf_counter()
+        scores = evaluators[backend].evaluate(saved["params"], saved["batch_stats"],
+                                              include_report=False)
+        eval_s[backend].append((time.perf_counter() - t0, scores["batch_infer_time"]))
+    eval_batch = run_cfg.data.eval_batch_size
+    for backend, runs in eval_s.items():
+        print(f"[times] eval bf16 conv_backend={backend}: {n_valid} valid rows in "
+              + " / ".join(f"{s * 1e3:.1f}" for s, _ in runs) + " ms (host clock, two runs), "
+              f"{n_valid / min(s for s, _ in runs):,.0f} utt/s; one synchronised batch of "
+              f"{eval_batch} " + " / ".join(f"{b * 1e3:.2f}" for _, b in runs) + " ms, "
+              f"{eval_batch / min(b for _, b in runs):,.0f} utt/s | {card}")
+
+    def entry(op, line):
+        return {"name": f"k7_tconv_{op}", "route": "cuda",
+                "source": "tcresnet_tpu_torch/csrc/tconv.cu",
+                "replaces": f"tcresnet_tpu/ops/pallas/tconv.py:{line}",
+                "launches": main_launches[op], "max_abs_err": errs[op],
+                "ms": ms[op][0], "plain_ms": ms[op][1], "cudnn_ms": ms[op][2]}
+
+    return [entry("fwd", 63), entry("dx", 68), entry("dw", 99)]
 
 
 if __name__ == "__main__":

@@ -3,6 +3,16 @@
 The port builds the temporal TC-ResNets. Every other family of the JAX
 registry is named here and raises NotImplementedError pointing at its
 ROADMAP.md row, so a config that names it fails loudly.
+
+`ModelConfig.conv_backend` is honoured:
+
+- "xla": cuDNN convs on the card (PyTorch's conv on the CPU);
+- "pallas": every temporal conv, forward and backward, through kernel
+  K7 (`csrc/tconv.cu`) on the card, its plain version on the CPU;
+- "pallas-interpret": K7's plain version on any device (the JAX
+  package's test value);
+- "im2col" raises NotImplementedError (not carried over, ROADMAP.md
+  Queue 1 item 15); any other value raises ValueError.
 """
 
 from __future__ import annotations
@@ -53,7 +63,8 @@ def build_model(
     model = builders[cfg.name](
         cfg.num_classes, cfg.width_multiplier,
         in_channels=feature_shape[1], dropout_keep_prob=cfg.dropout_keep_prob,
-        bn_momentum=cfg.bn_momentum, dtype=dtypes[compute_dtype], device=device,
+        bn_momentum=cfg.bn_momentum, dtype=dtypes[compute_dtype],
+        conv_backend=cfg.conv_backend, device=device,
     )
     return model.eval()
 

@@ -14,9 +14,11 @@ model input keeps the JAX layout [B, T, C(, 1)].
   variance, as Flax does (torch's own batch norm uses the unbiased one).
 - Convs have no bias.
 - `compute_dtype` as the JAX layers honour it: a conv runs in that dtype
-  (its f32 weight cast for the call); batch norm computes its statistics
-  and normalises in float32 and returns the compute dtype; parameters
-  stay float32.
+  (its f32 weight cast for the call), except that the K7 conv
+  (`PallasTemporalConv`) rounds its operands to it and computes and
+  returns float32, as the JAX Pallas conv does; batch norm computes its
+  statistics and normalises in float32 and returns the compute dtype;
+  parameters stay float32.
 - slim.dropout(keep_prob) keeps each unit with probability keep_prob and
   scales it by 1 / keep_prob.
 """
@@ -59,6 +61,61 @@ class TemporalConv(nn.Module):
         _, lo, hi = same_padding(x.shape[-1], self.weight.shape[-1], self.stride)
         x = F.pad(x.to(self.dtype), (lo, hi))
         return F.conv1d(x, self.weight.to(self.dtype), stride=self.stride)
+
+
+class PallasTemporalConv(TemporalConv):
+    """k x 1 conv through kernel K7's forward and backward
+    (ops/kernels/tconv.py; the JAX PallasTemporalConv). The parameter is
+    TemporalConv's, so checkpoints are interchangeable between backends.
+
+    As in JAX, x and the weight are cast to the compute dtype and then to
+    float32, and the conv returns float32 (under bf16 compute the cuDNN
+    path returns bf16); autograd then rounds dx and dw through bf16 where
+    the VJP of JAX's casts does. `interpret` runs the plain versions on
+    any device (the JAX package's "pallas-interpret", a test value)."""
+
+    def __init__(self, *args, interpret: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.interpret = interpret
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from tcresnet_tpu_torch.ops.kernels.tconv import temporal_conv
+
+        x = x.to(self.dtype).to(torch.float32)
+        w = self.weight.to(self.dtype).to(torch.float32)
+        return temporal_conv(x, w, self.stride, self.interpret)
+
+
+def slim_conv(in_channels: int, out_channels: int, kernel: Tuple[int, int],
+              stride: Tuple[int, int], *, conv_backend: str = "xla",
+              dtype: torch.dtype = torch.float32, device=None) -> nn.Module:
+    """The conv module for a Flax-style (kernel, stride) over [B, L, 1, C]
+    activations, by `conv_backend` (JAX layers.py::slim_conv):
+
+      "xla"              TemporalConv (cuDNN on the card)
+      "pallas"           PallasTemporalConv: K7 on the card, its plain
+                         version on the CPU
+      "pallas-interpret" PallasTemporalConv on the plain versions, any device
+
+    Only temporal convs (kernel and stride 1 along the second axis) exist
+    in the port; every TC-ResNet conv is one, the 1x1 stride-(2, 1)
+    shortcut included. "im2col" (Im2ColConv) is not carried over."""
+    if conv_backend == "im2col":
+        raise NotImplementedError(
+            "conv_backend='im2col' (Im2ColConv, an XLA formulation for the TPU) is "
+            "not carried over to the port (ROADMAP.md Queue 1 item 15)")
+    if conv_backend not in ("xla", "pallas", "pallas-interpret"):
+        raise ValueError(f"conv_backend must be 'xla', 'pallas' or 'pallas-interpret', "
+                         f"got {conv_backend!r}")
+    if kernel[1] != 1 or stride[1] != 1:
+        raise NotImplementedError(
+            f"only temporal k x 1 convs are ported, got kernel {kernel} stride {stride} "
+            "(ROADMAP.md Queue 1 item 11)")
+    args = (in_channels, out_channels, kernel[0], stride[0])
+    if conv_backend == "xla":
+        return TemporalConv(*args, dtype=dtype, device=device)
+    return PallasTemporalConv(*args, dtype=dtype, device=device,
+                              interpret=conv_backend == "pallas-interpret")
 
 
 class SlimBatchNorm(nn.Module):

@@ -13,6 +13,12 @@ Flax's creation order, so weights map by name (models/convert.py).
 In training mode batch norm uses batch statistics and updates its running
 ones, and dropout (keep_prob) acts on the pooled vector before the fc,
 its mask drawn from the generator passed to forward().
+
+`conv_backend` picks every conv's implementation (`layers.slim_conv`):
+"xla" runs cuDNN on the card and PyTorch's CPU conv on the host;
+"pallas" runs kernel K7 (`csrc/tconv.cu`, forward and backward) on the
+card and its plain version on the CPU; "pallas-interpret" runs the plain
+version on any device. The parameters are the same for all three.
 """
 
 from __future__ import annotations
@@ -49,12 +55,14 @@ class TCResNet(nn.Module):
     def __init__(self, num_classes: int, n_channels: Tuple[int, ...],
                  in_channels: int, *, dropout_keep_prob: float = 0.5,
                  bn_momentum: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, conv_backend: str = "xla",
+                 device=None):
         super().__init__()
         self.n_channels = tuple(n_channels)
         self.dropout_keep_prob = dropout_keep_prob
         self.bn_momentum = 0.997 if bn_momentum is None else bn_momentum
         self.dtype = dtype
+        self.conv_backend = conv_backend
         self._add_conv_bn("conv0", in_channels, n_channels[0], 3, 1, device)
         prev = n_channels[0]
         for i, n, down in block_plan(self.n_channels):
@@ -68,8 +76,9 @@ class TCResNet(nn.Module):
         nn.init.xavier_uniform_(self.fc.weight)
 
     def _add_conv_bn(self, name, ci, co, k, stride, device):
-        self.add_module(f"{name}_conv", layers.TemporalConv(
-            ci, co, k, stride, dtype=self.dtype, device=device))
+        self.add_module(f"{name}_conv", layers.slim_conv(
+            ci, co, (k, 1), (stride, 1), conv_backend=self.conv_backend,
+            dtype=self.dtype, device=device))
         self.add_module(f"{name}_bn", layers.SlimBatchNorm(
             co, momentum=self.bn_momentum, dtype=self.dtype, device=device))
 

@@ -5,7 +5,9 @@ gathers, decodes and augments them, computes features, runs the forward
 and backward passes, the smoothed cross-entropy plus L2, the unit-LR
 optimizer scaled by the piecewise learning rate, and the EMA. On a CUDA
 device the input path runs through the port's kernels: K1 (gather +
-augment) and K2 (MFCC), or K3 (both in one kernel, `frontend_fuse`).
+augment) and K2 (MFCC), or K3 (both in one kernel, `frontend_fuse`);
+with `model.conv_backend="pallas"` every conv, forward and backward, runs
+through K7 (`csrc/tconv.cu`), and cuDNN with "xla".
 
 Differences from the JAX trainer, and why:
 

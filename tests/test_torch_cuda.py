@@ -1,9 +1,10 @@
 """Card-only tests of the PyTorch port's CUDA kernels: K4 (csrc/infer.cu),
-K1 and K6 (csrc/augment.cu), K2 (csrc/mfcc.cu) and K3 (csrc/frontend.cu).
+K1 and K6 (csrc/augment.cu), K2 (csrc/mfcc.cu), K3 (csrc/frontend.cu)
+and K7 (csrc/tconv.cu).
 
 Each test carries the `cuda` marker and skips without a CUDA card (a CUDA
 kernel has no CPU mode; the plain versions are tested against JAX in
-tests/test_torch_{infer,augment,mfcc,train}.py). This file imports no JAX,
+tests/test_torch_{infer,augment,mfcc,train,tconv}.py). This file imports no JAX,
 so it also runs on a machine with the card and without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
@@ -26,6 +27,7 @@ from tcresnet_tpu_torch.ops.kernels import augment as k16
 from tcresnet_tpu_torch.ops.kernels import frontend as k3
 from tcresnet_tpu_torch.ops.kernels import infer as k4
 from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+from tcresnet_tpu_torch.ops.kernels import tconv as k7
 from tcresnet_tpu_torch.serve.export import build_inference_fn
 from tcresnet_tpu_torch.train.trainer import Trainer
 
@@ -209,4 +211,67 @@ def test_trainer_steps_go_through_the_kernels(cuda_device, tmp_path, fuse):
     torch.cuda.synchronize()
     delta = (k16.k1_launches - counts[0], k2.launches - counts[1], k3.launches - counts[2])
     assert delta == ((0, 0, 3) if fuse == "on" else (3, 3, 0))
+    assert np.isfinite(float(summary["total_loss"]))
+
+
+# (k, stride, Ci, Co, T) of every TCResNet8-1.0 conv, then two of TCResNet14-1.5
+K7_GEOMETRIES = [(3, 1, 40, 16, 98), (1, 2, 16, 24, 98), (9, 2, 16, 24, 98), (9, 1, 24, 24, 49),
+                 (1, 2, 24, 32, 49), (9, 2, 24, 32, 49), (9, 1, 32, 32, 25), (1, 2, 32, 48, 25),
+                 (9, 2, 32, 48, 25), (9, 1, 48, 48, 13), (9, 2, 36, 48, 25), (9, 1, 72, 72, 13)]
+
+
+@pytest.mark.parametrize("k,stride,ci,co,t", K7_GEOMETRIES)
+def test_tconv_kernels_match_plain(cuda_device, k, stride, ci, co, t):
+    """K7 fwd, dx and dw against the plain versions at batch 1, 8 and 1536:
+    fwd and dx within the CPU test's tolerances (f32 sums in another
+    order); dw, up to 150,528 products per entry summed in another order,
+    within 1e-5 of max|dw|; dw gives the same bits twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k * 100 + ci)
+    to = -(-t // stride)
+    for b in (1, 8, 1536):
+        x = torch.randn(b, ci, t, device=cuda_device, generator=gen)
+        w = torch.randn(co, ci, k, device=cuda_device, generator=gen) * 0.1
+        dy = torch.randn(b, co, to, device=cuda_device, generator=gen)
+        before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
+        y, dx = k7.tconv_fwd(x, w, stride), k7.tconv_dx(dy, w, t, stride)
+        dw, dw2 = k7.tconv_dw(x, dy, k, stride), k7.tconv_dw(x, dy, k, stride)
+        torch.cuda.synchronize()
+        assert (k7.fwd_launches, k7.dx_launches, k7.dw_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 2)
+        torch.testing.assert_close(y, k7.tconv_fwd_reference(x, w, stride), atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dx, k7.tconv_dx_reference(dy, w, t, stride),
+                                   atol=2e-4, rtol=1e-4)
+        want = k7.tconv_dw_reference(x, dy, k, stride)
+        assert (dw - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        assert torch.equal(dw, dw2)
+
+
+def test_tconv_kernels_check_their_input(cuda_device):
+    x, w = torch.randn(2, 4, 10, device=cuda_device), torch.randn(5, 4, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        k7.tconv_fwd(x.double(), w.double())
+    with pytest.raises(ValueError):
+        k7.tconv_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        k7.tconv_fwd(x, w.cpu())
+    empty = k7.tconv_fwd(x[:0], w)
+    assert empty.shape == (0, 5, 10)
+
+
+def test_trainer_convs_go_through_k7(cuda_device, tmp_path):
+    """A bf16 step of TCResNet8 with conv_backend="pallas": 10 fwd, 10 dw
+    and 9 dx launches (the features need no dx)."""
+    cfg = ExperimentConfig(
+        audio=AudioConfig(clip_duration_ms=160, num_mfccs=20, num_mel_bins=32),
+        model=ModelConfig(name="TCResNet8", num_classes=4, conv_backend="pallas"),
+        optim=OptimConfig(lr_list=(0.1,), boundaries=()),
+        train=TrainConfig(batch_size=32, compute_dtype="bfloat16"))
+    ds = DeviceDataset(make_synthetic_dataset(num_samples=64, num_classes=4,
+                                              desired_samples=2560, seed=1), cuda_device)
+    trainer = Trainer(cfg, ds, workdir=tmp_path)
+    before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
+    summary = trainer.train_steps(2, start=0)
+    torch.cuda.synchronize()
+    assert (k7.fwd_launches - before[0], k7.dx_launches - before[1],
+            k7.dw_launches - before[2]) == (20, 18, 20)
     assert np.isfinite(float(summary["total_loss"]))

@@ -18,6 +18,7 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.ops.kernels.mfcc",
     "tcresnet_tpu_torch.ops.kernels.augment",
     "tcresnet_tpu_torch.ops.kernels.frontend",
+    "tcresnet_tpu_torch.ops.kernels.tconv",
     "tcresnet_tpu_torch.ops.augment",
     "tcresnet_tpu_torch.data",
     "tcresnet_tpu_torch.data.speech_commands",
@@ -30,6 +31,13 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.train.checkpoint",
     "tcresnet_tpu_torch.train.trainer",
     "tcresnet_tpu_torch.tools.train",
+    "tcresnet_tpu_torch.tools.evaluate",
+    "tcresnet_tpu_torch.metrics",
+    "tcresnet_tpu_torch.metrics.host_metrics",
+    "tcresnet_tpu_torch.evaluation",
+    "tcresnet_tpu_torch.evaluation.best_keeper",
+    "tcresnet_tpu_torch.evaluation.evaluator",
+    "tcresnet_tpu_torch.evaluation.watcher",
     "tcresnet_tpu_torch.models",
     "tcresnet_tpu_torch.models.layers",
     "tcresnet_tpu_torch.models.tc_resnet",

@@ -164,27 +164,30 @@ def test_optimizer_matches_optax(name):
 N, P, BATCH = 3200, 4096, 8
 
 
-def _step_cfg(tmp_path, fuse):
+def _step_cfg(tmp_path, fuse, conv_backend="xla"):
     return ExperimentConfig(
         audio=AudioConfig(clip_duration_ms=200, num_mel_bins=32, num_mfccs=20,
                           dsp_backend="pallas", frontend_fuse=fuse),
         augment=AugmentConfig(background_frequency=0.8, background_max_volume=0.3,
                               backend="pallas"),
         model=ModelConfig(name="TCResNet8", num_classes=4, dropout_keep_prob=1.0,
-                          label_smoothing=0.1),
+                          label_smoothing=0.1, conv_backend=conv_backend),
         optim=OptimConfig(optimizer="mom", lr_list=(0.1, 0.05), boundaries=(1,)),
         train=TrainConfig(batch_size=BATCH, train_dir=str(tmp_path)),
     )
 
 
-@pytest.mark.parametrize("fuse", ["off", "on"])
-def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse):
+@pytest.mark.parametrize("fuse,conv_backend", [
+    pytest.param("off", "xla", id="off"), pytest.param("on", "xla", id="on"),
+    pytest.param("off", "pallas", id="off-pallas")])
+def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend):
     """The port's Trainer step with injected indices and augmentation
     scalars (dropout off) against decode_rows -> the JAX gather+augment
     kernel (interpret) -> dsp.preprocess -> model.apply -> loss ->
     tx.update -> scale_updates: losses within 1e-5. "off" runs K1 then K2
-    (their plain versions here), "on" K3's."""
-    cfg = _step_cfg(tmp_path, fuse)
+    (their plain versions here), "on" K3's; conv_backend "pallas" runs
+    every conv through K7's plain version, against JAX "pallas-interpret"."""
+    cfg = _step_cfg(tmp_path, fuse, conv_backend)
     host = make_synthetic_dataset(num_samples=40, num_classes=4, desired_samples=N, seed=6)
     rng = np.random.default_rng(8)
     draws = []
@@ -219,7 +222,9 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse):
     assert calls["n"] == 3 and int(trainer.state.step) == 3
 
     # the JAX step
-    jmodel = jax_build_model(cfg.model, jdsp.feature_shape(cfg.audio))
+    jconv = "pallas-interpret" if conv_backend == "pallas" else conv_backend
+    jmodel = jax_build_model(dataclasses.replace(cfg.model, conv_backend=jconv),
+                             jdsp.feature_shape(cfg.audio))
     tx, sched = joptim.build_optimizer(cfg.optim)
     params, stats = _jnp(init["params"]), _jnp(init["batch_stats"])
     opt_state = tx.init(params)
