@@ -53,8 +53,31 @@ weights and data made from seeds, in phases that print their lines:
  16. times    K7 against its plain version and cuDNN over one step's ten
               convs at batch 1536; the train step "pallas" against "xla";
               eval utt/s
+ 17. build    infer2d.cu (K5, the 2D families' op-list kernel), its ptxas
+              line and its cooperative grid
+ 18. kernel   K5 against its plain version (TF32 off) for every 2D preset
+              (TCResNet2D8[Pool], Res8/15[Narrow], DSCNN S/M/L) and all 7 KWS
+              architectures at batch 1, 3, 8, 64, launch counter checked; K2
+              at 640/320 (MFCC-10 and MFCC-40) against the plain front end,
+              atol 1e-4; K5's softmax against the JAX golden
+              tcresnet_tpu_torch/testdata/infer2d_golden.npz
+ 19. serve    the 2D main path: build_inference_fn(backend="auto") for
+              Res15, DSCNNL and KWSfpool3, 20 single requests each through
+              K2 + K5 (launches counted) and one batch of 64 on the plain
+              path, against backend="xla", precision="highest"
+ 20. times    TCResNet2D8-1.0, Res15, DSCNNL, KWSfpool3 at batch 1 and 1024:
+              K5, its plain version and the model on cuDNN (TF32 off) over
+              the same features, device time behind a device-side sleep
+              (each line names a time the host paced instead), and one
+              call of the cuDNN model under torch.profiler (its device time
+              alone, the library time where the profiler reports one); the
+              served request (K2 + K5, and "xla") on the host clock
 
-then the kernel summary as one JSON line, and last
+then the kernel summary as one JSON line (each kernel with its launches on
+its main path, its max error against its plain version, its time, the
+plain version's, the least time the card could take for the same work and
+what bounds it, and the time of one PyTorch call that computes the same
+function where there is one), and last
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero without that line. There is no CPU fallback: without a
 CUDA device it exits 1.
@@ -98,7 +121,10 @@ TCONV_DW_REL = 1e-5
 # 62,400 (a silence row) moved the step-5 loss by 1.9e-3 relative; on the
 # H100 the legs agreed within 2e-7 (PERF.md)
 FIRST_STEP_RTOL, TRAIN_LEG_RTOL = 1e-5, 1e-2
-SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv")
+SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
+# the H100 SXM's published peaks: float32
+# outside the tensor cores, and HBM
+FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,6 +134,52 @@ def check(ok: bool, what: str) -> None:
 
 def seeded_wavs(seed: int, batch: int, n: int) -> np.ndarray:
     return np.random.default_rng(seed).uniform(-1, 1, (batch, n)).astype(np.float32)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of `flops` float32
+    operations that must move `nbytes` bytes, and which of the two bounds it."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def front_end_macs(audio) -> int:
+    """Multiply-adds of the front end for one clip: the windowed real DFT,
+    the mel matrix and, for MFCC, the DCT."""
+    from tcresnet_tpu_torch.ops.kernels import mfcc
+
+    g = mfcc.front_end_geometry(audio, audio.desired_samples)
+    dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
+    return g.frames * (g.window * 2 * g.num_bins + g.num_bins * g.num_mel) + dct
+
+
+def queued_ms(fn, runs: int = 20) -> tuple:
+    """(device ms per call of fn(), whether the queue stayed full): CUDA
+    events around `runs` calls that the host enqueues behind a device-side
+    sleep, so the events time the device work and not the host's enqueue
+    (at batch 1 the host is the slower). The queue stayed full when the
+    host finished enqueueing before the sleep ended; a call that waits for
+    the device on the host drains it, and the time is then host-paced."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_s = time.perf_counter() - t0  # the enqueue alone
+    torch.cuda.synchronize()
+    ev_sleep, ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    ev_sleep.record()
+    torch.cuda._sleep(int(2e9 * max(2 * host_s, 1e-3)))  # ~2 GHz SM clock
+    ev0.record()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    ev1.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / runs, enqueue_ms < ev_sleep.elapsed_time(ev0)
 
 
 def ptxas_line(name: str) -> str:
@@ -127,7 +199,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from tcresnet_tpu.config import get_preset
+    from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
     from tcresnet_tpu_torch.ops import dsp
     from tcresnet_tpu_torch.ops.kernels import _build
@@ -155,7 +227,8 @@ def main() -> int:
     print(f"[build] infer.cu for sm_90a in {build_s:.1f} s | {ptxas_line('infer')}")
 
     def variables_for(cfg, seed):
-        v = variables_from_jax(**seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed))
+        v = variables_from_jax(cfg.model,
+                               **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed))
         return {k: {n: t.to(dev) for n, t in d.items()} for k, d in v.items()}
 
     # ---- 3. kernel vs plain version ----
@@ -255,8 +328,21 @@ def main() -> int:
                   f"device median {devt['median']:.1f} us (min {devt['min']:.1f}, max {devt['max']:.1f}) | "
                   f"{devt['median'] / batch:.3f} us/utt | {card}")
 
+    # K4's bound at batch 1: the front end, the convs' taps that meet the map
+    # and the fc; the wav, the constants and the logits
+    from tcresnet_tpu_torch.models.layers import same_padding
+    from tcresnet_tpu_torch.ops.kernels.infer2d import valid_taps
+
+    macs = front_end_macs(flagship.audio) + flagship.model.num_classes * 48
+    for k, s, ci, co, t in conv_geometries(flagship.model, 98, 40):
+        to, lo, _ = same_padding(t, k, s)
+        macs += valid_taps(to, t, k, s, lo) * ci * co
+    consts = sum(a.numel() for a in (plan8.wts, plan8.fc, plan8.dft, plan8.mel, plan8.dct))
+    k4_bound = bound(2 * macs, 4 * (n + consts + flagship.model.num_classes))
+
     train_kernels, ds = training_phases(dev, card)
     tconv_kernels = tconv_phases(dev, card, ds)
+    infer2d_kernels = infer2d_phases(dev, card)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -266,9 +352,11 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times[("kernel", 1)] / 1e3,
         "plain_ms": times[("kernel_plain_version", 1)] / 1e3,
+        **k4_bound,
+        "library_ms": times[("serve_xla_highest", 1)] / 1e3,
         "ms_b1024": times[("kernel", 1024)] / 1e3,
         "plain_ms_b1024": times[("kernel_plain_version", 1024)] / 1e3,
-    }] + train_kernels + tconv_kernels}
+    }] + train_kernels + tconv_kernels + infer2d_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -328,7 +416,7 @@ def training_phases(dev: torch.device, card: str):
     (kernel summary entries, the device dataset)."""
     import tempfile
 
-    from tcresnet_tpu.config import get_preset
+    from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
     from tcresnet_tpu_torch.ops import augment as aug
@@ -543,10 +631,26 @@ def training_phases(dev: torch.device, card: str):
                   f"device busy {busy_ms:.3f} ms/step = {busy_ms / dev_ms:.1%} of the step "
                   f"| {card}")
 
+    # bounds at batch 1536: K1 reads the int16 rows and, for the rows this
+    # draw mixes, a noise window, and writes f32; K6 reads f32 instead; K2
+    # and K3 are the front end's multiply-adds (K3 also reads int16 rows)
+    kb = 1536  # phase 11's batch, and `sc` its draw
+    mixed = int((sc.vols != 0).sum())
+    wav_out, feats_out = 4 * kb * n, 4 * kb * 98 * dsp.feature_width(flagship.audio)
+    fe_flops = 2 * kb * front_end_macs(flagship.audio)
+    bounds = {"k1": bound(0, 2 * kb * n + 4 * mixed * n + wav_out),
+              "k6": bound(0, 4 * kb * n + 4 * mixed * n + wav_out),
+              "k2": bound(fe_flops, wav_out + feats_out),
+              "k3": bound(fe_flops, 2 * kb * n + 4 * mixed * n + feats_out)}
+    # one PyTorch call computing the front end: dsp.preprocess on cuBLAS
+    # (K2's plain version is that call; K3's is K1's plain version before it)
+    library = {"k1": None, "k6": None, "k2": ms["k2"][1], "k3": ms["k2"][1]}
+
     def entry(name, source, replaces, err, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": main_launches[key], "max_abs_err": err,
-                "ms": ms[key][0], "plain_ms": ms[key][1]}
+                "ms": ms[key][0], "plain_ms": ms[key][1], **bounds[key],
+                "library_ms": library[key]}
 
     return [
         entry("k1_gather_augment", "tcresnet_tpu_torch/csrc/augment.cu",
@@ -583,11 +687,12 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
 
     import torch.nn.functional as F
 
-    from tcresnet_tpu.config import get_preset
+    from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.evaluation.evaluator import Evaluator
     from tcresnet_tpu_torch.models.layers import same_padding
     from tcresnet_tpu_torch.ops.kernels import tconv as k7
+    from tcresnet_tpu_torch.ops.kernels.infer2d import valid_taps
     from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
     from tcresnet_tpu_torch.tools.train import load_run_config, load_split
     from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
@@ -832,14 +937,215 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
               f"{eval_batch} " + " / ".join(f"{b * 1e3:.2f}" for _, b in runs) + " ms, "
               f"{eval_batch / min(b for _, b in runs):,.0f} utt/s | {card}")
 
+    # bounds over the ten convs at batch 1536: every tap of x that meets
+    # the map, multiplied once per output channel; each op reads two of
+    # x / w / dy and writes the third
+    k7_flops = k7_bytes = 0
+    for k, s, ci, co, t in geoms:
+        to, lo, _ = same_padding(t, k, s)
+        k7_flops += 2 * batch * valid_taps(to, t, k, s, lo) * ci * co
+        k7_bytes += 4 * (batch * ci * t + co * ci * k + batch * co * to)
+
     def entry(op, line):
         return {"name": f"k7_tconv_{op}", "route": "cuda",
                 "source": "tcresnet_tpu_torch/csrc/tconv.cu",
                 "replaces": f"tcresnet_tpu/ops/pallas/tconv.py:{line}",
                 "launches": main_launches[op], "max_abs_err": errs[op],
-                "ms": ms[op][0], "plain_ms": ms[op][1], "cudnn_ms": ms[op][2]}
+                "ms": ms[op][0], "plain_ms": ms[op][1], **bound(k7_flops, k7_bytes),
+                "library_ms": ms[op][2], "cudnn_ms": ms[op][2]}
 
     return [entry("fwd", 63), entry("dx", 68), entry("dw", 99)]
+
+
+def infer2d_phases(dev: torch.device, card: str) -> list:
+    """Phases 17-20: K5 and the 2D families' serving path through it."""
+    from tcresnet_tpu_torch.config import get_preset
+    from tcresnet_tpu_torch.models import build_model
+    from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
+    from tcresnet_tpu_torch.models.kws import KWS_ARCHITECTURES
+    from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.ops.kernels import infer2d as k5
+    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+    from tcresnet_tpu_torch.serve.benchmark import benchmark_compiled
+    from tcresnet_tpu_torch.serve.export import build_inference_fn
+
+    # ---- 17. build (compiled in phase 2, all sources at once) ----
+    k5.build_kernels()
+    print(f"[build] infer2d.cu for sm_90a | {ptxas_line('infer2d')} | cooperative grid "
+          f"{k5.grid_blocks(dev)} blocks x 256 threads")
+
+    def cfg_of(preset, arch=None):
+        cfg = get_preset(preset)
+        if arch is not None:
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, kws_architecture=arch))
+        return cfg
+
+    def variables_for(cfg, seed):
+        v = variables_from_jax(cfg.model, **seeded_variables(
+            cfg.model, dsp.feature_shape(cfg.audio), seed))
+        return {k: {name: t.to(dev) for name, t in d.items()} for k, d in v.items()}
+
+    def plan_for(cfg, seed=0):
+        v = variables_for(cfg, seed)
+        return k5.build_fused_infer2d(cfg.model, cfg.audio, v["params"], v["batch_stats"],
+                                      device=dev)
+
+    def wavs_for(cfg, seed, batch):
+        return torch.tensor(seeded_wavs(seed, batch, cfg.audio.desired_samples), device=dev)
+
+    # ---- 18. K5 against its plain version, K2 at 640/320, the golden ----
+    presets = ["TCResNet2D8-1.0", "TCResNet2D8Pool-1.0", "Res8", "Res8Narrow", "Res15",
+               "Res15Narrow", "DSCNNS", "DSCNNM", "DSCNNL"]
+    cases = [(p, None) for p in presets] + [("KWSfpool3", a) for a in KWS_ARCHITECTURES]
+    k5_err = 0.0
+    for preset, arch in cases:
+        cfg = cfg_of(preset, arch)
+        plan = plan_for(cfg)
+        errs = []
+        for batch in (1, 3, 8, 64):
+            feats = k2.fused_mfcc(wavs_for(cfg, 700 + batch, batch), cfg.audio)
+            before = k5.launches
+            got = k5.fused_infer2d(feats, plan)
+            torch.cuda.synchronize()
+            check(k5.launches == before + 1, f"K5 {preset} {arch} B={batch}: not launched")
+            want = k5.fused_infer2d_reference(feats, plan)
+            check(got.shape == want.shape == (batch, cfg.model.num_classes), f"K5 {preset}: shape")
+            check(bool(torch.isfinite(got).all()), f"K5 {preset} {arch} B={batch}: non-finite")
+            err = (got - want).abs().max().item()
+            sm_err = (torch.softmax(got, -1) - torch.softmax(want, -1)).abs().max().item()
+            check(torch.allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+                  f"K5 {preset} {arch} B={batch}: logits differ by {err}")
+            check(sm_err <= SOFTMAX_ATOL, f"K5 {preset} {arch} B={batch}: softmax {sm_err}")
+            k5_err = max(k5_err, err)
+            errs.append(f"B={batch} {err:.2e}/{sm_err:.2e}")
+        label = preset if arch is None else f"KWS {arch}"
+        print(f"[kernel] K5 {label} ({len(plan.program)} steps, "
+              f"{plan.macs_per_utterance():,} multiply-adds/utt): max |logit| / |softmax| err "
+              f"vs plain: " + ", ".join(errs))
+
+    for label, preset in (("MFCC-10 (DS-CNN, 49x10)", "DSCNNS"),
+                          ("MFCC-40 (KWS, 49x40)", "KWSfpool3")):
+        audio = get_preset(preset).audio
+        errs = []
+        for batch in (1, 64, 1536):
+            wavs = torch.tensor(seeded_wavs(800 + batch, batch, audio.desired_samples), device=dev)
+            before = k2.launches
+            got = k2.fused_mfcc(wavs, audio)
+            torch.cuda.synchronize()
+            check(k2.launches == before + 1, "K2 not launched")
+            want = dsp.preprocess(wavs, dataclasses.replace(audio, dsp_backend="xla"))[..., 0]
+            check(got.shape == want.shape == (batch,) + dsp.feature_shape(audio)[:2], "K2 shape")
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, atol=FEATURE_ATOL, rtol=0),
+                  f"K2 640/320 {label} B={batch}: max err {err}")
+            errs.append(f"B={batch} {err:.2e}")
+        print(f"[front] K2 at 640/320 {label} vs plain (TF32 off): " + ", ".join(errs))
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tcresnet_tpu_torch", "testdata", "infer2d_golden.npz"))
+    gerrs = []
+    for i, preset in enumerate(str(p) for p in golden["presets"]):
+        cfg = cfg_of(preset)
+        plan = plan_for(cfg, int(golden["param_seed"]))
+        wavs = wavs_for(cfg, int(golden["wav_seed"]), int(golden["batch"]))
+        gsm = torch.softmax(plan(wavs), -1).cpu().numpy()
+        gerr = float(np.abs(gsm - golden["softmax"][i]).max())
+        check(gerr <= SOFTMAX_ATOL, f"golden {preset}: K2 + K5 softmax differs from JAX by {gerr}")
+        gerrs.append(f"{preset} {gerr:.2e}")
+    print(f"[golden] K2 + K5 softmax vs JAX (B={int(golden['batch'])}, limit {SOFTMAX_ATOL}): "
+          + ", ".join(gerrs))
+
+    # ---- 19. serve: the 2D main path ----
+    served = {}
+    for preset in ("Res15", "DSCNNL", "KWSfpool3"):
+        cfg = cfg_of(preset)
+        v = variables_for(cfg, seed=0)
+        served[preset] = (cfg, build_inference_fn(cfg, v, backend="auto", device=dev),
+                          build_inference_fn(cfg, v, backend="xla", precision="highest",
+                                             device=dev))
+    requests = {p: [wavs_for(c, 1100 + i, 1) for i in range(20)] + [wavs_for(c, 2100, 64)]
+                for p, (c, _, _) in served.items()}
+    torch.cuda.synchronize()
+    k5.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    answers = {p: [auto(x) for x in requests[p]] for p, (_, auto, _) in served.items()}
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    main_launches, k2_main = k5.launches, k2.launches
+    n_single = 20 * len(served)
+    check(main_launches == k2_main == n_single,
+          f"serve 2D: K5 {main_launches} / K2 {k2_main} launches for {n_single} single requests")
+    serve_err = {}
+    for preset, (cfg, _, ref) in served.items():
+        worst = 0.0
+        for x, y in zip(requests[preset], answers[preset]):
+            check(y.shape == (x.shape[0], cfg.model.num_classes), f"serve {preset}: shape")
+            check(bool(torch.isfinite(y).all()), f"serve {preset}: non-finite softmax")
+            worst = max(worst, (y - ref(x)).abs().max().item())
+        check(worst <= SOFTMAX_ATOL, f"serve {preset}: auto vs xla/highest differ by {worst}")
+        serve_err[preset] = worst
+    print(f"[serve] auto, Res15 / DSCNNL / KWSfpool3: 20 x B=1 each (K2 + K5, {main_launches} "
+          f"K5 and {k2_main} K2 launches) + 1 x B=64 each (plain) in {serve_ms:.1f} ms; max "
+          "softmax err vs xla/highest " + ", ".join(f"{p} {e:.2e}" for p, e in serve_err.items()))
+
+    # ---- 20. times ----
+    times = {}
+    for preset in ("TCResNet2D8-1.0", "Res15", "DSCNNL", "KWSfpool3"):
+        cfg = cfg_of(preset)
+        v = variables_for(cfg, seed=0)
+        plan = k5.build_fused_infer2d(cfg.model, cfg.audio, v["params"], v["batch_stats"],
+                                      device=dev)
+        model = build_model(cfg.model, dsp.feature_shape(cfg.audio), device=dev)
+        model.load_state_dict({**v["params"], **v["batch_stats"]})
+        fused_fn = build_inference_fn(cfg, v, backend="fused", device=dev)
+        xla_fn = build_inference_fn(cfg, v, backend="xla", precision="highest", device=dev)
+        for batch in (1, 1024):
+            wavs = wavs_for(cfg, 3000 + batch, batch)
+            feats = k2.fused_mfcc(wavs, cfg.audio)
+            feats4 = feats[..., None]
+            heavy = batch > 1 and plan.macs_per_utterance() > 1e8
+            runs = 3 if heavy else 20
+            with torch.no_grad():
+                timed = [queued_ms(fn, runs) for fn in (
+                    lambda: k5.fused_infer2d(feats, plan),
+                    lambda: k5.fused_infer2d_reference(feats, plan),
+                    lambda: model(feats4),
+                    lambda: k5.fused_infer2d(feats, plan))]
+                # one call of the cuDNN model under torch.profiler: its device
+                # time alone, whether or not the host paced the timed calls (the
+                # profiler does not see K5's launch through ctypes: NaN)
+                busy_lib = device_busy_ms(lambda: model(feats4))
+            (a, b, c, d), full = zip(*timed)
+            host_fused = benchmark_compiled(fused_fn, wavs, warmup_runs=2, num_runs=runs)
+            host_xla = benchmark_compiled(xla_fn, wavs, warmup_runs=2, num_runs=runs)
+            flops = 2 * batch * plan.macs_per_utterance()
+            nbytes = 4 * (feats.numel() + plan.wts.numel() + batch * plan.ncls)
+            library = busy_lib if np.isfinite(busy_lib) else c
+            times[(preset, batch)] = dict(ms=min(a, d), plain_ms=b, library_ms=library,
+                                          **bound(flops, nbytes))
+            t = times[(preset, batch)]
+            paced = ", ".join(name for name, ok in zip(("kernel", "plain", "cuDNN", "kernel"), full)
+                              if not ok) or "none"
+            print(f"[times] K5 {preset} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain {b:.4f} ms, "
+                  f"cuDNN model f32 (TF32 off) {c:.4f} ms (device, mean of {runs} behind a "
+                  f"device sleep; order kernel, plain, cuDNN, kernel; host-paced: {paced}); "
+                  f"one cuDNN model call's device time (torch.profiler) {busy_lib:.4f} ms; "
+                  f"bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of it); served request "
+                  f"wav -> softmax host avg fused (K2 + K5) {host_fused['avg'] / 1e3:.4f} ms, "
+                  f"xla {host_xla['avg'] / 1e3:.4f} ms | {card}")
+
+    main = times[("Res15", 1)]
+    return [{
+        "name": "k5_infer2d", "route": "cuda",
+        "source": "tcresnet_tpu_torch/csrc/infer2d.cu",
+        "replaces": "tcresnet_tpu/ops/pallas/infer2d.py:666",
+        "launches": main_launches, "max_abs_err": k5_err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "timed": "Res15, batch 1",
+        "by_preset": {f"{p} B={b}": t for (p, b), t in times.items()},
+    }]
 
 
 if __name__ == "__main__":

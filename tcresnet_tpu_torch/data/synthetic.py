@@ -14,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from tcresnet_tpu import const
+from tcresnet_tpu_torch import const
 from tcresnet_tpu_torch.data.speech_commands import HostDataset
 
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tcresnet_tpu.config import ExperimentConfig
+from tcresnet_tpu_torch.config import ExperimentConfig
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.metrics.host_metrics import compute_classification_metrics
 from tcresnet_tpu_torch.models import build_model

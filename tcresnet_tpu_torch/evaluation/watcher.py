@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterator, Optional
 
-from tcresnet_tpu.config import ExperimentConfig
-from tcresnet_tpu.metrics.writers import MetricWriter
+from tcresnet_tpu_torch.config import ExperimentConfig
+from tcresnet_tpu_torch.metrics.writers import MetricWriter
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.evaluation.best_keeper import DEFAULT_BEST_METRICS, BestKeeper
 from tcresnet_tpu_torch.evaluation.evaluator import Evaluator

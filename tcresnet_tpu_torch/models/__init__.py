@@ -1,8 +1,14 @@
 """Model registry (counterpart of tcresnet_tpu/models/__init__.py).
 
-The port builds the temporal TC-ResNets. Every other family of the JAX
-registry is named here and raises NotImplementedError pointing at its
-ROADMAP.md row, so a config that names it fails loudly.
+Every family of the JAX registry is built here, in eval mode:
+
+- TCResNet8 / TCResNet14: temporal convs (models/tc_resnet.py);
+- ResNet2D8 / ResNet2D8Pool: the 2D TC-ResNet variants (tc_resnet.py);
+- Res8 / Res8Narrow / Res15 / Res15Narrow (models/res.py);
+- DSCNNS / DSCNNM / DSCNNL (models/ds_cnn.py);
+- KWS, with `kws_architecture` one of the seven baselines (models/kws.py).
+
+An unknown name raises KeyError.
 
 `ModelConfig.conv_backend` is honoured:
 
@@ -13,6 +19,9 @@ ROADMAP.md row, so a config that names it fails loudly.
   package's test value);
 - "im2col" raises NotImplementedError (not carried over, ROADMAP.md
   Queue 1 item 15); any other value raises ValueError.
+
+As in the JAX package, the Pallas conv is temporal only, so the 2D
+families run cuDNN whichever of the three served values is set.
 """
 
 from __future__ import annotations
@@ -22,21 +31,11 @@ from typing import Mapping, Tuple, Union
 import torch
 from torch import nn
 
-from tcresnet_tpu.config import ModelConfig
-from tcresnet_tpu_torch.models import tc_resnet
+from tcresnet_tpu_torch.config import ModelConfig
+from tcresnet_tpu_torch.models import ds_cnn, kws, layers, res, tc_resnet
 
-_NOT_PORTED = {
-    "ResNet2D8": "Queue 1 item 11 (TCResNet2D8[Pool])",
-    "ResNet2D8Pool": "Queue 1 item 11 (TCResNet2D8[Pool])",
-    "Res8": "Queue 1 item 11 (models/res.py)",
-    "Res8Narrow": "Queue 1 item 11 (models/res.py)",
-    "Res15": "Queue 1 item 11 (models/res.py)",
-    "Res15Narrow": "Queue 1 item 11 (models/res.py)",
-    "DSCNNS": "Queue 1 item 11 (models/ds_cnn.py)",
-    "DSCNNM": "Queue 1 item 11 (models/ds_cnn.py)",
-    "DSCNNL": "Queue 1 item 11 (models/ds_cnn.py)",
-    "KWS": "Queue 1 item 11 (models/kws.py)",
-}
+FAMILIES = ("TCResNet8", "TCResNet14", "ResNet2D8", "ResNet2D8Pool", *res.RES_SHAPES,
+            *ds_cnn.NET_DEFS, "KWS")
 
 
 def build_model(
@@ -53,19 +52,27 @@ def build_model(
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     if compute_dtype not in dtypes:
         raise ValueError(f"compute_dtype must be one of {sorted(dtypes)}, got {compute_dtype!r}")
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (ROADMAP.md {_NOT_PORTED[cfg.name]})"
-        )
-    builders = {"TCResNet8": tc_resnet.tc_resnet8, "TCResNet14": tc_resnet.tc_resnet14}
-    if cfg.name not in builders:
+    if cfg.name not in FAMILIES:
         raise KeyError(f"Unknown model {cfg.name!r}")
-    model = builders[cfg.name](
-        cfg.num_classes, cfg.width_multiplier,
-        in_channels=feature_shape[1], dropout_keep_prob=cfg.dropout_keep_prob,
-        bn_momentum=cfg.bn_momentum, dtype=dtypes[compute_dtype],
-        conv_backend=cfg.conv_backend, device=device,
-    )
+    layers.check_conv_backend(cfg.conv_backend)
+    kw = dict(dtype=dtypes[compute_dtype], device=device)
+    name, ncls = cfg.name, cfg.num_classes
+    if name in ("TCResNet8", "TCResNet14"):
+        builder = tc_resnet.tc_resnet8 if name == "TCResNet8" else tc_resnet.tc_resnet14
+        model = builder(ncls, cfg.width_multiplier, in_channels=feature_shape[1],
+                        dropout_keep_prob=cfg.dropout_keep_prob, bn_momentum=cfg.bn_momentum,
+                        conv_backend=cfg.conv_backend, **kw)
+    elif name.startswith("ResNet2D8"):
+        model = tc_resnet.resnet2d8(ncls, cfg.width_multiplier, num_coeffs=feature_shape[1],
+                                    pool=name.endswith("Pool"),
+                                    dropout_keep_prob=cfg.dropout_keep_prob,
+                                    bn_momentum=cfg.bn_momentum, **kw)
+    elif name in res.RES_SHAPES:
+        model = res.res_model(name, ncls, bn_momentum=cfg.bn_momentum, **kw)
+    elif name in ds_cnn.NET_DEFS:
+        model = ds_cnn.DSCNN(ncls, ds_cnn.NET_DEFS[name], bn_momentum=cfg.bn_momentum, **kw)
+    else:
+        model = kws.KWSNet(ncls, cfg.kws_architecture, feature_shape, **kw)
     return model.eval()
 
 

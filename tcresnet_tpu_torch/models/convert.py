@@ -2,12 +2,21 @@
 
 The port never sees a jax type: a Flax pytree arrives as nested dicts of
 numpy arrays (`jax.device_get` plus a tree map to numpy, done by the
-caller). Mapping is by scope name, not position:
+caller). Mapping is by model family and scope name (`scope_kind`), never
+by kernel shape: a TCResNet2D8 1x1 "down" kernel [1, 1, Ci, Co] is a 2D
+conv, a TCResNet8 one [k, 1, Ci, Co] a temporal conv.
 
-  params[scope]["kernel"] [k, 1, Ci, Co]  -> "{scope}.weight" [Co, Ci, k]
-  params["fc"]["kernel"]  [in, out]       -> "fc.weight"      [out, in]
-  params[scope_bn]["scale" | "bias"]      -> "{scope}.weight" | ".bias"
-  batch_stats[scope_bn]["mean" | "var"]   -> "{scope}.running_mean" | "_var"
+  temporal conv  kernel [k, 1, Ci, Co]       -> "{scope}.weight" [Co, Ci, k]
+  2D conv        kernel [kh, kw, Ci/g, Co]   -> "{scope}.weight" [Co, Ci/g, kh, kw]
+                 bias [Co]                   -> "{scope}.bias"
+  dense          kernel [in, out], bias      -> "{scope}.weight" [out, in], ".bias"
+  batch norm     scale | bias (where present)-> "{scope}.weight" | ".bias"
+  KWS SVDF       weights_frequency, weights_time, bias (top-level leaves)
+                                             -> the same names, same layout
+  batch_stats[scope]["mean" | "var"]         -> "{scope}.running_mean" | "_var"
+
+A batch norm with neither scale nor shift (Res) has no params entry in
+Flax and none here: only its running statistics.
 
 The port's variables are {"params": {...}, "batch_stats": {...}} with an
 optional "ema_params", each a flat {state-dict name: tensor} mapping; the
@@ -17,50 +26,99 @@ EMA copy replaces "params" only, as in the JAX package.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tcresnet_tpu.config import ModelConfig
-from tcresnet_tpu_torch.models import build_model, layers
+from tcresnet_tpu_torch.config import ModelConfig
+from tcresnet_tpu_torch.models import build_model
 
-Nested = Mapping[str, Mapping[str, Any]]
+Nested = Mapping[str, Any]
+
+_TC_SCOPE = r"conv0|block\d+_(down|conv0|conv1)"
+_DS_SCOPE = r"conv_1|conv_ds_\d+_(dw|pw)"
+# family -> ((scope pattern, kind), ...); the first full match wins
+_FAMILY_SCOPES = {
+    "tc": ((rf"({_TC_SCOPE})_conv", "temporal"), (rf"({_TC_SCOPE})_bn", "bn"), ("fc", "dense")),
+    "tc2d": ((rf"({_TC_SCOPE})_conv", "conv2d"), (rf"({_TC_SCOPE})_bn", "bn"), ("fc", "dense")),
+    "res": ((r"f_conv|conv\d+", "conv2d"), (r"conv\d+_bn", "bn"), ("fc", "dense")),
+    "dscnn": ((_DS_SCOPE, "conv2d"), (rf"({_DS_SCOPE})_bn", "bn"), ("fc1", "dense")),
+    "kws": ((r"conv[12]", "conv2d"), (r"fc[123]?|lin", "dense"),
+            (r"weights_frequency|weights_time|bias", "leaf")),
+}
+
+
+def family(model_name: str) -> str:
+    if model_name in ("TCResNet8", "TCResNet14"):
+        return "tc"
+    if model_name.startswith("ResNet2D8"):
+        return "tc2d"
+    if model_name.startswith("Res"):
+        return "res"
+    if model_name.startswith("DSCNN"):
+        return "dscnn"
+    if model_name == "KWS":
+        return "kws"
+    raise KeyError(f"Unknown model {model_name!r}")
+
+
+def scope_kind(model_name: str, scope: str) -> str:
+    """"temporal", "conv2d", "dense", "bn" or "leaf": how a Flax scope of
+    the family maps; KeyError for a scope the family does not have."""
+    for pattern, kind in _FAMILY_SCOPES[family(model_name)]:
+        if re.fullmatch(pattern, scope):
+            return kind
+    raise KeyError(f"no port counterpart for Flax scope {scope!r} of {model_name}")
 
 
 def _f32(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
-def _params_from_jax(params: Nested) -> Dict[str, torch.Tensor]:
+def _params_from_jax(model_name: str, params: Nested) -> Dict[str, torch.Tensor]:
     out = {}
     for scope, leaves in params.items():
-        if scope.endswith("_bn"):
-            out[f"{scope}.weight"] = _f32(leaves["scale"])
-            out[f"{scope}.bias"] = _f32(leaves["bias"])
-        elif scope == "fc":
-            out["fc.weight"] = _f32(np.asarray(leaves["kernel"]).T)
-        elif scope.endswith("_conv"):
-            kern = np.asarray(leaves["kernel"])
-            if kern.ndim != 4 or kern.shape[1] != 1:
-                raise ValueError(f"{scope}: expected a [k, 1, Ci, Co] kernel, got {kern.shape}")
-            out[f"{scope}.weight"] = _f32(kern[:, 0].transpose(2, 1, 0))
+        kind = scope_kind(model_name, scope)
+        if kind == "leaf":
+            out[scope] = _f32(leaves)
+            continue
+        leaves = dict(leaves)
+        kern = leaves.pop("kernel", None)
+        if kind == "bn":
+            names = {"scale": "weight", "bias": "bias"}
         else:
-            raise KeyError(f"no port counterpart for Flax scope {scope!r}")
+            names = {"bias": "bias"}
+            if kind == "temporal":
+                kern = np.asarray(kern)
+                if kern.ndim != 4 or kern.shape[1] != 1:
+                    raise ValueError(f"{scope}: expected a [k, 1, Ci, Co] kernel, got {kern.shape}")
+                out[f"{scope}.weight"] = _f32(kern[:, 0].transpose(2, 1, 0))
+            elif kind == "conv2d":
+                out[f"{scope}.weight"] = _f32(np.asarray(kern).transpose(3, 2, 0, 1))
+            else:  # dense
+                out[f"{scope}.weight"] = _f32(np.asarray(kern).T)
+        for leaf, value in leaves.items():
+            if leaf not in names:
+                raise KeyError(f"no port counterpart for Flax leaf {scope}/{leaf}")
+            out[f"{scope}.{names[leaf]}"] = _f32(value)
     return out
 
 
 def variables_from_jax(
-    params: Nested, batch_stats: Nested, ema_params: Optional[Nested] = None
+    model_cfg: ModelConfig, params: Nested, batch_stats: Nested,
+    ema_params: Optional[Nested] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Flax {params, batch_stats[, ema_params]} as numpy -> port variables."""
+    """Flax {params, batch_stats[, ema_params]} of `model_cfg`'s family, as
+    numpy -> port variables."""
     stats = {}
     for scope, leaves in batch_stats.items():
         stats[f"{scope}.running_mean"] = _f32(leaves["mean"])
         stats[f"{scope}.running_var"] = _f32(leaves["var"])
-    out = {"params": _params_from_jax(params), "batch_stats": stats}
+    out = {"params": _params_from_jax(model_cfg.name, params), "batch_stats": stats}
     if ema_params is not None:
-        out["ema_params"] = _params_from_jax(ema_params)
+        out["ema_params"] = _params_from_jax(model_cfg.name, ema_params)
     return out
 
 
@@ -70,69 +128,110 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().cpu(), dtype=np.float32)
 
 
-def _params_to_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+def _params_to_jax(model_name: str, params: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
     for name, t in params.items():
-        scope, leaf = name.rsplit(".", 1)
+        scope, _, leaf = name.rpartition(".")
         a = _host(t)
-        if scope.endswith("_bn"):
-            out.setdefault(scope, {})["scale" if leaf == "weight" else "bias"] = a
-        elif scope == "fc":
-            out[scope] = {"kernel": np.ascontiguousarray(a.T)}
-        elif scope.endswith("_conv"):
-            out[scope] = {"kernel": np.ascontiguousarray(a.transpose(2, 1, 0)[:, None])}
-        else:
-            raise KeyError(f"no Flax counterpart for port parameter {name!r}")
+        if not scope:
+            if scope_kind(model_name, leaf) != "leaf":
+                raise KeyError(f"no Flax counterpart for port parameter {name!r}")
+            out[leaf] = a
+            continue
+        kind = scope_kind(model_name, scope)
+        entry = out.setdefault(scope, {})
+        if kind == "bn":
+            entry["scale" if leaf == "weight" else "bias"] = a
+        elif leaf == "bias":
+            entry["bias"] = a
+        elif kind == "temporal":
+            entry["kernel"] = np.ascontiguousarray(a.transpose(2, 1, 0)[:, None])
+        elif kind == "conv2d":
+            entry["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        else:  # dense
+            entry["kernel"] = np.ascontiguousarray(a.T)
     return out
 
 
-def variables_to_jax(variables: Mapping[str, Mapping[str, Any]]) -> Dict[str, Nested]:
-    """Port variables (tensors on any device) -> Flax {params, batch_stats
-    [, ema_params]} as numpy: the inverse of `variables_from_jax`, BN
-    running statistics included."""
+def variables_to_jax(model_cfg: ModelConfig,
+                     variables: Mapping[str, Mapping[str, Any]]) -> Dict[str, Nested]:
+    """Port variables of `model_cfg`'s family (tensors on any device) ->
+    Flax {params, batch_stats[, ema_params]} as numpy: the inverse of
+    `variables_from_jax`, BN running statistics included."""
     stats: Dict[str, Dict[str, np.ndarray]] = {}
     for name, t in variables["batch_stats"].items():
         scope, leaf = name.rsplit(".", 1)
         key = {"running_mean": "mean", "running_var": "var"}[leaf]
         stats.setdefault(scope, {})[key] = _host(t)
-    out = {"params": _params_to_jax(variables["params"]), "batch_stats": stats}
+    out = {"params": _params_to_jax(model_cfg.name, variables["params"]), "batch_stats": stats}
     if variables.get("ema_params") is not None:
-        out["ema_params"] = _params_to_jax(variables["ema_params"])
+        out["ema_params"] = _params_to_jax(model_cfg.name, variables["ema_params"])
     return out
 
 
 def seeded_variables(
     model_cfg: ModelConfig, feature_shape: Tuple[int, int, int], seed: int
-) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+) -> Dict[str, Dict[str, Any]]:
     """JAX-layout {params, batch_stats} made from numpy alone, the same on
-    every machine: glorot-uniform kernels, and BN scale, bias, mean and
-    variance drawn away from their identity values so that BN folding is
-    exercised. Drawn in Flax's module creation order."""
+    every machine, drawn in Flax's module creation order:
+
+    - the CNN families: glorot-uniform kernels, biases uniform in
+      [-0.1, 0.1];
+    - KWS: truncated-normal kernels and biases (stddev 0.01, 0.001 for
+      single_fc, cut at two standard deviations, as Flax's initializer);
+    - batch norm: scale, shift, mean and variance drawn away from their
+      identity values, so that BN folding is exercised."""
     rng = np.random.default_rng(seed)
+    is_kws = model_cfg.name == "KWS"
+    std = 0.001 if model_cfg.kws_architecture == "single_fc" else 0.01
 
     def uniform(lo, hi, shape):
         return rng.uniform(lo, hi, shape).astype(np.float32)
 
-    def glorot(shape, fan_in, fan_out):
+    def truncated(shape):
+        z = rng.standard_normal(shape)
+        while (bad := np.abs(z) > 2).any():
+            z[bad] = rng.standard_normal(int(bad.sum()))
+        return (z * std / 0.87962566103423978).astype(np.float32)
+
+    def kernel(shape, fan_in, fan_out):
+        if is_kws:
+            return truncated(shape)
         limit = np.sqrt(6.0 / (fan_in + fan_out))
         return uniform(-limit, limit, shape)
 
-    params: Dict[str, Dict[str, np.ndarray]] = {}
+    def bias(n):
+        return truncated((n,)) if is_kws else uniform(-0.1, 0.1, (n,))
+
+    params: Dict[str, Any] = {}
     stats: Dict[str, Dict[str, np.ndarray]] = {}
     model = build_model(model_cfg, feature_shape, device="meta")
+    for name, p in model.named_parameters(recurse=False):  # the KWS SVDF's leaves
+        params[name] = bias(p.shape[0]) if name == "bias" else truncated(tuple(p.shape))
     for name, mod in model.named_children():
-        if isinstance(mod, layers.TemporalConv):
-            co, ci, k = mod.weight.shape
-            params[name] = {"kernel": glorot((k, 1, ci, co), k * ci, k * co)}
-        elif isinstance(mod, layers.SlimBatchNorm):
-            c = mod.weight.shape[0]
-            params[name] = {"scale": uniform(0.5, 1.5, (c,)),
-                            "bias": uniform(-0.5, 0.5, (c,))}
-            stats[name] = {"mean": uniform(-1.0, 1.0, (c,)),
-                           "var": uniform(0.5, 1.5, (c,))}
-        elif name == "fc":
-            out_f, in_f = mod.weight.shape
-            params[name] = {"kernel": glorot((in_f, out_f), in_f, out_f)}
-        else:
-            raise TypeError(f"unexpected submodule {name!r}")
+        kind = scope_kind(model_cfg.name, name)
+        if kind == "bn":
+            c = mod.running_mean.shape[0]
+            entry = {}
+            if mod.weight is not None:
+                entry["scale"] = uniform(0.5, 1.5, (c,))
+            if mod.bias is not None:
+                entry["bias"] = uniform(-0.5, 0.5, (c,))
+            if entry:
+                params[name] = entry
+            stats[name] = {"mean": uniform(-1.0, 1.0, (c,)), "var": uniform(0.5, 1.5, (c,))}
+            continue
+        w = mod.weight
+        if kind == "temporal":
+            co, ci, k = w.shape
+            entry = {"kernel": kernel((k, 1, ci, co), k * ci, k * co)}
+        elif kind == "conv2d":
+            co, ci, kh, kw = w.shape
+            entry = {"kernel": kernel((kh, kw, ci, co), kh * kw * ci, kh * kw * co)}
+        else:  # dense
+            out_f, in_f = w.shape
+            entry = {"kernel": kernel((in_f, out_f), in_f, out_f)}
+        if getattr(mod, "bias", None) is not None:
+            entry["bias"] = bias(w.shape[0])
+        params[name] = entry
     return {"params": params, "batch_stats": stats}

@@ -1,18 +1,22 @@
 """Layer primitives with TF-slim semantics (counterpart of
 tcresnet_tpu/models/layers.py).
 
-Activations inside the port's models are PyTorch's [B, C, T]; the public
-model input keeps the JAX layout [B, T, C(, 1)].
+Activations inside the port's models are PyTorch's [B, C, T] (temporal
+TC-ResNets) or [B, C, T, F] (the 2D families); the public model input
+keeps the JAX layout [B, T, C(, 1)] / [B, T, F, 1].
 
 - TF-SAME padding is asymmetric: the left pad is total // 2, so a 9x1
-  stride-2 conv on T=98 pads 3 on the left and 4 on the right. PyTorch's
-  padding="same" refuses stride 2, so the pad is an explicit F.pad.
+  stride-2 conv on T=98 pads 3 on the left and 4 on the right, and an
+  even kernel (DS-CNN's 10x4, KWS's 20x8) pads one more row on the high
+  side. PyTorch's padding="same" refuses stride 2, so the pad is an
+  explicit F.pad; SAME max pooling pads with -inf.
 - slim.batch_norm uses epsilon 1e-3 and decay 0.997, which is Flax's
   momentum (running = m * running + (1 - m) * batch) and torch's
   momentum 0.003. In training mode it normalises with the batch
   statistics and updates the running variance with the BIASED batch
   variance, as Flax does (torch's own batch norm uses the unbiased one).
-- Convs have no bias.
+- The TC-ResNet and Res convs have no bias; DS-CNN's and KWS's have one
+  (`Conv2d(bias=True)`).
 - `compute_dtype` as the JAX layers honour it: a conv runs in that dtype
   (its f32 weight cast for the call), except that the K7 conv
   (`PallasTemporalConv`) rounds its operands to it and computes and
@@ -86,6 +90,18 @@ class PallasTemporalConv(TemporalConv):
         return temporal_conv(x, w, self.stride, self.interpret)
 
 
+def check_conv_backend(conv_backend: str) -> None:
+    """"xla", "pallas" and "pallas-interpret" are served; "im2col" raises
+    NotImplementedError, anything else ValueError."""
+    if conv_backend == "im2col":
+        raise NotImplementedError(
+            "conv_backend='im2col' (Im2ColConv, an XLA formulation for the TPU) is "
+            "not carried over to the port (ROADMAP.md Queue 1 item 15)")
+    if conv_backend not in ("xla", "pallas", "pallas-interpret"):
+        raise ValueError(f"conv_backend must be 'xla', 'pallas' or 'pallas-interpret', "
+                         f"got {conv_backend!r}")
+
+
 def slim_conv(in_channels: int, out_channels: int, kernel: Tuple[int, int],
               stride: Tuple[int, int], *, conv_backend: str = "xla",
               dtype: torch.dtype = torch.float32, device=None) -> nn.Module:
@@ -100,13 +116,7 @@ def slim_conv(in_channels: int, out_channels: int, kernel: Tuple[int, int],
     Only temporal convs (kernel and stride 1 along the second axis) exist
     in the port; every TC-ResNet conv is one, the 1x1 stride-(2, 1)
     shortcut included. "im2col" (Im2ColConv) is not carried over."""
-    if conv_backend == "im2col":
-        raise NotImplementedError(
-            "conv_backend='im2col' (Im2ColConv, an XLA formulation for the TPU) is "
-            "not carried over to the port (ROADMAP.md Queue 1 item 15)")
-    if conv_backend not in ("xla", "pallas", "pallas-interpret"):
-        raise ValueError(f"conv_backend must be 'xla', 'pallas' or 'pallas-interpret', "
-                         f"got {conv_backend!r}")
+    check_conv_backend(conv_backend)
     if kernel[1] != 1 or stride[1] != 1:
         raise NotImplementedError(
             f"only temporal k x 1 convs are ported, got kernel {kernel} stride {stride} "
@@ -118,18 +128,82 @@ def slim_conv(in_channels: int, out_channels: int, kernel: Tuple[int, int],
                               interpret=conv_backend == "pallas-interpret")
 
 
+def same_padding_2d(hw: Tuple[int, int], kernel: Tuple[int, int], stride: Tuple[int, int],
+                    dilation: int = 1) -> Tuple[int, int, int, int]:
+    """F.pad's (left, right, top, bottom) for a TF-SAME 2D window over
+    [..., T, F]: per axis the low pad is total // 2, so an even kernel puts
+    the extra row on the high side."""
+    pads = []
+    for n, k, s in zip(hw, kernel, stride):
+        _, lo, hi = same_padding(n, (k - 1) * dilation + 1, s)
+        pads.append((lo, hi))
+    (t_lo, t_hi), (f_lo, f_hi) = pads
+    return (f_lo, f_hi, t_lo, t_hi)
+
+
+class Conv2d(nn.Module):
+    """slim.conv2d / nn.Conv over [B, Ci, T, F]: TF-SAME (explicit F.pad,
+    since PyTorch's padding="same" refuses stride 2) or VALID, stride,
+    dilation, `groups` (groups == Ci is the depthwise conv) and an
+    optional bias. weight [Co, Ci / groups, kh, kw] (the Flax kernel
+    [kh, kw, Ci / groups, Co] transposed)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), *, padding: str = "SAME",
+                 dilation: int = 1, groups: int = 1, bias: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.padding, self.dilation, self.groups = padding, dilation, groups
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, *kernel, device=device))
+        nn.init.xavier_uniform_(self.weight)
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.padding == "SAME":
+            x = F.pad(x, same_padding_2d(x.shape[-2:], self.kernel, self.stride, self.dilation))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.weight.to(self.dtype), bias, stride=self.stride,
+                        dilation=self.dilation, groups=self.groups)
+
+
+def avg_pool_valid(x: torch.Tensor, window: Tuple[int, int],
+                   stride: Tuple[int, int]) -> torch.Tensor:
+    """slim.avg_pool2d with its default VALID padding, over [B, C, T, F]."""
+    return F.avg_pool2d(x, tuple(window), tuple(stride))
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int], stride: Tuple[int, int],
+             padding: str) -> torch.Tensor:
+    """nn.max_pool over [B, C, T, F]; SAME pads with -inf (TF-SAME split)."""
+    if padding == "SAME":
+        x = F.pad(x, same_padding_2d(x.shape[-2:], window, stride), value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return F.max_pool2d(x, tuple(window), tuple(stride))
+
+
 class SlimBatchNorm(nn.Module):
-    """slim.batch_norm (center + scale, epsilon 1e-3) over dim 1 of
-    [B, C, ...]: running statistics in eval mode, batch statistics (and a
-    running-statistics update) in training mode."""
+    """slim.batch_norm (epsilon 1e-3) over dim 1 of [B, C, ...]: running
+    statistics in eval mode, batch statistics (and a running-statistics
+    update) in training mode. `center` and `scale` say whether the layer
+    has a learned shift ("bias") and scale ("weight"); as in Flax, a layer
+    without them has no such parameter at all (Res uses neither, DS-CNN
+    only the shift)."""
 
     def __init__(self, num_features: int, *, momentum: float = 0.997,
+                 center: bool = True, scale: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.momentum = momentum  # Flax's: running = m * running + (1 - m) * batch
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(num_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.weight = nn.Parameter(torch.ones(num_features, device=device)) if scale else None
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device)) if center else None
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
@@ -147,8 +221,12 @@ class SlimBatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        mul = torch.rsqrt(var + BN_EPS)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
         return y.to(self.dtype)
 
 

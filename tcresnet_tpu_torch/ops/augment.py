@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from tcresnet_tpu.config import AugmentConfig
+from tcresnet_tpu_torch.config import AugmentConfig
 from tcresnet_tpu_torch.ops.kernels import augment as kernels
 from tcresnet_tpu_torch.ops.kernels.augment import (
     AugmentScalars,

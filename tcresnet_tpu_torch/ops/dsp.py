@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from tcresnet_tpu.config import AudioConfig
+from tcresnet_tpu_torch.config import AudioConfig
 
 
 # ---------------------------------------------------------------------------

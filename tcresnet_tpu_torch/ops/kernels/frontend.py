@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops.kernels import _build, mfcc
 from tcresnet_tpu_torch.ops.kernels.augment import (

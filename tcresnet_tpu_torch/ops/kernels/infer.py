@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tcresnet_tpu.config import AudioConfig, ModelConfig
+from tcresnet_tpu_torch.config import AudioConfig, ModelConfig
 from tcresnet_tpu_torch.models import layers
 from tcresnet_tpu_torch.models.tc_resnet import TC_CHANNELS, block_plan, scaled_channels
 from tcresnet_tpu_torch.ops import dsp

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from tcresnet_tpu.config import AudioConfig
+from tcresnet_tpu_torch.config import AudioConfig
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import _build
 

@@ -5,11 +5,15 @@ features -> softmax) function. Backends keep the JAX package's names so
 run configs carry over:
 
   "xla"   — the plain per-op PyTorch path: `ops.dsp.preprocess` + the
-            TCResNet module. It is also the plain version that the fused
-            kernel is held against.
-  "fused" — the whole model in one kernel launch (`ops/kernels/infer.py`,
-            CUDA source `csrc/infer.cu`) for a CUDA input; the kernel's
-            plain version for a CPU input.
+            model (cuDNN convs on the card). It is also the path the
+            fused kernels are held against.
+  "fused" — for a CUDA input, the temporal TC-ResNets in one kernel
+            launch (K4: `ops/kernels/infer.py`, `csrc/infer.cu`) and the
+            2D families (TCResNet2D8[Pool], Res, DS-CNN, KWS) in two, the
+            MFCC front end (K2: `csrc/mfcc.cu`) and the op-list kernel
+            (K5: `ops/kernels/infer2d.py`, `csrc/infer2d.cu`); the
+            kernels' plain versions for a CPU input. It raises for a
+            model or geometry that no kernel serves.
   "auto"  — "fused" when the input tensor is on a CUDA device and its
             batch is at most `auto_fused_max_batch(name)`, else "xla".
 
@@ -23,7 +27,7 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
-from tcresnet_tpu.config import ExperimentConfig
+from tcresnet_tpu_torch.config import ExperimentConfig
 from tcresnet_tpu_torch.models import build_model
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.utils.device import resolve_device
@@ -109,12 +113,15 @@ def build_inference_fn(
             precision,
         )
 
-    from tcresnet_tpu_torch.ops.kernels.infer import (
-        build_fused_infer,
-        fused_infer_available,
+    from tcresnet_tpu_torch.ops.kernels.infer import build_fused_infer, fused_infer_available
+    from tcresnet_tpu_torch.ops.kernels.infer2d import (
+        build_fused_infer2d,
+        fused_infer2d_available,
     )
 
-    supported = include_preprocess and fused_infer_available(cfg.model, cfg.audio)
+    is_temporal = fused_infer_available(cfg.model, cfg.audio)
+    supported = include_preprocess and (
+        is_temporal or fused_infer2d_available(cfg.model, cfg.audio))
     if not supported:
         if backend == "fused":
             raise ValueError(
@@ -126,7 +133,8 @@ def build_inference_fn(
             precision,
         )
 
-    fused = build_fused_infer(cfg.model, cfg.audio, params, batch_stats, device=device)
+    build = build_fused_infer if is_temporal else build_fused_infer2d
+    fused = build(cfg.model, cfg.audio, params, batch_stats, device=device)
 
     def infer_fused(x: torch.Tensor) -> torch.Tensor:
         _check_input(x, device)

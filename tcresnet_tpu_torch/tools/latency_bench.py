@@ -1,10 +1,13 @@
 """Per-model inference latency of the PyTorch port on a CUDA card.
 
     python -m tcresnet_tpu_torch.tools.latency_bench --models TCResNet8-1.0
+    python -m tcresnet_tpu_torch.tools.latency_bench --models Res15 DSCNNL KWSfpool3
     python -m tcresnet_tpu_torch.tools.latency_bench --batch-size 1024
 
-For each preset, wav -> softmax at the given batch through the plain
-path (backend="xla") and through the fused kernel (backend="fused"),
+For each preset (all 15 by default), wav -> softmax at the given batch
+through the plain path (backend="xla") and through the fused kernels
+(backend="fused": K4 for the temporal TC-ResNets, K2 + K5 for the 2D
+families),
 timed two ways (serve/benchmark.py): CUDA events around each call
 (device µs) and the host clock around each synchronised call (host µs).
 Weights are made from a seed: latency does not depend on their values.
@@ -19,7 +22,7 @@ import json
 import numpy as np
 import torch
 
-from tcresnet_tpu.config import get_preset
+from tcresnet_tpu_torch.config import PRESETS, get_preset
 from tcresnet_tpu_torch.models import param_count
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.ops import dsp
@@ -27,13 +30,13 @@ from tcresnet_tpu_torch.serve.benchmark import benchmark_compiled, benchmark_on_
 from tcresnet_tpu_torch.serve.export import build_inference_fn
 from tcresnet_tpu_torch.utils.device import card_description, resolve_device
 
-SUPPORTED = ("TCResNet8-1.0", "TCResNet8-1.5", "TCResNet14-1.0", "TCResNet14-1.5")
+SUPPORTED = tuple(PRESETS)
 
 
 def bench_model(name: str, batch_size: int, device: torch.device, card: str) -> dict:
     cfg = get_preset(name)
     variables = variables_from_jax(
-        **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed=0))
+        cfg.model, **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed=0))
     x = torch.tensor(
         np.random.default_rng(0).uniform(
             -1, 1, (batch_size, cfg.audio.desired_samples)).astype(np.float32),

@@ -103,7 +103,7 @@ def apply_cfg_overrides(cfg, items):
 def load_run_config(train_dir):
     """The config a run was trained with (`<train_dir>/config.json`, written
     by the Trainer), or None."""
-    from tcresnet_tpu.config import ExperimentConfig
+    from tcresnet_tpu_torch.config import ExperimentConfig
 
     path = Path(train_dir) / "config.json" if train_dir else None
     if path and path.is_file():
@@ -112,7 +112,7 @@ def load_run_config(train_dir):
 
 
 def build_config(args, base=None):
-    from tcresnet_tpu.config import get_preset
+    from tcresnet_tpu_torch.config import get_preset
 
     cfg = base if base is not None else get_preset(args.preset)
     train_kw = {field: getattr(args, field) for field in (

@@ -22,7 +22,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
-from tcresnet_tpu.config import OptimConfig
+from tcresnet_tpu_torch.config import OptimConfig
 
 Tensors = Dict[str, torch.Tensor]
 

@@ -39,8 +39,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from tcresnet_tpu.config import ExperimentConfig
-from tcresnet_tpu.metrics.writers import MetricWriter, crossed_boundary, should_write_summary
+from tcresnet_tpu_torch.config import ExperimentConfig
+from tcresnet_tpu_torch.metrics.writers import MetricWriter, crossed_boundary, should_write_summary
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.models import build_model, param_count
 from tcresnet_tpu_torch.ops import augment as aug
@@ -90,6 +90,11 @@ class Trainer:
             raise ValueError(
                 f"dataset has {train_data.num_classes} classes, config says "
                 f"{cfg.model.num_classes}")
+        if cfg.model.name not in ("TCResNet8", "TCResNet14"):
+            # the 2D families serve (eval mode); their training mode is not
+            # held to the JAX package yet (KWS dropout, adam / rmsprop)
+            raise NotImplementedError(
+                f"training {cfg.model.name} is not ported yet (ROADMAP.md Queue 1 item 16)")
         self.feature_shape = dsp.feature_shape(cfg.audio)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)

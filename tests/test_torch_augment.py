@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AugmentConfig
+from tcresnet_tpu_torch.config import AugmentConfig
 from tcresnet_tpu.ops.pallas.augment import (
     _draw_scalars,
     _fused_augment_impl,
@@ -19,6 +19,7 @@ from tcresnet_tpu.ops.pallas.augment import (
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops.kernels import augment as kernels
 from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -35,7 +36,7 @@ def _case(seed, naive=True, shift=True):
         method="anchored_slice_or_pad_with_shift" if shift else "anchored_slice_or_pad",
         background_frequency=0.8, background_max_volume=0.5, naive_background_mix=naive)
     scalars = tuple(np.asarray(a) for a in _draw_scalars(
-        jax.random.key(seed), jnp.asarray(silent), cfg, jnp.asarray(noise), N, True))
+        jax.random.key(seed), jnp.asarray(silent), to_jax_config(cfg), jnp.asarray(noise), N, True))
     return data, idx, silent, noise, cfg, scalars
 
 

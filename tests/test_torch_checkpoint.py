@@ -5,8 +5,8 @@ import json
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
-from tcresnet_tpu.config import OptimConfig, TrainConfig
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
+from tcresnet_tpu_torch.config import OptimConfig, TrainConfig
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager

@@ -1,10 +1,10 @@
 """Card-only tests of the PyTorch port's CUDA kernels: K4 (csrc/infer.cu),
-K1 and K6 (csrc/augment.cu), K2 (csrc/mfcc.cu), K3 (csrc/frontend.cu)
-and K7 (csrc/tconv.cu).
+K1 and K6 (csrc/augment.cu), K2 (csrc/mfcc.cu), K3 (csrc/frontend.cu),
+K7 (csrc/tconv.cu) and K5 (csrc/infer2d.cu).
 
 Each test carries the `cuda` marker and skips without a CUDA card (a CUDA
 kernel has no CPU mode; the plain versions are tested against JAX in
-tests/test_torch_{infer,augment,mfcc,train,tconv}.py). This file imports no JAX,
+tests/test_torch_{infer,augment,mfcc,train,tconv,infer2d}.py). This file imports no JAX,
 so it also runs on a machine with the card and without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
-from tcresnet_tpu.config import OptimConfig, TrainConfig, get_preset
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
+from tcresnet_tpu_torch.config import OptimConfig, TrainConfig, get_preset
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
@@ -26,6 +26,7 @@ from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import augment as k16
 from tcresnet_tpu_torch.ops.kernels import frontend as k3
 from tcresnet_tpu_torch.ops.kernels import infer as k4
+from tcresnet_tpu_torch.ops.kernels import infer2d as k5
 from tcresnet_tpu_torch.ops.kernels import mfcc as k2
 from tcresnet_tpu_torch.ops.kernels import tconv as k7
 from tcresnet_tpu_torch.serve.export import build_inference_fn
@@ -51,7 +52,7 @@ def cuda_device():
 
 
 def _variables(model_cfg, audio_cfg, device, seed=0):
-    v = variables_from_jax(**seeded_variables(model_cfg, dsp.feature_shape(audio_cfg), seed))
+    v = variables_from_jax(model_cfg, **seeded_variables(model_cfg, dsp.feature_shape(audio_cfg), seed))
     return {k: {n: t.to(device) for n, t in d.items()} for k, d in v.items()}
 
 
@@ -275,3 +276,90 @@ def test_trainer_convs_go_through_k7(cuda_device, tmp_path):
     assert (k7.fwd_launches - before[0], k7.dx_launches - before[1],
             k7.dw_launches - before[2]) == (20, 18, 20)
     assert np.isfinite(float(summary["total_loss"]))
+
+
+# ---------------------------------------------------------------------------
+# K5: the 2D families' op-list kernel
+# ---------------------------------------------------------------------------
+
+K5_CASES = [("TCResNet2D8Pool-1.0", None), ("Res8Narrow", None), ("Res15Narrow", None),
+            ("DSCNNM", None), ("KWSfpool3", "conv"), ("KWSfpool3", "trad_fpool3"),
+            ("KWSfpool3", "low_latency_svdf"), ("KWSfpool3", "one_fstride4")]
+
+
+def _k5_plan(preset, arch, device, seed=0):
+    cfg = get_preset(preset)
+    if arch is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, kws_architecture=arch))
+    v = _variables(cfg.model, cfg.audio, device, seed)
+    return cfg, k5.build_fused_infer2d(cfg.model, cfg.audio, v["params"], v["batch_stats"],
+                                       device=device)
+
+
+@pytest.mark.parametrize("preset,arch", K5_CASES, ids=[a or p for p, a in K5_CASES])
+def test_k5_matches_plain_version(cuda_device, preset, arch):
+    """Full preset geometry, odd and even batches: K5 == its plain version,
+    one launch per call, and two calls give the same bits."""
+    cfg, plan = _k5_plan(preset, arch, cuda_device)
+    for batch in (1, 5, 32):
+        feats = k2.fused_mfcc(_wavs(batch, cfg.audio.desired_samples, cuda_device, seed=batch),
+                              cfg.audio)
+        before = k5.launches
+        got, again = k5.fused_infer2d(feats, plan), k5.fused_infer2d(feats, plan)
+        torch.cuda.synchronize()
+        assert k5.launches == before + 2
+        assert torch.equal(got, again)
+        want = k5.fused_infer2d_reference(feats, plan)
+        torch.testing.assert_close(got, want, **LOGIT_TOL)
+        torch.testing.assert_close(torch.softmax(got, -1), torch.softmax(want, -1),
+                                   atol=SOFTMAX_ATOL, rtol=0)
+
+
+def test_k5_meets_the_jax_golden(cuda_device):
+    """K2 + K5 softmax within 1e-5 of tcresnet_tpu_torch/testdata/infer2d_golden.npz."""
+    from pathlib import Path
+
+    golden = np.load(Path(__file__).resolve().parent.parent
+                     / "tcresnet_tpu_torch/testdata/infer2d_golden.npz")
+    for i, preset in enumerate(str(p) for p in golden["presets"]):
+        cfg, plan = _k5_plan(preset, None, cuda_device, int(golden["param_seed"]))
+        wavs = _wavs(int(golden["batch"]), cfg.audio.desired_samples, cuda_device,
+                     seed=int(golden["wav_seed"]))
+        got = torch.softmax(plan(wavs), -1).cpu().numpy()
+        np.testing.assert_allclose(got, golden["softmax"][i], rtol=0, atol=SOFTMAX_ATOL)
+
+
+def test_k5_fused_backend_launches_k2_then_k5(cuda_device):
+    """backend="fused" for a 2D preset on the card: one K2 and one K5
+    launch per request, nothing on the plain path; "auto" the same up to
+    the family's batch and the plain path above it."""
+    cfg = get_preset("DSCNNS")
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    fused = build_inference_fn(cfg, v, backend="fused", device=cuda_device)
+    auto = build_inference_fn(cfg, v, backend="auto", device=cuda_device)
+    ref = build_inference_fn(cfg, v, backend="xla", precision="highest", device=cuda_device)
+    x = _wavs(9, cfg.audio.desired_samples, cuda_device)
+    before = (k2.launches, k5.launches)
+    one = fused(x)
+    small, big = auto(x[:8].contiguous()), auto(x)  # 9 > DS-CNN's 8: plain path
+    torch.cuda.synchronize()
+    assert (k2.launches, k5.launches) == (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(one, ref(x), atol=SOFTMAX_ATOL, rtol=0)
+    torch.testing.assert_close(small, ref(x[:8].contiguous()), atol=SOFTMAX_ATOL, rtol=0)
+    torch.testing.assert_close(big, ref(x), atol=SOFTMAX_ATOL, rtol=0)
+
+
+def test_k5_checks_its_input(cuda_device):
+    cfg, plan = _k5_plan("DSCNNS", None, cuda_device)
+    feats = k2.fused_mfcc(_wavs(4, cfg.audio.desired_samples, cuda_device), cfg.audio)
+    with pytest.raises(TypeError):
+        k5.fused_infer2d(feats.double(), plan)
+    with pytest.raises(ValueError):
+        k5.fused_infer2d(feats[:, :-1].contiguous(), plan)
+    with pytest.raises(ValueError):
+        k5.fused_infer2d(feats.transpose(0, 1).contiguous().transpose(0, 1), plan)
+    with pytest.raises(ValueError):
+        k5.fused_infer2d(feats.cpu(), plan)
+    assert k5.fused_infer2d(feats[:0], plan).shape == (0, cfg.model.num_classes)
+    assert k5.grid_blocks(cuda_device) >= torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count

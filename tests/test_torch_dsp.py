@@ -7,9 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig
+from tcresnet_tpu_torch.config import AudioConfig
 from tcresnet_tpu.ops import dsp as jdsp
 from tcresnet_tpu_torch.ops import dsp as tdsp
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -46,11 +47,11 @@ def test_constant_builders_equal_jax(name, args):
                                  AudioConfig(preprocess_method="log_mel_spectrogram"),
                                  AudioConfig(preprocess_method="no_preprocessing")])
 def test_geometry_helpers_equal_jax(cfg):
-    assert tdsp.feature_shape(cfg) == jdsp.feature_shape(cfg)
+    assert tdsp.feature_shape(cfg) == jdsp.feature_shape(to_jax_config(cfg))
     assert tdsp.fft_length_for(cfg.window_size_samples) == jdsp.fft_length_for(
         cfg.window_size_samples)
     if cfg.preprocess_method != "no_preprocessing":
-        assert tdsp.feature_width(cfg) == jdsp.feature_width(cfg)
+        assert tdsp.feature_width(cfg) == jdsp.feature_width(to_jax_config(cfg))
 
 
 @pytest.mark.parametrize("method", ["mfcc", "log_mel_spectrogram"])
@@ -60,7 +61,7 @@ def test_preprocess_matches_jax(geometry, method):
     cfg = dataclasses.replace(GEOMETRIES[geometry], preprocess_method=method)
     wavs = np.random.default_rng(7).uniform(
         -1, 1, (3, cfg.desired_samples)).astype(np.float32)
-    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), cfg))
+    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), to_jax_config(cfg)))
     got = tdsp.preprocess(torch.tensor(wavs), cfg).numpy()
     assert got.shape == want.shape == (3,) + tdsp.feature_shape(cfg)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -72,7 +73,7 @@ def test_preprocess_bf16_dft_matches_jax():
     cfg = dataclasses.replace(GEOMETRIES["30/10ms"], dsp_matmul_dtype="bfloat16")
     wavs = np.random.default_rng(8).uniform(
         -1, 1, (2, cfg.desired_samples)).astype(np.float32)
-    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), cfg))
+    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), to_jax_config(cfg)))
     got = tdsp.preprocess(torch.tensor(wavs), cfg).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     f32 = tdsp.preprocess(torch.tensor(wavs), GEOMETRIES["30/10ms"]).numpy()

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig, DataConfig, ExperimentConfig
-from tcresnet_tpu.config import ModelConfig, OptimConfig, TrainConfig
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig, DataConfig, ExperimentConfig
+from tcresnet_tpu_torch.config import ModelConfig, OptimConfig, TrainConfig
 from tcresnet_tpu.data.device_data import DeviceDataset as JaxDeviceDataset
 from tcresnet_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
 from tcresnet_tpu.evaluation.best_keeper import BestKeeper as JaxBestKeeper
@@ -33,6 +33,7 @@ from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
 from tcresnet_tpu_torch.tools import train as train_cli
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
 from tcresnet_tpu_torch.train.trainer import Trainer
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -143,7 +144,7 @@ def _jax_silence_draws(cfg, host, ordinal):
                                    background_frequency=0.0, background_max_volume=0.0)
     return (np.asarray(jax.random.randint(k_idx, (EVAL_BATCH,), 0, num_clips)),
             np.asarray(jax.random.randint(k_off, (EVAL_BATCH,), 0, clip_len - n + 1)),
-            np.asarray(jaug.draw_background_volumes(k_vols, silent, eval_aug, False)))
+            np.asarray(jaug.draw_background_volumes(k_vols, silent, to_jax_config(eval_aug), False)))
 
 
 @pytest.mark.parametrize("naive", [True, False])
@@ -155,7 +156,7 @@ def test_evaluator_matches_the_jax_evaluator(monkeypatch, naive):
     host = make_synthetic_dataset(num_samples=N_VALID, num_classes=4, desired_samples=n,
                                   seed=1, split="valid")
     seeded = seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed=2)
-    want = JaxEvaluator(cfg, JaxDeviceDataset(jhost)).evaluate(
+    want = JaxEvaluator(to_jax_config(cfg), JaxDeviceDataset(jhost)).evaluate(
         jax.tree_util.tree_map(jnp.asarray, seeded["params"]),
         jax.tree_util.tree_map(jnp.asarray, seeded["batch_stats"]))
 
@@ -169,7 +170,7 @@ def test_evaluator_matches_the_jax_evaluator(monkeypatch, naive):
                               torch.where(is_silent, 0.0, 1.0).to(torch.float32))
 
     monkeypatch.setattr(aug, "draw_scalars", injected)
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(cfg.model, **seeded)
     got = Evaluator(cfg, DeviceDataset(host, "cpu")).evaluate(v["params"], v["batch_stats"])
     assert draws == []
     assert got["num_samples"] == want["num_samples"] == N_VALID
@@ -189,7 +190,7 @@ def test_evaluator_repeats_and_honours_exclusions():
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, exclude_metric_names=("accuracy",)))
     host = make_synthetic_dataset(num_samples=40, num_classes=4,
                                   desired_samples=cfg.audio.desired_samples, seed=3)
-    v = variables_from_jax(**seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), 4))
+    v = variables_from_jax(cfg.model, **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), 4))
     ev = Evaluator(cfg, DeviceDataset(host, "cpu"))
     a = ev.evaluate(v["params"], v["batch_stats"], include_report=False)
     b = ev.evaluate(v["params"], v["batch_stats"], include_report=False)

@@ -16,8 +16,9 @@ import jax
 import numpy as np
 import torch
 
-from tcresnet_tpu.config import get_preset
+from tcresnet_tpu import config as jconfig
 from tcresnet_tpu.serve.export import build_inference_fn as jax_build_inference_fn
+from tcresnet_tpu_torch.config import get_preset
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.ops import dsp as tdsp
 from tcresnet_tpu_torch.serve.export import build_inference_fn
@@ -40,7 +41,8 @@ def _inputs():
 
 def compute_golden() -> dict:
     cfg, variables, wavs = _inputs()
-    fn = jax_build_inference_fn(cfg, variables, backend="xla", precision="highest")
+    fn = jax_build_inference_fn(jconfig.get_preset(PRESET), variables, backend="xla",
+                                precision="highest")
     softmax = np.asarray(jax.device_get(fn(wavs)), np.float32)
     return dict(preset=np.array(PRESET), param_seed=np.array(PARAM_SEED),
                 wav_seed=np.array(WAV_SEED), batch=np.array(BATCH), softmax=softmax)
@@ -64,7 +66,7 @@ def test_port_plain_paths_match_golden():
     meet the golden within the 1e-5 gate that the card's kernel must."""
     cfg, variables, wavs = _inputs()
     golden = np.load(GOLDEN)["softmax"]
-    v = variables_from_jax(**variables)
+    v = variables_from_jax(cfg.model, **variables)
     x = torch.tensor(wavs)
     for backend in ("xla", "fused"):
         fn = build_inference_fn(cfg, v, backend=backend, device="cpu")

@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, ModelConfig
+from tcresnet_tpu_torch.config import AudioConfig, ModelConfig
 from tcresnet_tpu.ops.pallas import infer as jinfer
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.ops import dsp as tdsp
 from tcresnet_tpu_torch.ops.kernels import _build
 from tcresnet_tpu_torch.ops.kernels import infer as k4
 from tcresnet_tpu_torch.ops.kernels import mfcc
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -53,9 +54,9 @@ def test_plain_version_matches_jax_kernel(case):
     """The kernel's plain version == build_fused_infer(interpret=True), at
     batch 3 and 5."""
     model, audio, seeded = _setup(**CASES[case])
-    jfn = jinfer.build_fused_infer(model, audio, seeded["params"], seeded["batch_stats"],
+    jfn = jinfer.build_fused_infer(to_jax_config(model), to_jax_config(audio), seeded["params"], seeded["batch_stats"],
                                    tb=4, interpret=True)
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(model, **seeded)
     plan = k4.build_fused_infer(model, audio, v["params"], v["batch_stats"], device="cpu")
     for batch in (3, 5):
         wavs = _wavs(batch, audio.desired_samples)
@@ -75,8 +76,8 @@ def test_plain_version_matches_jax_kernel(case):
 def test_layer_spec_folds_exactly_like_jax(name, wm):
     """Same roles, taps and strides, and bit-identical folded weights."""
     model, _, seeded = _setup(name, wm=wm)
-    jspec, jfc = jinfer.build_layer_spec(model, seeded["params"], seeded["batch_stats"])
-    v = variables_from_jax(**seeded)
+    jspec, jfc = jinfer.build_layer_spec(to_jax_config(model), seeded["params"], seeded["batch_stats"])
+    v = variables_from_jax(model, **seeded)
     spec, fc = k4.build_layer_spec(model, v["params"], v["batch_stats"])
     assert [(e["role"], e["k"], e["stride"], e["relu"]) for e in spec] == [
         (e["role"], e["k"], e["stride"], e["relu"]) for e in jspec]
@@ -122,7 +123,7 @@ def test_cpu_tensor_takes_the_plain_version_only():
     """A CPU input runs the plain version and launches nothing; an input
     on another device than the plan, or of another device type, raises."""
     model, audio, seeded = _setup("TCResNet8")
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(model, **seeded)
     plan = k4.build_fused_infer(model, audio, v["params"], v["batch_stats"], device="cpu")
     wavs = torch.tensor(_wavs(2, audio.desired_samples))
     before = k4.launches

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig
 from tcresnet_tpu.ops import dsp as jdsp
 from tcresnet_tpu.ops.pallas import frontend as jfrontend
 from tcresnet_tpu.ops.pallas.augment import _draw_scalars
@@ -17,6 +17,7 @@ from tcresnet_tpu.ops.pallas.mfcc import fused_mfcc as jax_fused_mfcc
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import frontend, mfcc
 from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -30,8 +31,8 @@ def test_k2_plain_matches_jax_kernel_and_xla(method):
     cfg = dataclasses.replace(CFG, preprocess_method=method)
     wavs = np.random.default_rng(1).uniform(-1, 1, (4, N)).astype(np.float32)
     got = mfcc.fused_mfcc(torch.tensor(wavs), cfg).numpy()
-    kernel = np.asarray(jax_fused_mfcc(jnp.asarray(wavs), cfg, interpret=True))
-    xla = np.asarray(jdsp.preprocess(jnp.asarray(wavs), cfg))[..., 0]
+    kernel = np.asarray(jax_fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True))
+    xla = np.asarray(jdsp.preprocess(jnp.asarray(wavs), to_jax_config(cfg)))[..., 0]
     assert got.shape == kernel.shape == (4, 18, dsp.feature_width(cfg))
     np.testing.assert_allclose(got, kernel, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got, xla, rtol=0, atol=ATOL)
@@ -53,11 +54,11 @@ def test_k3_plain_matches_jax_kernel(method, quantize):
     noise = (rng.normal(size=(3, 3 * N)) * 0.1).astype(np.float32)
     aug_cfg = AugmentConfig(background_frequency=0.8, background_max_volume=0.3)
     cfg = dataclasses.replace(CFG, preprocess_method=method)
-    scalars = _draw_scalars(jax.random.key(3), jnp.asarray(silent), aug_cfg,
+    scalars = _draw_scalars(jax.random.key(3), jnp.asarray(silent), to_jax_config(aug_cfg),
                             jnp.asarray(noise), N, True)
     want = np.asarray(jfrontend._impl(
         jnp.asarray(data.reshape(rows, P // 128, 128)), jnp.asarray(idx), scalars,
-        jnp.asarray(noise), N, cfg, True, quantize, "hops", 8))
+        jnp.asarray(noise), N, to_jax_config(cfg), True, quantize, "hops", 8))
     shifts, clips, offs, vols, keeps = (np.asarray(a) for a in scalars)
     ts = AugmentScalars(*(torch.tensor(a, dtype=torch.int32) for a in (shifts, clips, offs)),
                         torch.tensor(vols, dtype=torch.float32),

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, ExperimentConfig, ModelConfig, TrainConfig
+from tcresnet_tpu_torch.config import AudioConfig, ExperimentConfig, ModelConfig, TrainConfig
 from tcresnet_tpu.serve.export import build_inference_fn as jax_build_inference_fn
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.ops import dsp as tdsp
@@ -19,6 +19,7 @@ from tcresnet_tpu_torch.serve.benchmark import (
     format_report,
 )
 from tcresnet_tpu_torch.serve.export import auto_fused_max_batch, build_inference_fn
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -44,10 +45,10 @@ def test_backends_match_jax(backend):
     the same name (the JAX fused kernel runs in interpret mode)."""
     cfg = _cfg()
     seeded, wavs = _inputs(cfg)
-    jfn = jax_build_inference_fn(cfg, seeded, backend=backend,
+    jfn = jax_build_inference_fn(to_jax_config(cfg), seeded, backend=backend,
                                  _interpret=backend == "fused")
     want = np.asarray(jax.device_get(jfn(wavs)))
-    fn = build_inference_fn(cfg, variables_from_jax(**seeded), backend=backend, device="cpu")
+    fn = build_inference_fn(cfg, variables_from_jax(cfg.model, **seeded), backend=backend, device="cpu")
     got = fn(torch.tensor(wavs)).numpy()
     assert got.shape == want.shape == (5, 12)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -58,8 +59,8 @@ def test_features_only_matches_jax():
     seeded, _ = _inputs(cfg)
     feats = np.random.default_rng(2).standard_normal(
         (3,) + tdsp.feature_shape(cfg.audio)).astype(np.float32)
-    want = np.asarray(jax_build_inference_fn(cfg, seeded, include_preprocess=False)(feats))
-    fn = build_inference_fn(cfg, variables_from_jax(**seeded), include_preprocess=False,
+    want = np.asarray(jax_build_inference_fn(to_jax_config(cfg), seeded, include_preprocess=False)(feats))
+    fn = build_inference_fn(cfg, variables_from_jax(cfg.model, **seeded), include_preprocess=False,
                             device="cpu")
     np.testing.assert_allclose(fn(torch.tensor(feats)).numpy(), want, rtol=0, atol=1e-5)
 
@@ -70,7 +71,7 @@ def test_auto_routes_by_device_and_batch(monkeypatch):
     limit."""
     cfg = _cfg()
     seeded, wavs = _inputs(cfg)
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(cfg.model, **seeded)
     calls = []
     real = k4.fused_infer
     monkeypatch.setattr(k4, "fused_infer", lambda x, plan: calls.append(x.shape) or real(x, plan))
@@ -87,7 +88,7 @@ def test_auto_routes_by_device_and_batch(monkeypatch):
 def test_errors():
     cfg = _cfg()
     seeded, wavs = _inputs(cfg)
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(cfg.model, **seeded)
     with pytest.raises(ValueError, match="ema_params"):
         build_inference_fn(cfg, v, use_ema=True, device="cpu")
     with pytest.raises(ValueError, match="include_preprocess"):
@@ -113,7 +114,7 @@ def test_use_ema_uses_ema_params():
     cfg = _cfg()
     seeded, wavs = _inputs(cfg)
     zeros = jax.tree_util.tree_map(np.zeros_like, seeded["params"])
-    v = variables_from_jax(seeded["params"], seeded["batch_stats"], ema_params=zeros)
+    v = variables_from_jax(cfg.model, seeded["params"], seeded["batch_stats"], ema_params=zeros)
     for backend in ("xla", "fused"):
         out = build_inference_fn(cfg, v, use_ema=True, backend=backend,
                                  device="cpu")(torch.tensor(wavs)).numpy()

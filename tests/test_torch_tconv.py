@@ -8,13 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from tcresnet_tpu.config import ModelConfig
+from tcresnet_tpu_torch.config import ModelConfig
 from tcresnet_tpu.models import build_model as jax_build_model
 from tcresnet_tpu.ops.pallas.tconv import pallas_temporal_conv as jax_tconv
 from tcresnet_tpu_torch.models import build_model, layers
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.models.convert import variables_to_jax
 from tcresnet_tpu_torch.ops.kernels import tconv
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -174,7 +175,7 @@ def test_pallas_model_matches_jax_pallas_interpret(name, wm):
     seeded = seeded_variables(cfg, SHAPE, seed=3)
     feats = np.random.default_rng(4).standard_normal((5,) + SHAPE).astype(np.float32)
     weights = np.random.default_rng(5).standard_normal((5, 7)).astype(np.float32)
-    jmodel = jax_build_model(jcfg, SHAPE)
+    jmodel = jax_build_model(to_jax_config(jcfg), SHAPE)
     tree = jax.tree_util.tree_map(jnp.asarray, seeded)
 
     def jloss(params):
@@ -189,12 +190,12 @@ def test_pallas_model_matches_jax_pallas_interpret(name, wm):
     convs = [m for m in model.modules() if isinstance(m, layers.TemporalConv)]
     assert convs and all(isinstance(m, layers.PallasTemporalConv) and not m.interpret
                          for m in convs)
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(cfg, **seeded)
     model.load_state_dict({**v["params"], **v["batch_stats"]})
     logits = model(torch.tensor(feats))
     (logits * torch.tensor(weights)).mean().backward()
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), **MODEL_TOL)
-    back = variables_to_jax({"params": {k: p.grad for k, p in model.named_parameters()},
+    back = variables_to_jax(cfg, {"params": {k: p.grad for k, p in model.named_parameters()},
                              "batch_stats": dict(model.named_buffers())})
     for scope, leaves in jax.tree_util.tree_map(np.asarray, jstats).items():
         for leaf, want in leaves.items():
@@ -219,7 +220,8 @@ def test_pallas_routes_every_conv_through_k7_and_matches_xla(monkeypatch):
     monkeypatch.setattr(tconv, "tconv_fwd_reference", spy)
     feat = (23, 20, 1)
     x = torch.tensor(np.random.default_rng(1).standard_normal((4,) + feat), dtype=torch.float32)
-    seeded = variables_from_jax(**seeded_variables(ModelConfig(name="TCResNet8"), feat, seed=6))
+    tc8 = ModelConfig(name="TCResNet8")
+    seeded = variables_from_jax(tc8, **seeded_variables(tc8, feat, seed=6))
     out = {}
     for backend in ("xla", "pallas"):
         model = build_model(ModelConfig(name="TCResNet8", num_classes=12, conv_backend=backend),

@@ -10,8 +10,8 @@ import optax
 import pytest
 import torch
 
-from tcresnet_tpu.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
-from tcresnet_tpu.config import OptimConfig, TrainConfig
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig, ExperimentConfig, ModelConfig
+from tcresnet_tpu_torch.config import OptimConfig, TrainConfig
 from tcresnet_tpu.models import build_model as jax_build_model
 from tcresnet_tpu.ops import dsp as jdsp
 from tcresnet_tpu.ops.pallas.augment import _fused_gather_augment_impl
@@ -26,6 +26,7 @@ from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars
 from tcresnet_tpu_torch.train import loss, optim
 from tcresnet_tpu_torch.train.trainer import Trainer
+from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
 
@@ -44,7 +45,7 @@ def test_train_mode_logits_stats_and_grads_match_flax(name, wm):
     feats = np.random.default_rng(4).standard_normal((5,) + SHAPE).astype(np.float32)
     weights = np.random.default_rng(5).standard_normal((5, 7)).astype(np.float32)
 
-    jmodel = jax_build_model(cfg, SHAPE)
+    jmodel = jax_build_model(to_jax_config(cfg), SHAPE)
 
     def jloss_fn(params):
         logits, mutated = jmodel.apply(
@@ -56,12 +57,12 @@ def test_train_mode_logits_stats_and_grads_match_flax(name, wm):
         _jnp(seeded["params"]))
 
     model = build_model(cfg, SHAPE, device="cpu").train()
-    v = variables_from_jax(**seeded)
+    v = variables_from_jax(cfg, **seeded)
     model.load_state_dict({**v["params"], **v["batch_stats"]})
     logits = model(torch.tensor(feats))
     (logits * torch.tensor(weights)).mean().backward()
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), **TOL)
-    back = variables_to_jax({
+    back = variables_to_jax(cfg, {
         "params": {k: p.grad for k, p in model.named_parameters()},
         "batch_stats": dict(model.named_buffers())})
     for scope, leaves in jax.tree_util.tree_map(np.asarray, jstats).items():
@@ -76,7 +77,7 @@ def test_train_mode_logits_stats_and_grads_match_flax(name, wm):
 def test_weight_round_trip_through_convert():
     cfg = ModelConfig(name="TCResNet8")
     seeded = seeded_variables(cfg, SHAPE, seed=8)
-    back = variables_to_jax(variables_from_jax(**seeded))
+    back = variables_to_jax(cfg, variables_from_jax(cfg, **seeded))
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(seeded)):
         np.testing.assert_array_equal(a, b)
 
@@ -116,9 +117,10 @@ def test_loss_and_l2_match_jax(smoothing):
     got = loss.smoothed_softmax_cross_entropy(torch.tensor(logits), torch.tensor(onehot), smoothing)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
-    seeded = seeded_variables(ModelConfig(name="TCResNet8"), SHAPE, seed=2)
+    tc8 = ModelConfig(name="TCResNet8")
+    seeded = seeded_variables(tc8, SHAPE, seed=2)
     want = jloss.l2_regularization(_jnp(seeded["params"]), 1e-3)
-    got = loss.l2_regularization(variables_from_jax(**seeded)["params"], 1e-3)
+    got = loss.l2_regularization(variables_from_jax(tc8, **seeded)["params"], 1e-3)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     assert loss.is_batch_norm_name("conv0_bn.weight")
     assert not loss.is_batch_norm_name("conv0_conv.weight")
@@ -129,7 +131,7 @@ def test_optimizer_matches_optax(name):
     """Five steps, the same grads: unit-LR update, schedule scaling, EMA."""
     ocfg = OptimConfig(optimizer=name, momentum=0.9, lr_list=(0.1, 0.01, 0.001),
                        boundaries=(2, 3))
-    tx, jsched = joptim.build_optimizer(ocfg)
+    tx, jsched = joptim.build_optimizer(to_jax_config(ocfg))
     opt, sched = optim.build_optimizer(ocfg)
     rng = np.random.default_rng(7)
     p0 = {"a": rng.standard_normal((3, 4)).astype(np.float32),
@@ -202,7 +204,7 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
 
     ds = DeviceDataset(host, "cpu")
     trainer = Trainer(cfg, ds, workdir=tmp_path)
-    init = variables_to_jax({"params": trainer.state.params,
+    init = variables_to_jax(cfg.model, {"params": trainer.state.params,
                              "batch_stats": trainer.state.batch_stats})
     calls = {"n": 0}
 
@@ -223,9 +225,9 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
 
     # the JAX step
     jconv = "pallas-interpret" if conv_backend == "pallas" else conv_backend
-    jmodel = jax_build_model(dataclasses.replace(cfg.model, conv_backend=jconv),
-                             jdsp.feature_shape(cfg.audio))
-    tx, sched = joptim.build_optimizer(cfg.optim)
+    jmodel = jax_build_model(to_jax_config(dataclasses.replace(cfg.model, conv_backend=jconv)),
+                             jdsp.feature_shape(to_jax_config(cfg.audio)))
+    tx, sched = joptim.build_optimizer(to_jax_config(cfg.optim))
     params, stats = _jnp(init["params"]), _jnp(init["batch_stats"])
     opt_state = tx.init(params)
     padded = np.zeros((40, P), np.int16)
@@ -238,7 +240,7 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
         keeps = jnp.where(jnp.asarray(host.is_silent)[idx], 0.0, 1.0)
         scalars = tuple(jnp.asarray(a) for a in d["scalars"]) + (keeps,)
         wavs = _fused_gather_augment_impl(wavs3d, idx, scalars, noise, N, True)
-        feats = jdsp.preprocess(wavs, dataclasses.replace(cfg.audio, dsp_backend="xla"))
+        feats = jdsp.preprocess(wavs, to_jax_config(dataclasses.replace(cfg.audio, dsp_backend="xla")))
         onehot = jax.nn.one_hot(jnp.asarray(host.labels)[idx], 4)
 
         def loss_fn(p):
