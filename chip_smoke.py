@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives tcresnet_tpu_torch (never JAX) at full TCResNet8-1.0 width
-(16 kHz, 1 s clips, MFCC-40, channels 16/24/32/48, 12 classes) with
-weights and data made from seeds, in phases that print their lines:
+Drives tcresnet_tpu_torch (never JAX) at full width (TCResNet8-1.0: 16
+kHz, 1 s clips, MFCC-40, channels 16/24/32/48, 12 classes; the 2D
+presets at theirs) with weights and data made from seeds, in phases that
+print their lines:
 
   1. device   the card, as nvidia-smi reports its name and power limit
   2. build    every kernel source built with nvcc, one process each, all
@@ -72,6 +73,33 @@ weights and data made from seeds, in phases that print their lines:
               call of the cuDNN model under torch.profiler (its device time
               alone, the library time where the profiler reports one); the
               served request (K2 + K5, and "xla") on the host clock
+ 21. build    mfcc.cu (K2, K8, K9) and frontend.cu (K3 hops, phases,
+              radix4) rebuilt, the ptxas line of every entry point
+ 22. kernel   K8 (phases) and K9 (radix4) against their plain versions (TF32
+              off) at 480/160 MFCC-40, 640/320 MFCC-10 and MFCC-40, MFCC and
+              log-mel, batch 1, 8, 1536, atol 1e-4, and with the bf16 DFT at
+              5e-3; K3's phases and radix4 entry points against K1-plain
+              followed by the variant's plain version, the same draws, at
+              the JAX package's tolerance for features of dataset rows
+              (DATASET_FEATURE_TOL: atol 2e-4, rtol 1e-5; MFCCs up to ~160),
+              and bit-equal to K8 / K9 over K1; the per-variant launch
+              counters
+ 23. train    the 2D main path: the DSCNNL preset (MFCC-10 at 40/20 ms,
+              batch 100, float32, adam) with dft_variant="radix4" and
+              frontend_fuse="on", 30 steps, a checkpoint every 10: K3-radix4
+              launches equal the steps, the loss falls, resuming from step 20
+              reproduces steps 21-30 exactly; the loop evaluator scores the
+              three checkpoints through K9 (dsp_backend="pallas"); legs of 5
+              steps: Res15 (adam, 480/160) with "phases" through K3-phases,
+              TCResNet2D8-1.0 (mom), KWSfpool3 (adam, dropout), DSCNNS with
+              rmsprop; build_inference_fn(backend="auto") for the trained
+              DSCNNL (radix4) and Res15 (phases) serves 20 single requests
+              each through K9 + K5 and K8 + K5, against "xla", "highest"
+ 24. times    K2, K8, K9, their plain versions and dsp.preprocess on cuBLAS
+              (TF32 off, the library time) at batch 1536 for both
+              geometries; K3 in its variants; ms/step, utt/s and the
+              device's busy share of the DSCNNL and Res15 train steps at
+              their preset batch
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
@@ -106,6 +134,11 @@ BF16_TOL = 5e-3
 # features: the JAX package's front-end kernel tolerance
 # (tests/test_pallas_frontend.py): float32 sums in another order
 FEATURE_ATOL = 1e-4
+# features of int16 dataset rows (loud tones, MFCC up to ~160, where
+# float32 steps are 1.5e-5) through a kernel against the plain path: the
+# JAX package's tolerance for the same comparison
+# (tests/test_pallas_frontend.py::test_fused_frontend_eval_mode)
+DATASET_FEATURE_TOL = dict(atol=2e-4, rtol=1e-5)
 # K7 fwd and dx: the JAX package's kernel test (tests/test_pallas_tconv.py):
 # float32 sums in another order
 TCONV_FWD_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -183,14 +216,18 @@ def queued_ms(fn, runs: int = 20) -> tuple:
 
 
 def ptxas_line(name: str) -> str:
+    """ptxas's registers and spills of csrc/<name>.cu, each labelled with
+    its entry point's DFT variant where the source has one per variant."""
     from tcresnet_tpu_torch.ops.kernels import _build
 
     log = _build.library_path(name).with_suffix(".log")
-    return " ".join(
-        line.split("ptxas info    :")[-1].strip()
-        for line in (log.read_text().splitlines() if log.exists() else [])
-        if "registers" in line or "spill" in line
-    ) or "cached build"
+    variants, entry, parts = {"0": "hops: ", "1": "phases: ", "2": "radix4: "}, "", []
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line and "ILi" in line:
+            entry = variants.get(line.split("ILi")[1][:1], "")
+        elif "registers" in line or "spill" in line:
+            parts.append(entry + line.split("ptxas info    :")[-1].strip())
+    return " ".join(parts) or "cached build"
 
 
 def main() -> int:
@@ -343,6 +380,7 @@ def main() -> int:
     train_kernels, ds = training_phases(dev, card)
     tconv_kernels = tconv_phases(dev, card, ds)
     infer2d_kernels = infer2d_phases(dev, card)
+    variant_kernels = dft_variant_phases(dev, card, ds)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -356,7 +394,7 @@ def main() -> int:
         "library_ms": times[("serve_xla_highest", 1)] / 1e3,
         "ms_b1024": times[("kernel", 1024)] / 1e3,
         "plain_ms_b1024": times[("kernel_plain_version", 1024)] / 1e3,
-    }] + train_kernels + tconv_kernels + infer2d_kernels}
+    }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1146,6 +1184,349 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
         "timed": "Res15, batch 1",
         "by_preset": {f"{p} B={b}": t for (p, b), t in times.items()},
     }]
+
+
+def variant_macs(audio, variant: str) -> int:
+    """Multiply-adds one clip needs in a DFT variant: K8's are K2's (the
+    zero rows of W_p need no work); K9's are its factored products over
+    their live columns only (M0's k2 <= L/2: L x 2(L/2 + 1); M1: 2L x 2L;
+    M2's k2 < L/2: L x 2(L/2); 6L^2 + 2L per frame, the zeroed columns need
+    no work) and the mel over the 2L + 1 live rows of its permuted power
+    (`dsp.radix4_bin_map`); both with the DCT for MFCC."""
+    from tcresnet_tpu_torch.ops.kernels import mfcc
+
+    if variant != "radix4":
+        return front_end_macs(audio)
+    g = mfcc.front_end_geometry(audio, audio.desired_samples)
+    length = g.fft_length // 4
+    stage2 = length * 2 * (length // 2 + 1) + 4 * length * length + length * 2 * (length // 2)
+    dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
+    return g.frames * (stage2 + (2 * length + 1) * g.num_mel) + dct
+
+
+def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
+    """Phases 21-24: K8 and K9 (the MFCC kernel's and K3's phases and
+    radix4 entry points) and the 2D families' training path through them."""
+    import tempfile
+
+    from tcresnet_tpu_torch.config import get_preset
+    from tcresnet_tpu_torch.data.device_data import DeviceDataset
+    from tcresnet_tpu_torch.ops import augment as aug
+    from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.ops.kernels import augment as k16
+    from tcresnet_tpu_torch.ops.kernels import frontend as k3
+    from tcresnet_tpu_torch.ops.kernels import infer2d as k5
+    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+    from tcresnet_tpu_torch.serve.export import build_inference_fn
+    from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
+    from tcresnet_tpu_torch.train.trainer import Trainer
+
+    # ---- 21. build (compiled in phase 2, all sources at once) ----
+    k2.build_kernels()
+    k3.build_kernels()
+    for name in ("mfcc", "frontend"):
+        print(f"[build] {name}.cu for sm_90a, entry points by DFT variant | {ptxas_line(name)}")
+
+    def counts(module):
+        return (module.launches, module.phases_launches, module.radix4_launches)
+
+    def one(variant):
+        return tuple(int(v == variant) for v in ("hops", "phases", "radix4"))
+
+    kname = {"hops": "K2", "phases": "K8", "radix4": "K9"}
+
+    # ---- 22. K8 and K9 against their plain versions ----
+    n = 16000
+    geoms = {"480/160 MFCC-40": get_preset("TCResNet8-1.0").audio,
+             "640/320 MFCC-10": get_preset("DSCNNL").audio,
+             "640/320 MFCC-40": get_preset("KWSfpool3").audio}
+    errs = {"phases": 0.0, "radix4": 0.0}
+    for label, audio in geoms.items():
+        for variant in ("phases", "radix4"):
+            base = dataclasses.replace(audio, dft_variant=variant)
+            for feat, cfg, tol in (
+                    ("mfcc", base, (FEATURE_ATOL, 0.0)),
+                    ("log-mel", dataclasses.replace(base, preprocess_method="log_mel_spectrogram"),
+                     (FEATURE_ATOL, 0.0)),
+                    ("mfcc bf16-dft", dataclasses.replace(base, dsp_matmul_dtype="bfloat16"),
+                     (BF16_TOL, BF16_TOL))):
+                check(k2.resolve_dft_variant(cfg, n) == variant, f"{label} {variant}: resolves")
+                line = []
+                for batch in (1, 8, 1536):
+                    wavs = torch.tensor(seeded_wavs(4000 + batch, batch, n), device=dev)
+                    before = counts(k2)
+                    got = k2.fused_mfcc(wavs, cfg)
+                    torch.cuda.synchronize()
+                    delta = tuple(a - b for a, b in zip(counts(k2), before))
+                    check(delta == one(variant), f"{kname[variant]} {label}: launches {delta}")
+                    want = k2.fused_mfcc_reference(wavs, cfg, variant)
+                    check(got.shape == want.shape == (batch,) + dsp.feature_shape(cfg)[:2],
+                          f"{kname[variant]} {label} {feat}: shape {tuple(got.shape)}")
+                    if variant == "phases":
+                        # the same products as K2's in the same order, W_p's
+                        # zero rows adding exact zeros: bit for bit
+                        hops = k2.fused_mfcc(wavs, dataclasses.replace(cfg, dft_variant="hops"))
+                        check(torch.equal(got, hops), f"K8 {label} {feat}: differs from K2")
+                    check(bool(torch.isfinite(got).all()), f"{kname[variant]} {label}: non-finite")
+                    err = (got - want).abs().max().item()
+                    check(torch.allclose(got, want, atol=tol[0], rtol=tol[1]),
+                          f"{kname[variant]} {label} {feat} B={batch}: max err {err}")
+                    if tol[1] == 0.0:
+                        errs[variant] = max(errs[variant], err)
+                    line.append(f"B={batch} {err:.2e}")
+                print(f"[kernel] {kname[variant]} ({variant}) {label} {feat} vs plain (TF32 off, "
+                      f"atol {tol[0]}): " + ", ".join(line)
+                      + ("; equal to K2 bit for bit" if variant == "phases" else ""))
+
+    gen = torch.Generator(device=dev)
+    augment_cfg = get_preset("TCResNet8-1.0").augment
+
+    def draw(batch, seed):
+        gen.manual_seed(seed)
+        idx, _, silent = DeviceDataset.sample_indices(ds.arrays, gen, batch)
+        return idx, aug.draw_scalars(gen, silent, augment_cfg, ds.noise_bank, n, True)
+
+    k3_errs = {"phases": 0.0, "radix4": 0.0}
+    for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
+        for variant in ("phases", "radix4"):
+            cfg = dataclasses.replace(geoms[label], dft_variant=variant)
+            line = []
+            for batch in (1, 8, 1536):
+                idx, sc = draw(batch, 950 + batch)
+                before = counts(k3)
+                got = k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)
+                torch.cuda.synchronize()
+                delta = tuple(a - b for a, b in zip(counts(k3), before))
+                check(delta == one(variant), f"K3-{variant} {label}: launches {delta}")
+                want = k3.frontend_reference(ds.wavs, idx, sc, ds.noise_bank, cfg, n)
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, **DATASET_FEATURE_TOL),
+                      f"K3-{variant} {label} B={batch}: max err {err}")
+                two = k2.fused_mfcc(k16.fused_gather_augment(ds.wavs, idx, sc, ds.noise_bank, n),
+                                    cfg)
+                check(torch.equal(got, two), f"K3-{variant} {label}: differs from "
+                      f"{kname[variant]}(K1)")
+                k3_errs[variant] = max(k3_errs[variant], err)
+                line.append(f"B={batch} {err:.2e}")
+            print(f"[kernel] K3-{variant} {label} vs K1-plain -> {kname[variant]}-plain (same "
+                  f"draws, atol 2e-4 rtol 1e-5): " + ", ".join(line)
+                  + f"; equal to {kname[variant]}(K1) bit for bit")
+
+    # ---- 23. train the 2D families: the main path ----
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_2d_")
+
+    def preset_cfg(name, variant="auto", **optim):
+        cfg = get_preset(name)
+        return cfg.replace(
+            audio=dataclasses.replace(cfg.audio, dft_variant=variant, frontend_fuse="on",
+                                      dsp_backend="pallas"),
+            augment=dataclasses.replace(cfg.augment, backend="pallas"),
+            optim=dataclasses.replace(cfg.optim, **optim),
+            train=dataclasses.replace(cfg.train, max_step=10**9, step_save_checkpoint=10,
+                                      step_evaluation=10, summary_step_verbose=10,
+                                      summary_step_default=10),
+            data=dataclasses.replace(cfg.data, use_synthetic=True, synthetic_num_samples=24_100))
+
+    for module in (k2, k3):
+        module.launches = module.phases_launches = module.radix4_launches = 0
+    k5.launches = 0
+    path_launches = {}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # exact resume
+    try:
+        steps = 30
+        dcfg = preset_cfg("DSCNNL", "radix4")
+        run = f"{workdir}/dscnnl"
+        t0 = time.perf_counter()
+        trainer = Trainer(dcfg, ds, workdir=run, steps_per_call=10)
+        trainer.train(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path_launches["k9_frontend"] = k3.radix4_launches
+        check(counts(k3) == (0, 0, steps), f"train DSCNNL: K3 launches {counts(k3)}, want "
+              f"{steps} radix4")
+        records = train_records(trainer)
+        losses = [r["total_loss"] for r in records if "total_loss" in r]
+        check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"train DSCNNL: loss did not fall: {losses}")
+        check(trainer.ckpt.all_steps() == [10, 20, 30],
+              f"train DSCNNL: checkpoints {trainer.ckpt.all_steps()}")
+        print(f"[train] DSCNNL (MFCC-10 40/20 ms, B=100, f32, adam, radix4, frontend_fuse=on): "
+              f"{steps} steps in {wall:.1f} s, K3-radix4 launches "
+              f"{path_launches['k9_frontend']}; loss "
+              + " -> ".join(f"{x:.4f}" for x in losses)
+              + f"; checkpoints {trainer.ckpt.all_steps()}")
+
+        second = Trainer(dcfg, ds, workdir=f"{workdir}/dscnnl_resume", steps_per_call=10)
+        trainer.ckpt.restore(second.state, 20)
+        resumed = float(second.train_steps(10, start=20)["total_loss"])
+        want30 = [r["total_loss"] for r in records if r["step"] == 30 and "total_loss" in r][0]
+        check(resumed == want30, f"resume DSCNNL: steps 21-30 mean loss {resumed} != {want30}")
+        for field in ("params", "batch_stats", "opt_state"):
+            mine, theirs = getattr(trainer.state, field), getattr(second.state, field)
+            check(all(torch.equal(mine[k], theirs[k]) for k in mine),
+                  f"resume DSCNNL: {field} differ at step 30")
+        print(f"[train] DSCNNL resumed at step 20 (params, BN statistics, adam's mu, nu and "
+              f"count {int(second.state.opt_state['count'])}): steps 21-30 mean loss "
+              f"{resumed!r} and the state at 30 equal the uninterrupted run's bit for bit")
+
+        before = k2.radix4_launches
+        t0 = time.perf_counter()
+        evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
+                           "--valid-type", "loop"])
+        torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+        eval_launches = k2.radix4_launches - before
+        scored = {r["step"]: r for r in map(
+            json.loads, open(f"{run}/valid_metrics.jsonl").read().splitlines())}
+        n_valid = max(24_100 // 8, 128)
+        batches = -(-n_valid // dcfg.data.eval_batch_size)
+        check(sorted(scored) == [10, 20, 30], f"evaluate DSCNNL: scored {sorted(scored)}")
+        check(eval_launches == 3 * batches, f"evaluate DSCNNL: K9 launches {eval_launches}")
+        print(f"[evaluate] loop over the DSCNNL run: checkpoints {sorted(scored)} scored once "
+              f"each on {n_valid} valid rows in {eval_wall:.1f} s through K9 (dsp_backend="
+              f"pallas, {eval_launches} launches = {batches} x 3), the model on cuDNN; accuracy "
+              + " ".join(f"{scored[s]['accuracy']:.4f}" for s in sorted(scored)))
+
+        legs = {}
+        for label, name, variant, optim in (
+                ("Res15 (adam, 480/160, phases)", "Res15", "phases", {}),
+                ("TCResNet2D8-1.0 (mom)", "TCResNet2D8-1.0", "auto", {}),
+                ("KWSfpool3 (adam, dropout)", "KWSfpool3", "auto", {}),
+                ("DSCNNS (rmsprop)", "DSCNNS", "auto", {"optimizer": "rmsprop"})):
+            before = counts(k3)
+            tr = Trainer(preset_cfg(name, variant, **optim), ds, workdir=f"{workdir}/{name}")
+            leg_losses = [float(tr.train_steps(1, start=i)["total_loss"]) for i in range(5)]
+            delta = tuple(a - b for a, b in zip(counts(k3), before))
+            want = tuple(5 * x for x in one("phases" if variant == "phases" else "hops"))
+            check(delta == want, f"leg {label}: K3 launches {delta}, want {want}")
+            check(all(np.isfinite(x) for x in leg_losses), f"leg {label}: losses {leg_losses}")
+            legs[name] = tr
+            print(f"[train] leg {label}, preset batch {tr.cfg.train.batch_size}: 5 steps, K3 "
+                  f"launches (hops, phases, radix4) {delta}; loss "
+                  + " -> ".join(f"{x:.4f}" for x in leg_losses))
+        path_launches["k8_frontend"] = k3.phases_launches
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+
+    served = {}
+    for label, tr in (("DSCNNL (radix4)", trainer), ("Res15 (phases)", legs["Res15"])):
+        scfg = tr.cfg.replace(audio=dataclasses.replace(tr.cfg.audio, dsp_backend="xla"))
+        v = {"params": tr.state.params, "batch_stats": tr.state.batch_stats}
+        served[label] = (build_inference_fn(scfg, v, backend="auto", device=dev),
+                         build_inference_fn(scfg, v, backend="xla", precision="highest",
+                                            device=dev),
+                         [torch.tensor(seeded_wavs(5000 + i, 1, n), device=dev)
+                          for i in range(20)])
+    torch.cuda.synchronize()
+    before_k2, before_k5 = counts(k2), k5.launches
+    t0 = time.perf_counter()
+    answers = {label: [auto(x) for x in reqs] for label, (auto, _, reqs) in served.items()}
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    delta = tuple(a - b for a, b in zip(counts(k2), before_k2))
+    check(delta == (0, 20, 20) and k5.launches - before_k5 == 40,
+          f"serve 2D variants: K2/K8/K9 launches {delta}, K5 {k5.launches - before_k5}")
+    path_launches["k8_mfcc"] = k2.phases_launches
+    path_launches["k9_mfcc"] = k2.radix4_launches
+    serve_err = {}
+    for label, (_, ref, reqs) in served.items():
+        worst = 0.0
+        for x, y in zip(reqs, answers[label]):
+            check(bool(torch.isfinite(y).all()) and y.shape == (1, 12), f"serve {label}: output")
+            worst = max(worst, (y - ref(x)).abs().max().item())
+        check(worst <= SOFTMAX_ATOL, f"serve {label}: auto vs xla/highest differ by {worst}")
+        serve_err[label] = worst
+    print(f"[serve] auto, trained DSCNNL (radix4) and Res15 (phases): 20 x B=1 each in "
+          f"{serve_ms:.1f} ms, K8 {delta[1]} / K9 {delta[2]} / K5 {k5.launches - before_k5} "
+          "launches; max softmax err vs xla/highest "
+          + ", ".join(f"{k} {e:.2e}" for k, e in serve_err.items()))
+    print(f"[train] phase 23 launches: " + ", ".join(f"{k} {v}" for k, v in path_launches.items()))
+
+    # ---- 24. times ----
+    xla_hops = {label: dataclasses.replace(a, dsp_backend="xla", dft_variant="hops")
+                for label, a in geoms.items()}
+    ms, k3_ms = {}, {}
+    batch = 1536
+    for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
+        wavs = torch.tensor(seeded_wavs(77, batch, n), device=dev)
+        library = device_ms(lambda: dsp.preprocess(wavs, xla_hops[label]))
+        for variant in ("hops", "phases", "radix4"):
+            cfg = dataclasses.replace(geoms[label], dft_variant=variant)
+            a, b, c, d = (device_ms(lambda: k2.fused_mfcc(wavs, cfg)),
+                          device_ms(lambda: k2.fused_mfcc_reference(wavs, cfg, variant)),
+                          device_ms(lambda: k2.fused_mfcc_reference(wavs, cfg, variant)),
+                          device_ms(lambda: k2.fused_mfcc(wavs, cfg)))
+            bnd = bound(2 * batch * variant_macs(cfg, variant),
+                        4 * batch * (n + np.prod(dsp.feature_shape(cfg)[:2])))
+            ms[(variant, label)] = dict(ms=min(a, d), plain_ms=min(b, c), library_ms=library,
+                                        **bnd)
+            print(f"[times] {kname[variant]} ({variant}) {label} B={batch}: kernel {a:.4f} / "
+                  f"{d:.4f} ms, plain {b:.4f} / {c:.4f} ms, dsp.preprocess on cuBLAS (TF32 off, "
+                  f"dense) {library:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                  f"{bnd['bound_ms'] / min(a, d):.1%} of it) (CUDA events, median of 20; order "
+                  f"kernel, plain, plain, kernel) | {card}")
+        idx, sc = draw(batch, 77)
+        mixed = int((sc.vols != 0).sum())
+        for variant in ("hops", "phases", "radix4"):
+            cfg = dataclasses.replace(geoms[label], dft_variant=variant)
+            a, b, c, d = (
+                device_ms(lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)),
+                device_ms(lambda: k3.frontend_reference(ds.wavs, idx, sc, ds.noise_bank, cfg, n)),
+                device_ms(lambda: k3.frontend_reference(ds.wavs, idx, sc, ds.noise_bank, cfg, n)),
+                device_ms(lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)))
+            bnd = bound(2 * batch * variant_macs(cfg, variant),
+                        2 * batch * n + 4 * mixed * n
+                        + 4 * batch * np.prod(dsp.feature_shape(cfg)[:2]))
+            k3_ms[(variant, label)] = dict(ms=min(a, d), plain_ms=min(b, c), library_ms=library,
+                                           **bnd)
+            print(f"[times] K3 ({variant}) {label} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain "
+                  f"(K1-plain -> {kname[variant]}-plain) {b:.4f} / {c:.4f} ms; bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | {card}")
+
+    for label, tr, variant in (("DSCNNL B=100 f32 adam, K3-radix4", trainer, "radix4"),
+                               ("Res15 B=64 f32 adam, K3-phases", legs["Res15"], "phases")):
+        tr.train_steps(3, start=100)
+        spans = []
+        for visit in range(2):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            tr.train_steps(20, start=200 + 20 * visit)
+            ev1.record()
+            torch.cuda.synchronize()
+            spans.append(((time.perf_counter() - t0) * 1e3 / 20, ev0.elapsed_time(ev1) / 20))
+        busy = device_busy_ms(lambda: tr.train_steps(3, start=500)) / 3
+        host_ms = sum(h for h, _ in spans) / 2
+        dev_ms = sum(d for _, d in spans) / 2
+        bsz = tr.cfg.train.batch_size
+        print(f"[times] train step {label}: " + " / ".join(f"{h:.3f}" for h, _ in spans)
+              + " ms/step host, " + " / ".join(f"{d:.3f}" for _, d in spans) + " ms/step CUDA "
+              f"events (two runs of 20 steps), {bsz / host_ms * 1e3:,.0f} utt/s, device busy "
+              f"{busy:.3f} ms/step = {busy / dev_ms:.1%} of the step | {card}")
+
+    def entry(name, source, replaces, key, err, timed, label):
+        t = timed[(key, label)]
+        other = [g for g in ("480/160 MFCC-40", "640/320 MFCC-10") if g != label][0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": path_launches[name], "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "timed": f"{label}, batch {batch}",
+                "other_geometry": {other: timed[(key, other)]}}
+
+    return [
+        entry("k8_mfcc", "tcresnet_tpu_torch/csrc/mfcc.cu", "tcresnet_tpu/ops/pallas/mfcc.py:438",
+              "phases", errs["phases"], ms, "480/160 MFCC-40"),
+        entry("k8_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
+              "tcresnet_tpu/ops/pallas/frontend.py:164", "phases", k3_errs["phases"], k3_ms,
+              "480/160 MFCC-40"),
+        entry("k9_mfcc", "tcresnet_tpu_torch/csrc/mfcc.cu", "tcresnet_tpu/ops/pallas/mfcc.py:422",
+              "radix4", errs["radix4"], ms, "640/320 MFCC-10"),
+        entry("k9_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
+              "tcresnet_tpu/ops/pallas/frontend.py:175", "radix4", k3_errs["radix4"], k3_ms,
+              "640/320 MFCC-10"),
+    ]
 
 
 if __name__ == "__main__":

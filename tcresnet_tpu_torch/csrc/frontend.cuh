@@ -1,35 +1,56 @@
 // The spectral front end shared by the port's CUDA kernels: one
 // utterance's samples in shared memory -> MFCC or log-mel features.
 //
-// One implementation for three kernels, as the JAX package has one
-// `mfcc_tail` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
+// One implementation for four kernels, as the JAX package has one
+// `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
 // front-end and inference kernels:
-//   K2 csrc/mfcc.cu      wav -> features (ops/pallas/mfcc.py::_kernel)
-//   K3 csrc/frontend.cu  gather + augment -> features (frontend.py::_kernel)
-//   K4 csrc/infer.cu     wav -> features -> convs -> logits (infer.py::_kernel)
+//   K2/K8/K9 csrc/mfcc.cu     wav -> features (mfcc.py::_kernel,
+//                             ::_kernel_phases, ::_kernel_radix4)
+//   K3       csrc/frontend.cu gather + augment -> features (frontend.py::_kernel)
+//   K4       csrc/infer.cu    wav -> features -> convs -> logits (infer.py::_kernel)
 //
-// fe_features() runs, with all threads of the block:
-//   1. the windowed real DFT of every frame from the L2-resident constant
-//      (reim[f] = frame[f] @ W) and power (MFCC) or magnitude (log-mel),
-//   2. mel and log(mel + 1e-6),
-//   3. the DCT for MFCC.
-// The DFT is the bulk of the work (~24.7 M multiply-adds per 1 s clip of
-// ~27 M); its bound on the H100 is FP32 FMA issue (no tensor cores here).
-// It is register-blocked: each thread owns 4 output columns x 14 frames,
-// the columns interleaved (re_k, im_k, re_k+1, im_k+1) so that a thread
-// forms two power bins from its own accumulators.
+// A kernel runs, with all threads of the block:
+//   1. a DFT stage into the power (MFCC) or magnitude (log-mel) spectrum
+//      [frames, nbp] in region B, one of
+//        fe_dft_hops    every frame's full-window dot with the windowed DFT
+//                       (K2, K3, K4: reim[f] = frame[f] @ W),
+//        fe_dft_phases  frames grouped by phase f mod P, each group a product
+//                       of a strided view of the utterance (rows of
+//                       rows_p * 128 samples, 640 apart at both reference
+//                       geometries) against that phase's W_p, whose rows
+//                       outside [o_p, o_p + window) are zero (K8),
+//        fe_dft_radix4  the radix-4 DIF factored rDFT: windowed blocks,
+//                       butterfly, three stage-2 products, power rows in the
+//                       branch-permuted [3L] layout (K9);
+//   2. fe_tail: mel and log(mel + 1e-6), then the DCT for MFCC.
+// The DFT is the bulk of the work: per 1 s clip 24.2 M multiply-adds
+// (hops) or 28.9 M with W_p's zero rows (phases) at 480/160, 32.2 M or
+// 35.3 M at 640/320, and frames * 8 L^2 for radix4 (12.85 M at L = 128,
+// 25.7 M at L = 256). Its bound on the H100 is FP32 FMA issue (no tensor
+// cores here). It is register-blocked: each thread owns 4 output columns
+// x RF frames, the columns interleaved (re_k, im_k, re_k+1, im_k+1) so that
+// a thread forms two power bins from its own accumulators.
 //
-// Shared memory: region A holds the samples on entry and the log-mel
-// after step 2; region B holds the power spectrum [frames, 2*ncg] after
-// step 1 and the features [frames, C] on return (C <= 2*ncg). The caller
-// fills region A (through fe_sample, which applies the bf16 rounding of
-// dsp_matmul_dtype="bfloat16") and synchronises before the call; the call
-// ends synchronised.
+// Shared memory: region A holds the samples on entry and the log-mel after
+// step 2; region B holds the power spectrum [frames, nbp] after step 1 and
+// the features [frames, C] on return (C <= nbp). nbp = 2 * ncg; for radix4
+// the host sets ncg = 3L / 2 and num_bins = 3L, so the tail reads the
+// permuted power rows against the row-permuted mel matrix unchanged.
+// radix4 also uses region C, right after B: the butterflies of `tile`
+// frames at a time (4L floats each). The samples (64,000 B at 1 s) and
+// the power (150,528 B at both reference geometries) leave 17,920 B of the
+// 227 KB block, so the butterflies of the whole utterance (200,704 B) are
+// never stored: the stage runs over tiles of 8 (L = 128) or 4 (L = 256)
+// frames. The caller fills region A (through fe_sample, which applies the
+// bf16 rounding of dsp_matmul_dtype="bfloat16" to the DFT's A operand)
+// and synchronises before the call; the call ends synchronised.
 //
 // Numerics: float32, fmaf in a fixed order, IEEE logf/sqrtf (the build
-// has no --use_fast_math). With round_bf16 the samples are rounded to
-// bf16 and the DFT constant is passed already rounded; products still
-// accumulate in float32 (the JAX path's preferred_element_type=f32).
+// has no --use_fast_math). With round_bf16 the DFT's A operand is rounded
+// to bf16 and its constant is passed already rounded; products still
+// accumulate in float32 (the JAX path's preferred_element_type=f32). For
+// radix4 the A operand is the butterfly: the windowed samples are rounded
+// to bf16 and every butterfly add rounds again, as JAX adds bf16 arrays.
 
 #pragma once
 
@@ -38,7 +59,12 @@
 
 #define FE_THREADS 256
 #define FE_RF 14  // frames per thread in the DFT micro-tile
+#define FE_R4_RF 4  // frames per thread in the radix-4 stage-2 micro-tile
 #define FE_RM 7   // frames per thread in the mel / DCT micro-tile
+#define FE_LANES 128  // samples per row of the phase plan
+#define FE_MAX_PHASES 8
+
+enum { FE_HOPS = 0, FE_PHASES = 1, FE_RADIX4 = 2 };
 
 struct FeArgs {
   const float* dft;  // [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1)
@@ -48,76 +74,207 @@ struct FeArgs {
   int magnitude, round_bf16;
 };
 
+// The DFT stage of K8 (phases) and K9 (radix4); the hops stage needs none.
+struct FeVariant {
+  // phases: W_p [rows[p] * 128, 4 ncg] at w + off[p]; radix4: M0 [L, 2L],
+  // M1 [2L, 2L], M2 [L, 2L] back to back, interleaved like the DFT
+  const float* w;
+  const float* win;  // radix4: the window zero-padded to 4L
+  int num_p, s_rows;  // phases: P and the rows of a superblock (lcm(hop, 128) / 128)
+  int length, tile;   // radix4: L and the frames per butterfly tile
+  int c[FE_MAX_PHASES], rows[FE_MAX_PHASES], frames[FE_MAX_PHASES], off[FE_MAX_PHASES];
+};
+
+__device__ __forceinline__ float fe_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float fe_sample(const FeArgs& a, float x) {
-  return a.round_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  return a.round_bf16 ? fe_bf16(x) : x;
+}
+
+// The sample load of variant V: radix4 rounds after the window, not here.
+template <int V>
+__device__ __forceinline__ float fe_sample_v(const FeArgs& a, float x) {
+  return V == FE_RADIX4 ? x : fe_sample(a, x);
 }
 
 __device__ __forceinline__ int fe_width(const FeArgs& a) {
   return a.magnitude ? a.num_mel : a.num_coef;
 }
 
-__device__ __forceinline__ void fe_features(const FeArgs& a, float* reg_a, float* reg_b) {
+// One register tile of a DFT product: for RF rows of x starting at base[i],
+// acc[i][q] = sum_{s < k} x[base[i] + s] * w[s][4 cg + q], w read as
+// float4 rows `ld` float4s apart. base[i] and k are multiples of 4.
+template <int RF>
+__device__ __forceinline__ void fe_dft_tile(const float* x, const int (&base)[RF],
+                                            const float4* w4, int ld, int cg, int k,
+                                            float (&acc)[RF][4]) {
+#pragma unroll
+  for (int i = 0; i < RF; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 2
+  for (int s = 0; s < k; s += 4) {
+    const float4 w0 = __ldg(&w4[(s + 0) * ld + cg]);
+    const float4 w1 = __ldg(&w4[(s + 1) * ld + cg]);
+    const float4 w2 = __ldg(&w4[(s + 2) * ld + cg]);
+    const float4 w3 = __ldg(&w4[(s + 3) * ld + cg]);
+#pragma unroll
+    for (int i = 0; i < RF; ++i) {
+      const float4 xv = *reinterpret_cast<const float4*>(x + base[i] + s);
+      acc[i][0] = fmaf(xv.x, w0.x, acc[i][0]);
+      acc[i][1] = fmaf(xv.x, w0.y, acc[i][1]);
+      acc[i][2] = fmaf(xv.x, w0.z, acc[i][2]);
+      acc[i][3] = fmaf(xv.x, w0.w, acc[i][3]);
+      acc[i][0] = fmaf(xv.y, w1.x, acc[i][0]);
+      acc[i][1] = fmaf(xv.y, w1.y, acc[i][1]);
+      acc[i][2] = fmaf(xv.y, w1.z, acc[i][2]);
+      acc[i][3] = fmaf(xv.y, w1.w, acc[i][3]);
+      acc[i][0] = fmaf(xv.z, w2.x, acc[i][0]);
+      acc[i][1] = fmaf(xv.z, w2.y, acc[i][1]);
+      acc[i][2] = fmaf(xv.z, w2.z, acc[i][2]);
+      acc[i][3] = fmaf(xv.z, w2.w, acc[i][3]);
+      acc[i][0] = fmaf(xv.w, w3.x, acc[i][0]);
+      acc[i][1] = fmaf(xv.w, w3.y, acc[i][1]);
+      acc[i][2] = fmaf(xv.w, w3.z, acc[i][2]);
+      acc[i][3] = fmaf(xv.w, w3.w, acc[i][3]);
+    }
+  }
+}
+
+// Two power (or magnitude) bins from one (re, im, re, im) accumulator group.
+__device__ __forceinline__ void fe_power2(const FeArgs& a, const float (&acc)[4], float* dst) {
+  float p0 = acc[0] * acc[0] + acc[1] * acc[1];
+  float p1 = acc[2] * acc[2] + acc[3] * acc[3];
+  if (a.magnitude) {
+    p0 = sqrtf(p0);
+    p1 = sqrtf(p1);
+  }
+  dst[0] = p0;
+  dst[1] = p1;
+}
+
+// ---- 1. DFT stages -> power / magnitude [frames, nbp] in B ----
+
+__device__ __forceinline__ void fe_dft_hops(const FeArgs& a, const float* reg_a, float* reg_b) {
+  const int nbp = 2 * a.ncg;
+  const float4* dft4 = reinterpret_cast<const float4*>(a.dft);
+  const int nfg = (a.frames + FE_RF - 1) / FE_RF;
+  for (int item = threadIdx.x; item < a.ncg * nfg; item += blockDim.x) {
+    const int cg = item % a.ncg;
+    const int fg = item / a.ncg;
+    int base[FE_RF];
+#pragma unroll
+    for (int i = 0; i < FE_RF; ++i) base[i] = min(fg * FE_RF + i, a.frames - 1) * a.hop;
+    float acc[FE_RF][4];
+    fe_dft_tile<FE_RF>(reg_a, base, dft4, a.ncg, cg, a.window, acc);
+#pragma unroll
+    for (int i = 0; i < FE_RF; ++i) {
+      const int f = fg * FE_RF + i;
+      if (f < a.frames) fe_power2(a, acc[i], reg_b + f * nbp + 2 * cg);
+    }
+  }
+}
+
+// K8: output row q of phase p is frame P q + p; its A row starts at sample
+// (S q + c_p) * 128 and has K = rows_p * 128 columns (16-byte aligned).
+__device__ __forceinline__ void fe_dft_phases(const FeArgs& a, const FeVariant& v,
+                                              const float* reg_a, float* reg_b) {
+  const int nbp = 2 * a.ncg;
+  int ngroups = 0;
+  for (int p = 0; p < v.num_p; ++p) ngroups += (v.frames[p] + FE_RF - 1) / FE_RF;
+  for (int item = threadIdx.x; item < a.ncg * ngroups; item += blockDim.x) {
+    const int cg = item % a.ncg;
+    int g = item / a.ncg;
+    int p = 0;
+    while (g >= (v.frames[p] + FE_RF - 1) / FE_RF) g -= (v.frames[p++] + FE_RF - 1) / FE_RF;
+    const int frames_p = v.frames[p];
+    int base[FE_RF];
+#pragma unroll
+    for (int i = 0; i < FE_RF; ++i)
+      base[i] = (v.s_rows * min(g * FE_RF + i, frames_p - 1) + v.c[p]) * FE_LANES;
+    float acc[FE_RF][4];
+    fe_dft_tile<FE_RF>(reg_a, base, reinterpret_cast<const float4*>(v.w + v.off[p]), a.ncg,
+                       cg, v.rows[p] * FE_LANES, acc);
+#pragma unroll
+    for (int i = 0; i < FE_RF; ++i) {
+      const int q = g * FE_RF + i;
+      if (q < frames_p) fe_power2(a, acc[i], reg_b + (v.num_p * q + p) * nbp + 2 * cg);
+    }
+  }
+}
+
+// K9. Per tile of frames: the butterfly of each frame's four L-wide blocks
+// of windowed samples into region C as [u0 | u1re | u1im | u2] (4L floats),
+// then the stage-2 products u0 @ M0, [u1re | u1im] @ M1, u2 @ M2, whose
+// power lands in power row columns [0, L), [L, 2L), [2L, 3L).
+__device__ __forceinline__ void fe_dft_radix4(const FeArgs& a, const FeVariant& v,
+                                              const float* reg_a, float* reg_b, float* reg_c) {
+  const int len = v.length;
+  const int nbp = 3 * len;
+  const int cgb = len / 2;  // column groups per branch (2L columns)
+  const bool rnd = a.round_bf16;
+  for (int f0 = 0; f0 < a.frames; f0 += v.tile) {
+    const int nt = min(v.tile, a.frames - f0);
+    for (int i = threadIdx.x; i < nt * len; i += blockDim.x) {
+      const int t = i / len;
+      const int l = i - t * len;
+      const float* x = reg_a + (f0 + t) * a.hop;
+      float b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = q * len + l;  // window samples past `window` are zero
+        const float xw = j < a.window ? __fmul_rn(x[j], __ldg(&v.win[j])) : 0.f;
+        b[q] = rnd ? fe_bf16(xw) : xw;
+      }
+      float* u = reg_c + t * 4 * len;
+      float s = __fadd_rn(b[0], b[1]);
+      s = rnd ? fe_bf16(s) : s;
+      s = __fadd_rn(s, b[2]);
+      s = rnd ? fe_bf16(s) : s;
+      s = __fadd_rn(s, b[3]);
+      u[l] = rnd ? fe_bf16(s) : s;
+      const float re1 = __fsub_rn(b[0], b[2]);
+      const float im1 = __fsub_rn(b[3], b[1]);
+      u[len + l] = rnd ? fe_bf16(re1) : re1;
+      u[2 * len + l] = rnd ? fe_bf16(im1) : im1;
+      float d = __fsub_rn(b[0], b[1]);
+      d = rnd ? fe_bf16(d) : d;
+      d = __fadd_rn(d, b[2]);
+      d = rnd ? fe_bf16(d) : d;
+      d = __fsub_rn(d, b[3]);
+      u[3 * len + l] = rnd ? fe_bf16(d) : d;
+    }
+    __syncthreads();
+    const int ngroups = (nt + FE_R4_RF - 1) / FE_R4_RF;
+    for (int item = threadIdx.x; item < 3 * cgb * ngroups; item += blockDim.x) {
+      const int col = item % (3 * cgb);
+      const int g = item / (3 * cgb);
+      const int br = col / cgb;
+      const int cg = col - br * cgb;
+      const int aoff = br == 0 ? 0 : (br == 1 ? len : 3 * len);  // u0 | u1re u1im | u2
+      const int woff = br == 0 ? 0 : (br == 1 ? 2 * len * len : 6 * len * len);  // M0 | M1 | M2
+      int base[FE_R4_RF];
+#pragma unroll
+      for (int i = 0; i < FE_R4_RF; ++i)
+        base[i] = min(g * FE_R4_RF + i, nt - 1) * 4 * len + aoff;
+      float acc[FE_R4_RF][4];
+      fe_dft_tile<FE_R4_RF>(reg_c, base, reinterpret_cast<const float4*>(v.w + woff), cgb, cg,
+                            br == 1 ? 2 * len : len, acc);
+#pragma unroll
+      for (int i = 0; i < FE_R4_RF; ++i) {
+        const int t = g * FE_R4_RF + i;
+        if (t < nt) fe_power2(a, acc[i], reg_b + (f0 + t) * nbp + br * len + 2 * cg);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---- 2-3. mel, log and DCT ----
+__device__ __forceinline__ void fe_tail(const FeArgs& a, float* reg_a, float* reg_b) {
   const int nbp = 2 * a.ncg;  // power bins per row, padded to the column groups
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-
-  // ---- 1. windowed real DFT -> power / magnitude [frames, nbp] in B ----
-  {
-    const float4* dft4 = reinterpret_cast<const float4*>(a.dft);
-    const int nfg = (a.frames + FE_RF - 1) / FE_RF;
-    for (int item = tid; item < a.ncg * nfg; item += nthr) {
-      const int cg = item % a.ncg;
-      const int fg = item / a.ncg;
-      int base[FE_RF];
-#pragma unroll
-      for (int i = 0; i < FE_RF; ++i) base[i] = min(fg * FE_RF + i, a.frames - 1) * a.hop;
-      float acc[FE_RF][4];
-#pragma unroll
-      for (int i = 0; i < FE_RF; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 2
-      for (int s = 0; s < a.window; s += 4) {
-        const float4 w0 = __ldg(&dft4[(s + 0) * a.ncg + cg]);
-        const float4 w1 = __ldg(&dft4[(s + 1) * a.ncg + cg]);
-        const float4 w2 = __ldg(&dft4[(s + 2) * a.ncg + cg]);
-        const float4 w3 = __ldg(&dft4[(s + 3) * a.ncg + cg]);
-#pragma unroll
-        for (int i = 0; i < FE_RF; ++i) {
-          const float4 x = *reinterpret_cast<const float4*>(reg_a + base[i] + s);
-          acc[i][0] = fmaf(x.x, w0.x, acc[i][0]);
-          acc[i][1] = fmaf(x.x, w0.y, acc[i][1]);
-          acc[i][2] = fmaf(x.x, w0.z, acc[i][2]);
-          acc[i][3] = fmaf(x.x, w0.w, acc[i][3]);
-          acc[i][0] = fmaf(x.y, w1.x, acc[i][0]);
-          acc[i][1] = fmaf(x.y, w1.y, acc[i][1]);
-          acc[i][2] = fmaf(x.y, w1.z, acc[i][2]);
-          acc[i][3] = fmaf(x.y, w1.w, acc[i][3]);
-          acc[i][0] = fmaf(x.z, w2.x, acc[i][0]);
-          acc[i][1] = fmaf(x.z, w2.y, acc[i][1]);
-          acc[i][2] = fmaf(x.z, w2.z, acc[i][2]);
-          acc[i][3] = fmaf(x.z, w2.w, acc[i][3]);
-          acc[i][0] = fmaf(x.w, w3.x, acc[i][0]);
-          acc[i][1] = fmaf(x.w, w3.y, acc[i][1]);
-          acc[i][2] = fmaf(x.w, w3.z, acc[i][2]);
-          acc[i][3] = fmaf(x.w, w3.w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < FE_RF; ++i) {
-        const int f = fg * FE_RF + i;
-        if (f < a.frames) {
-          float p0 = acc[i][0] * acc[i][0] + acc[i][1] * acc[i][1];
-          float p1 = acc[i][2] * acc[i][2] + acc[i][3] * acc[i][3];
-          if (a.magnitude) {
-            p0 = sqrtf(p0);
-            p1 = sqrtf(p1);
-          }
-          reg_b[f * nbp + 2 * cg] = p0;
-          reg_b[f * nbp + 2 * cg + 1] = p1;
-        }
-      }
-    }
-  }
-  __syncthreads();
 
   // ---- 2. mel + log -> log-mel [frames, num_mel] in A (the samples are dead) ----
   {
@@ -174,6 +331,22 @@ __device__ __forceinline__ void fe_features(const FeArgs& a, float* reg_a, float
     }
   }
   __syncthreads();
+}
+
+// Steps 1-3 with the DFT stage of variant V (K4 runs FE_HOPS, whose stage
+// reads nothing of v); region C (radix4) follows B.
+template <int V>
+__device__ __forceinline__ void fe_features_v(const FeArgs& a, const FeVariant& v, float* reg_a,
+                                              float* reg_b) {
+  if constexpr (V == FE_HOPS) {
+    fe_dft_hops(a, reg_a, reg_b);
+  } else if constexpr (V == FE_PHASES) {
+    fe_dft_phases(a, v, reg_a, reg_b);
+  } else {
+    fe_dft_radix4(a, v, reg_a, reg_b, reg_b + a.frames * 2 * a.ncg);
+  }
+  __syncthreads();
+  fe_tail(a, reg_a, reg_b);
 }
 
 // Features [frames, C] from region B to out (row-major, C contiguous).

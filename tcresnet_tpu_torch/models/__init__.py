@@ -1,6 +1,8 @@
 """Model registry (counterpart of tcresnet_tpu/models/__init__.py).
 
-Every family of the JAX registry is built here, in eval mode:
+Every family of the JAX registry is built here, returned in eval mode;
+`.train()` gives the training mode the JAX model has with training=True
+(batch statistics in every batch norm, dropout from a generator):
 
 - TCResNet8 / TCResNet14: temporal convs (models/tc_resnet.py);
 - ResNet2D8 / ResNet2D8Pool: the 2D TC-ResNet variants (tc_resnet.py);
@@ -45,8 +47,8 @@ def build_model(
     *,
     device,
 ) -> nn.Module:
-    """The configured model, in eval mode, for a front-end geometry
-    (frames, coeffs, 1), with its parameters on `device`. `compute_dtype`
+    """The configured model, in eval mode (`.train()` for training), for a
+    front-end geometry (frames, coeffs, 1), with its parameters on `device`. `compute_dtype`
     ("float32" or "bfloat16") is the dtype of its convs and fc; the
     parameters stay float32."""
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}

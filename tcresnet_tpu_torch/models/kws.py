@@ -1,4 +1,4 @@
-"""Google KWS baselines (counterpart of tcresnet_tpu/models/kws.py), eval mode.
+"""Google KWS baselines (counterpart of tcresnet_tpu/models/kws.py).
 
 All seven architectures of the JAX package, over [B, T, F, 1] features:
 
@@ -22,8 +22,12 @@ The Dense layers between the fcs have no activation, as in the JAX
 package. Flax flattens NHWC, channel fastest; the port's activations are
 NCHW, so they are permuted to [B, T, F, C] before the flatten, and the
 Dense weights keep Flax's input order (models/convert.py transposes
-[in, out] to [out, in] and nothing more). Dropout acts in training only,
-which is not ported for this family (ROADMAP.md).
+[in, out] to [out, in] and nothing more).
+
+In training mode dropout with keep probability 0.5 follows each ReLU, and
+fc1 and fc2 of low_latency_conv, one_fstride4 and low_latency_svdf, where
+the JAX model drops (kws.py:58-59, 100-190); the masks are drawn from the
+generator passed to forward(), in forward order.
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ KWS_ARCHITECTURES = (
 )
 
 SVDF_RANK, SVDF_UNITS = 2, 1280
+KEEP_PROB = 0.5  # the reference's dropout after each ReLU and hidden fc
+# dense layers followed by dropout in training
+_DROPPED_DENSE = {"low_latency_conv": ("fc1", "fc2"), "one_fstride4": ("fc1", "fc2"),
+                  "low_latency_svdf": ("fc1", "fc2")}
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -127,28 +135,38 @@ class KWSNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, T, F, 1] features -> [B, num_classes] f32 logits."""
+        """[B, T, F, 1] features -> [B, num_classes] f32 logits. In training
+        mode the dropout masks are drawn from `generator`."""
         arch = self.architecture
+
+        def drop(y):
+            return layers.dropout(y, KEEP_PROB, self.training, generator)
+
+        def dense_tail(y, names):
+            for name in names:
+                y = self._dense(y, name)
+                if name in _DROPPED_DENSE.get(arch, ()):
+                    y = drop(y)
+            return y.to(torch.float32)
+
         x = x.to(self.dtype)
         if arch == "single_fc":
-            return self._dense(x.reshape(x.shape[0], -1), "fc").to(torch.float32)
+            return dense_tail(x.reshape(x.shape[0], -1), ("fc",))
         if arch == "low_latency_svdf":
             frames = x[..., 0]  # [B, T, F]
             acts = frames @ self.weights_frequency.to(self.dtype)  # [B, T, K]
             out = torch.einsum("btk,kt->bk", acts, self.weights_time.to(self.dtype))
             units = out.reshape(x.shape[0], SVDF_UNITS, SVDF_RANK).sum(-1)
-            y = F.relu(units + self.bias.to(self.dtype))
-            for name in ("fc1", "fc2", "fc3"):
-                y = self._dense(y, name)
-            return y.to(torch.float32)
-        x = F.relu(self.conv1(x.permute(0, 3, 1, 2)))  # [B, 1, T, F] in
+            y = drop(F.relu(units + self.bias.to(self.dtype)))
+            return dense_tail(y, ("fc1", "fc2", "fc3"))
+        x = drop(F.relu(self.conv1(x.permute(0, 3, 1, 2))))  # [B, 1, T, F] in
         if arch == "conv":
             x = layers.max_pool(x, (2, 2), (2, 2), "SAME")
-            x = F.relu(self.conv2(x))
-            return self._dense(_flatten_nhwc(x), "fc").to(torch.float32)
-        if arch == "trad_fpool3":
+            x = drop(F.relu(self.conv2(x)))
+            tail = ("fc",)
+        elif arch == "trad_fpool3":
             x = layers.max_pool(x, (1, 3), (1, 3), "VALID")
-            x = F.relu(self.conv2(x))
+            x = drop(F.relu(self.conv2(x)))
             tail = ("lin", "fc1", "fc2")
         elif arch == "low_latency_conv":
             tail = ("fc1", "fc2", "fc3")
@@ -156,7 +174,4 @@ class KWSNet(nn.Module):
             tail = ("lin", "fc1", "fc2", "fc3")
         else:  # tiny_conv
             tail = ("fc",)
-        y = _flatten_nhwc(x)
-        for name in tail:
-            y = self._dense(y, name)
-        return y.to(torch.float32)
+        return dense_tail(_flatten_nhwc(x), tail)

@@ -211,10 +211,13 @@ class SlimBatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.to(torch.float32)
         if self.training:
-            # Flax's fast variance, E[x^2] - E[x]^2 clipped at 0, in f32
+            # Flax's fast variance, E[x^2] - E[x]^2 clipped at 0, in f32. The
+            # clip is jnp.maximum's: at a tie (a channel that is all zeros,
+            # as after a ReLU) its gradient splits in halves, where a clamp
+            # would pass all of it
             axes = [0] + list(range(2, x.dim()))
             mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            var = torch.maximum((xf * xf).mean(axes) - mean * mean, torch.zeros_like(mean))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -11,11 +11,16 @@ The numpy constant builders are re-implemented here (the JAX module
 imports jax) and pinned to the JAX ones by tests/test_torch_dsp.py. The
 torch functions take tensors on any device and keep them there.
 
-`dsp_backend="pallas"` names the fused front-end kernel K2
-(`ops/kernels/mfcc.py`, CUDA source `csrc/mfcc.cu`); on a CPU tensor it
-runs the kernel's plain version, which is this module's path. Not ported:
-the radix-4 factored DFT (`dft_variant="radix4"`), which raises
-NotImplementedError and is listed in ROADMAP.md.
+`dft_variant="radix4"` routes the spectrum through the radix-4 DIF
+factored real DFT (`radix4_dft_matrices`): the same math as the dense
+matrix to reassociation level, with the branch permutation of the bins
+folded into the mel matrix (`radix4_mel_matrix`), as the JAX path does;
+"phases" and "hops" leave this path dense, as in JAX.
+
+`dsp_backend="pallas"` names the fused front-end kernels
+(`ops/kernels/mfcc.py`, CUDA source `csrc/mfcc.cu`: K2 for "hops", K8 for
+"phases", K9 for "radix4"); on a CPU tensor they run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -158,6 +163,91 @@ def dct_ii_matrix(num_mel_bins: int, num_mfccs: int) -> np.ndarray:
     return _frozen((d * np.sqrt(2.0 / num_mel_bins)).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def radix4_dft_matrices(fft_length: int) -> tuple:
+    """Stage-2 matrices (M0 [L, 2L], M1 [2L, 2L], M2 [L, 2L]) of the
+    radix-4 DIF factored rDFT, L = fft_length / 4.
+
+    With n = L*n1 + n2 (four contiguous blocks b_n1) and k = k1 + 4*k2,
+    the 4-point butterfly over n1 is adds only,
+
+        u0 = b0+b1+b2+b3,  u1 = (b0-b2) + i(b3-b1),  u2 = b0-b1+b2-b3,
+
+    and the twiddle e^{-2 pi i n2 k1 / N} is folded into the stage-2 DFT-L
+    matrices, so X[k1 + 4 k2] = sum_n2 u_k1[n2] e^{-2 pi i n2 (4 k2 + k1) / N}
+    is three matmuls: u0 @ M0 (columns Re | Im of k2 <= L/2, rest 0),
+    [u1re | u1im] @ M1 (the upper half carries the k1 = 3 bins through
+    X[N-k] = conj(X[k])), u2 @ M2 (k2 < L/2, rest 0)."""
+    length = fft_length // 4
+    n2 = np.arange(length, dtype=np.float64)[:, None]
+    j = np.arange(length, dtype=np.float64)[None, :]
+
+    def cos_sin(k1: float):
+        theta = 2.0 * np.pi * n2 * (4.0 * j + k1) / fft_length
+        return np.cos(theta), np.sin(theta)
+
+    c0, s0 = cos_sin(0.0)
+    c1, s1 = cos_sin(1.0)
+    c2, s2 = cos_sin(2.0)
+    keep0 = (np.arange(length) <= length // 2)[None, :]
+    keep2 = (np.arange(length) < length // 2)[None, :]
+    m0 = np.concatenate([c0 * keep0, -s0 * keep0], axis=1)
+    m1 = np.block([[c1, -s1], [s1, c1]])
+    m2 = np.concatenate([c2 * keep2, -s2 * keep2], axis=1)
+    return tuple(_frozen(m.astype(np.float32)) for m in (m0, m1, m2))
+
+
+def radix4_stage2_matrix(fft_length: int, branch: int) -> np.ndarray:
+    """M0, M1 or M2 of radix4_dft_matrices."""
+    return radix4_dft_matrices(fft_length)[branch]
+
+
+@functools.lru_cache(maxsize=None)
+def radix4_bin_map(fft_length: int) -> np.ndarray:
+    """[3L] FFT bin of each permuted radix-4 power row (-1 = dead): rows
+    [0, L) branch k1=0 (bin 4r, r <= L/2); [L, 2L) branch k1=1 (bin 1+4j,
+    or N-(1+4j) above N/2 by conjugate symmetry); [2L, 3L) branch k1=2
+    (bin 2+4j, j < L/2). Every bin 0..N/2 appears exactly once."""
+    length = fft_length // 4
+    half = fft_length // 2
+    bins = np.full(3 * length, -1, np.int64)
+    for r in range(length // 2 + 1):
+        bins[r] = 4 * r
+    for j in range(length):
+        k = 1 + 4 * j
+        bins[length + j] = k if k <= half else fft_length - k
+    for j in range(length // 2):
+        bins[2 * length + j] = 2 + 4 * j
+    used = bins[bins >= 0]
+    if len(used) != half + 1 or len(set(used.tolist())) != half + 1:
+        raise AssertionError(f"radix-4 bin map of fft {fft_length} does not cover the bins")
+    return _frozen(bins)
+
+
+@functools.lru_cache(maxsize=None)
+def radix4_mel_matrix(num_mel_bins: int, fft_length: int, sample_rate: int,
+                      lower_edge_hertz: float, upper_edge_hertz: float) -> np.ndarray:
+    """[3L, M] mel filterbank with its rows permuted to the radix-4 power
+    layout (dead rows zero): the bin permutation rides the mel matmul."""
+    mel = linear_to_mel_weight_matrix(num_mel_bins, fft_length // 2 + 1, sample_rate,
+                                      lower_edge_hertz, upper_edge_hertz)
+    bins = radix4_bin_map(fft_length)
+    out = np.zeros((bins.shape[0], num_mel_bins), np.float32)
+    valid = bins >= 0
+    out[valid] = mel[bins[valid]]
+    return _frozen(out)
+
+
+@functools.lru_cache(maxsize=None)
+def radix4_window(window_size: int, fft_length: int) -> np.ndarray:
+    """[fft_length] periodic Hann zero-padded to the FFT length: the
+    factored path multiplies by the window explicitly (the dense path folds
+    it into its DFT matrix)."""
+    out = np.zeros(fft_length, np.float32)
+    out[:window_size] = hann_window(window_size)
+    return _frozen(out)
+
+
 def mel_args(cfg: AudioConfig) -> tuple:
     """linear_to_mel_weight_matrix's arguments for `cfg`'s geometry."""
     return (
@@ -167,6 +257,12 @@ def mel_args(cfg: AudioConfig) -> tuple:
         cfg.lower_edge_hertz,
         cfg.upper_edge_hertz,
     )
+
+
+def radix4_mel_args(cfg: AudioConfig) -> tuple:
+    """radix4_mel_matrix's arguments for `cfg`'s geometry."""
+    return (cfg.num_mel_bins, fft_length_for(cfg.window_size_samples), cfg.sample_rate,
+            cfg.lower_edge_hertz, cfg.upper_edge_hertz)
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +337,54 @@ def spectrogram(
     return torch.sqrt(power)
 
 
+def radix4_butterfly(fr: torch.Tensor, fft_length: int) -> tuple:
+    """[..., fft] windowed frames -> (u0, u1 = [re | im], u2), the radix-4
+    DIF butterfly, in fr's dtype (bf16 adds round at every add, as JAX's)."""
+    length = fft_length // 4
+    b0, b1, b2, b3 = (fr[..., i * length:(i + 1) * length] for i in range(4))
+    u0 = b0 + b1 + b2 + b3
+    u1 = torch.cat([b0 - b2, b3 - b1], dim=-1)
+    u2 = b0 - b1 + b2 - b3
+    return u0, u1, u2
+
+
+def power_radix4(audio: torch.Tensor, window: int, hop: int,
+                 matmul_dtype=torch.float32) -> torch.Tensor:
+    """[..., N] -> [..., F, 3L] branch-permuted power spectrum through the
+    radix-4 factored rDFT: window, zero-pad to the FFT length, round to
+    `matmul_dtype`, butterfly in that dtype, three matmuls accumulated in
+    float32 (JAX's `_power_radix4`)."""
+    fft_length = fft_length_for(window)
+    length = fft_length // 4
+    frames = frame_signal(audio.to(torch.float32), window, hop)
+    fr = frames * device_constant(hann_window, (window,), audio.device)
+    fr = torch.nn.functional.pad(fr, (0, fft_length - window)).to(matmul_dtype)
+    outs = [u.to(torch.float32) @ round_operand(
+                device_constant(radix4_stage2_matrix, (fft_length, i), audio.device), matmul_dtype)
+            for i, u in enumerate(radix4_butterfly(fr, fft_length))]
+    return torch.cat([o[..., :length] ** 2 + o[..., length:] ** 2 for o in outs], dim=-1)
+
+
+def log_mel_from_power(power: torch.Tensor, mel_w: torch.Tensor,
+                       magnitude_squared: bool) -> torch.Tensor:
+    """[..., F, K] power rows -> log(mel + 1e-6): the power spectrum, or its
+    square root (the magnitude) when not `magnitude_squared`, through the
+    [K, M] mel matrix."""
+    spec = power if magnitude_squared else torch.sqrt(power)
+    return torch.log(spec @ mel_w + 1e-6)
+
+
 def log_mel_spectrogram(
     audio: torch.Tensor, cfg: AudioConfig, magnitude_squared: bool
 ) -> torch.Tensor:
-    """[..., N] -> [..., F, M] log-mel features."""
-    if getattr(cfg, "dft_variant", "auto") == "radix4":
-        raise NotImplementedError(
-            "dft_variant='radix4' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 2, the radix-4 XLA path; kernel row K9)"
-        )
+    """[..., N] -> [..., F, M] log-mel features; dft_variant="radix4" takes
+    the factored rDFT and its permuted mel matrix."""
     window = cfg.window_size_samples
     hop = cfg.window_stride_samples
+    if getattr(cfg, "dft_variant", "auto") == "radix4":
+        power = power_radix4(audio, window, hop, dsp_matmul_dtype(cfg))
+        mel_w = device_constant(radix4_mel_matrix, radix4_mel_args(cfg), audio.device)
+        return log_mel_from_power(power, mel_w, magnitude_squared)
     spec = spectrogram(audio, window, hop, magnitude_squared, dsp_matmul_dtype(cfg))
     mel_w = device_constant(linear_to_mel_weight_matrix, mel_args(cfg), audio.device)
     return torch.log(spec @ mel_w + 1e-6)
@@ -265,7 +398,7 @@ def mfcc(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
 
 
 def resolve_dsp_backend(cfg: AudioConfig, audio: torch.Tensor) -> str:
-    """cfg.dsp_backend for this call: "auto" takes the fused kernel K2 for
+    """cfg.dsp_backend for this call: "auto" takes the fused kernel for
     a [B, N] batch by `ops.kernels.mfcc.auto_takes_kernel` (a CUDA device
     and at least 2048 rows), else the plain path."""
     backend = getattr(cfg, "dsp_backend", "xla")
@@ -284,10 +417,10 @@ def preprocess(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """Front-end dispatch: [..., N] wavs -> [..., H, W, 1] features, the
     JAX function's layout (trailing channel axis of 1).
 
-    dsp_backend "pallas" runs a [B, N] batch through the fused kernel K2
-    (its plain version for a CPU tensor; a CUDA geometry the kernel does
-    not serve raises); "xla" runs the plain per-op path; "auto" picks
-    (`resolve_dsp_backend`)."""
+    dsp_backend "pallas" runs a [B, N] batch through the fused kernel of
+    the DFT variant (K2, K8 or K9; its plain version for a CPU tensor; a
+    CUDA geometry the kernel does not serve raises); "xla" runs the plain
+    per-op path; "auto" picks (`resolve_dsp_backend`)."""
     if cfg.preprocess_method in ("mfcc", "log_mel_spectrogram"):
         backend = resolve_dsp_backend(cfg, audio)
         if backend == "pallas" and audio.dim() == 2:

@@ -1,14 +1,17 @@
 """Single-kernel training input path (K3): int16 dataset rows by index ->
 decode -> augment -> MFCC or log-mel features [B, frames, C].
 
-Counterpart of tcresnet_tpu/ops/pallas/frontend.py (hops branch). The
-kernel is `csrc/frontend.cu`: K1's per-sample body (`augment.cuh`) writes
-the augmented row into shared memory and the shared front end
-(`frontend.cuh`) turns it into features, so the augmented wave never
-reaches device memory. Its plain version is K1's then K2's
+Counterpart of tcresnet_tpu/ops/pallas/frontend.py, all three branches:
+the kernel is `csrc/frontend.cu`, one entry point per DFT variant (hops,
+phases as in K8, radix4 as in K9, resolved by `mfcc.resolve_dft_variant`).
+K1's per-sample body (`augment.cuh`) writes the augmented row into shared
+memory and the variant's stage of the shared front end (`frontend.cuh`)
+turns it into features, so the augmented wave never reaches device
+memory. Its plain version is K1's then the variant's MFCC plain version
 (`frontend_reference`); a wrapper takes it only for CPU tensors.
 
-`launches` counts kernel launches and nothing else.
+`launches`, `phases_launches` and `radix4_launches` count launches of the
+hops, phases and radix4 entry points and nothing else.
 """
 
 from __future__ import annotations
@@ -30,20 +33,25 @@ from tcresnet_tpu_torch.ops.kernels.augment import (
     kernel_args,
 )
 
-# Kernel launches since import (or since a caller reset it to 0).
-launches = 0
+# Kernel launches since import (or since a caller reset them to 0).
+launches = 0  # hops
+phases_launches = 0
+radix4_launches = 0
+
+ENTRIES = {"hops": "k3_frontend", "phases": "k3_phases", "radix4": "k3_radix4"}
+_COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
 
 
 class _K3Args(ctypes.Structure):
     """Mirror of struct K3Args in csrc/frontend.cu."""
 
-    _fields_ = [("fe", mfcc.FeArgs), ("aug", _AugArgs),
+    _fields_ = [("fe", mfcc.FeArgs), ("v", mfcc.FeVariant), ("aug", _AugArgs),
                 ("region_a", ctypes.c_int), ("smem_bytes", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return _build.bind("frontend", _K3Args, ["k3_frontend"], "k3_args_size",
+    return _build.bind("frontend", _K3Args, list(ENTRIES.values()), "k3_args_size",
                        "k3_error_string")
 
 
@@ -56,7 +64,8 @@ def frontend_fusable(dataset: torch.Tensor, aug_cfg: AugmentConfig,
                      audio_cfg: AudioConfig, noise_bank: Optional[torch.Tensor],
                      n: int) -> bool:
     """Whether the single-kernel path applies: K1 takes the dataset and
-    config, and K2 the feature geometry (MFCC or log-mel)."""
+    config, and the front-end kernels the feature geometry (MFCC or
+    log-mel, in the resolved DFT variant)."""
     return (aug.gather_fusable(dataset, aug_cfg, noise_bank, n)
             and mfcc.fused_mfcc_available(audio_cfg, n))
 
@@ -64,7 +73,8 @@ def frontend_fusable(dataset: torch.Tensor, aug_cfg: AugmentConfig,
 def frontend_reference(dataset: torch.Tensor, idx: torch.Tensor, scalars: AugmentScalars,
                        noise_bank: torch.Tensor, audio_cfg: AudioConfig, n: int,
                        quantize: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of K3: K1's plain version, then K2's."""
+    """Plain PyTorch version of K3: K1's plain version, then the resolved
+    variant's MFCC plain version (K2's, K8's or K9's)."""
     wavs = augment_reference(dataset, idx, scalars, noise_bank, n, quantize)
     return mfcc.fused_mfcc_reference(wavs, audio_cfg)
 
@@ -73,9 +83,9 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                       noise_bank: torch.Tensor, audio_cfg: AudioConfig, n: int,
                       quantize: bool = False) -> torch.Tensor:
     """[rows, S] int16 dataset + idx [B] int32 + the batch's draws ->
-    [B, frames, C] f32: K3 for CUDA tensors, its plain version for CPU."""
-    global launches
-    mfcc.resolve_dft_variant(audio_cfg)
+    [B, frames, C] f32: K3 in the resolved DFT variant for CUDA tensors,
+    its plain version for CPU."""
+    variant = mfcc.resolve_dft_variant(audio_cfg, n)
     if dataset.device.type == "cpu":
         return frontend_reference(dataset, idx, scalars, noise_bank, audio_cfg, n, quantize)
     if dataset.device.type != "cuda":
@@ -86,17 +96,17 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                          f"({audio_cfg.preprocess_method}, window "
                          f"{audio_cfg.window_size_samples}, hop "
                          f"{audio_cfg.window_stride_samples})")
-    fe = mfcc.front_end(audio_cfg, n, dataset.device)
+    fe = mfcc.front_end(audio_cfg, n, dataset.device, variant)
     g = fe.geom
     out = torch.empty((idx.shape[0], g.frames, g.width), device=dataset.device,
                       dtype=torch.float32)
     if idx.shape[0] == 0:
         return out
-    region_a, region_b = g.regions()
-    args = _K3Args(fe.args(), kernel_args(dataset, idx, scalars, noise_bank, out, n, quantize),
-                   region_a, 4 * (region_a + region_b))
-    _build.launch(_library(), "k3_frontend", "k3_error_string", args, dataset.device)
-    launches += 1
+    args = _K3Args(fe.args(), fe.variant_args(),
+                   kernel_args(dataset, idx, scalars, noise_bank, out, n, quantize),
+                   fe.region_a, fe.smem_bytes)
+    _build.launch(_library(), ENTRIES[variant], "k3_error_string", args, dataset.device)
+    globals()[_COUNTERS[variant]] += 1
     return out
 
 

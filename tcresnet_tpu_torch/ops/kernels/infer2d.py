@@ -3,8 +3,9 @@
 Counterpart of tcresnet_tpu/ops/pallas/infer2d.py (kernel K5), for the
 2D families: TCResNet2D8[Pool], Res8/15[Narrow], DSCNN S/M/L and the
 seven KWS baselines. The kernel is `csrc/infer2d.cu`; its source note
-says what bounds it on the H100. The front end before it is K2
-(`ops/kernels/mfcc.py`), so a request is two launches, as in JAX.
+says what bounds it on the H100. The front end before it is the MFCC
+kernel of the config's DFT variant (K2, K8 or K9, `ops/kernels/mfcc.py`),
+so a request is two launches, as in JAX.
 
 This module:
 
@@ -77,8 +78,8 @@ DENSE_CHUNK = 512  # inputs a warp takes in the first pass of "dense"
 
 def fused_infer2d_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> bool:
     """The JAX kernel's condition: a 2D family (a KWS architecture it
-    knows) on a front end that the MFCC kernel serves (here K2's
-    condition, which adds its shared-memory plan)."""
+    knows) on a front end that the MFCC kernels serve (here their
+    condition, which adds the shared-memory plan of the DFT variant)."""
     if model_cfg.name == "KWS" and model_cfg.kws_architecture not in KWS_ARCHITECTURES:
         return False
     return (model_cfg.name in FAMILIES
@@ -650,7 +651,8 @@ def grid_blocks(device) -> int:
 
 
 class FusedInfer2D:
-    """infer(wavs [B, N] f32) -> logits [B, ncls] f32: K2 then K5.
+    """infer(wavs [B, N] f32) -> logits [B, ncls] f32: the MFCC kernel of
+    the config's DFT variant (K2, K8 or K9), then K5.
 
     Weights are folded and lowered once here and live on `device`; the
     input must be on the same device."""

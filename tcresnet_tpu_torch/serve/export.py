@@ -10,7 +10,8 @@ run configs carry over:
   "fused" — for a CUDA input, the temporal TC-ResNets in one kernel
             launch (K4: `ops/kernels/infer.py`, `csrc/infer.cu`) and the
             2D families (TCResNet2D8[Pool], Res, DS-CNN, KWS) in two, the
-            MFCC front end (K2: `csrc/mfcc.cu`) and the op-list kernel
+            MFCC front end (`csrc/mfcc.cu`: K2, or K8 / K9 for
+            dft_variant "phases" / "radix4") and the op-list kernel
             (K5: `ops/kernels/infer2d.py`, `csrc/infer2d.cu`); the
             kernels' plain versions for a CPU input. It raises for a
             model or geometry that no kernel serves.

@@ -7,7 +7,8 @@
 For each preset (all 15 by default), wav -> softmax at the given batch
 through the plain path (backend="xla") and through the fused kernels
 (backend="fused": K4 for the temporal TC-ResNets, K2 + K5 for the 2D
-families),
+families, K8 or K9 in the place of K2 under dft_variant "phases" or
+"radix4"),
 timed two ways (serve/benchmark.py): CUDA events around each call
 (device µs) and the host clock around each synchronised call (host µs).
 Weights are made from a seed: latency does not depend on their values.

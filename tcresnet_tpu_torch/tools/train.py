@@ -3,8 +3,11 @@
     python -m tcresnet_tpu_torch.tools.train --preset TCResNet8-1.0 \
         --synthetic --synthetic-samples 24100 --max-step 20 \
         --cfg model.conv_backend=pallas
+    python -m tcresnet_tpu_torch.tools.train --preset DSCNNL --synthetic \
+        --max-step 20 --cfg audio.dft_variant=radix4
 
-Takes the subset of the JAX CLI's flags that this slice serves, and
+Every preset trains (the 2D families too). Takes the subset of the JAX
+CLI's flags that the port serves, and
 `--cfg SECTION.FIELD=VALUE` overrides (JSON values; unknown fields and
 values of the wrong type raise). The Speech Commands loader is not
 ported yet, so --synthetic is required. `--device auto` trains on the

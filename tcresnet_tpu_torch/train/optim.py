@@ -7,12 +7,18 @@ is a pure function of the step (reference helper/trainer.py:107-137).
 The update rules are written by hand to optax's order and initial state
 (not torch.optim, whose momentum and epsilon placement differ):
 
-  "gd"  (optax.sgd(1.0))                 u = -g
-  "mom" (optax.sgd(1.0, momentum=m))     t = g + m * t  (t0 = 0);  u = -t
+  "gd"      (optax.sgd(1.0))                  u = -g
+  "mom"     (optax.sgd(1.0, momentum=m))      t = g + m * t  (t0 = 0);  u = -t
+  "adam"    (optax.adam(1.0, eps=e))          c = c + 1 (c0 = 0, int32);
+            mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu  (both 0 at start);
+            u = -(mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + e)   (b1 0.9, b2 0.999)
+  "rmsprop" (optax.rmsprop(1.0, decay=d, eps=e))
+            nu = (1 - d) g^2 + d nu  (nu0 = 0);  u = -g / sqrt(nu + e)
 
-"adam" and "rmsprop" come with the model families that use them
-(ROADMAP.md Queue 1 item 6); they raise NotImplementedError, as do
-trainable_scopes.
+The state is a flat {name: tensor} mapping ("count", "mu/<param>",
+"nu/<param>" for adam), so checkpoints carry it, the step count included,
+and a resumed run updates as an uninterrupted one would.
+trainable_scopes raises NotImplementedError (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 from tcresnet_tpu_torch.config import OptimConfig
 
 Tensors = Dict[str, torch.Tensor]
+
+ADAM_B1, ADAM_B2 = 0.9, 0.999  # optax.adam's defaults; the config sets neither
 
 
 def piecewise_constant(boundaries: Sequence[int],
@@ -63,38 +71,72 @@ class UnitOptimizer:
     (updates, new state). State and updates are {name: tensor} on the
     params' device; update() never reads the device."""
 
-    def __init__(self, name: str, momentum: float = 0.9):
-        if name not in ("gd", "mom"):
+    NAMES = ("gd", "mom", "adam", "rmsprop")
+
+    def __init__(self, name: str, momentum: float = 0.9, *, adam_epsilon: float = 1e-8,
+                 rmsprop_decay: float = 0.9, rmsprop_epsilon: float = 1e-10):
+        if name not in self.NAMES:
             raise ValueError(f"Unknown optimizer {name!r}")
         self.name = name
         self.momentum = momentum
+        self.adam_epsilon = adam_epsilon
+        self.rmsprop_decay, self.rmsprop_epsilon = rmsprop_decay, rmsprop_epsilon
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Tensors:
+        def zeros(prefix):
+            return {f"{prefix}{k}": torch.zeros_like(p, dtype=torch.float32)
+                    for k, p in params.items()}
+
         if self.name == "gd":
             return {}
-        return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        if self.name == "mom":
+            return zeros("")
+        if self.name == "rmsprop":
+            return zeros("nu/")
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                **zeros("mu/"), **zeros("nu/")}
 
     def update(self, grads: Mapping[str, torch.Tensor],
                state: Mapping[str, torch.Tensor]):
         if self.name == "gd":
             return {k: -g for k, g in grads.items()}, dict(state)
-        trace = {k: g + self.momentum * state[k] for k, g in grads.items()}
-        return {k: -t for k, t in trace.items()}, trace
+        if self.name == "mom":
+            trace = {k: g + self.momentum * state[k] for k, g in grads.items()}
+            return {k: -t for k, t in trace.items()}, trace
+        updates, new = {}, {}
+        if self.name == "rmsprop":
+            d = self.rmsprop_decay
+            for k, g in grads.items():
+                nu = (1 - d) * (g * g) + d * state[f"nu/{k}"]
+                updates[k] = -(torch.rsqrt(nu + self.rmsprop_epsilon) * g)
+                new[f"nu/{k}"] = nu
+            return updates, new
+        b1, b2 = ADAM_B1, ADAM_B2
+        count = state["count"] + 1
+        new["count"] = count
+        correct1 = 1 - b1 ** count.to(torch.float32)
+        correct2 = 1 - b2 ** count.to(torch.float32)
+        for k, g in grads.items():
+            mu = (1 - b1) * g + b1 * state[f"mu/{k}"]
+            nu = (1 - b2) * (g * g) + b2 * state[f"nu/{k}"]
+            updates[k] = -((mu / correct1) / (torch.sqrt(nu / correct2) + self.adam_epsilon))
+            new[f"mu/{k}"], new[f"nu/{k}"] = mu, nu
+        return updates, new
 
 
 def build_optimizer(cfg: OptimConfig, num_samples: Optional[int] = None,
                     batch_size: Optional[int] = None, restore_step: int = 0,
                     relative: bool = False):
     """(UnitOptimizer, schedule) for `cfg`."""
-    if cfg.optimizer in ("adam", "rmsprop"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 6: it comes with the Res / DS-CNN / KWS families)")
     if cfg.trainable_scopes:
         raise NotImplementedError(
             "trainable_scopes is not ported yet (ROADMAP.md Queue 1 item 6)")
     boundaries = resolve_boundaries(cfg, num_samples, batch_size, restore_step, relative)
-    return UnitOptimizer(cfg.optimizer, cfg.momentum), piecewise_constant(boundaries, cfg.lr_list)
+    optimizer = UnitOptimizer(cfg.optimizer, cfg.momentum, adam_epsilon=cfg.adam_epsilon,
+                              rmsprop_decay=cfg.rmsprop_decay,
+                              rmsprop_epsilon=cfg.rmsprop_epsilon)
+    return optimizer, piecewise_constant(boundaries, cfg.lr_list)
 
 
 def scale_updates(updates: Mapping[str, torch.Tensor], lr: float) -> Tensors:

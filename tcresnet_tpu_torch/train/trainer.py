@@ -3,11 +3,15 @@
 Each step draws its batch indices from the device-resident dataset,
 gathers, decodes and augments them, computes features, runs the forward
 and backward passes, the smoothed cross-entropy plus L2, the unit-LR
-optimizer scaled by the piecewise learning rate, and the EMA. On a CUDA
-device the input path runs through the port's kernels: K1 (gather +
-augment) and K2 (MFCC), or K3 (both in one kernel, `frontend_fuse`);
-with `model.conv_backend="pallas"` every conv, forward and backward, runs
-through K7 (`csrc/tconv.cu`), and cuDNN with "xla".
+optimizer ("gd", "mom", "adam", "rmsprop") scaled by the piecewise
+learning rate, and the EMA. Every model family trains: the temporal
+TC-ResNets and the 2D families (TCResNet2D8[Pool], Res, DS-CNN, KWS). On
+a CUDA device the input path runs through the port's kernels: K1 (gather
++ augment) and the MFCC kernel of the config's DFT variant (K2 hops, K8
+phases, K9 radix4), or K3 (both in one kernel, `frontend_fuse`, in the
+same variant); with `model.conv_backend="pallas"` every temporal conv,
+forward and backward, runs through K7 (`csrc/tconv.cu`), and cuDNN with
+"xla" (the 2D families' convs are cuDNN's, as JAX leaves them to XLA).
 
 Differences from the JAX trainer, and why:
 
@@ -90,11 +94,6 @@ class Trainer:
             raise ValueError(
                 f"dataset has {train_data.num_classes} classes, config says "
                 f"{cfg.model.num_classes}")
-        if cfg.model.name not in ("TCResNet8", "TCResNet14"):
-            # the 2D families serve (eval mode); their training mode is not
-            # held to the JAX package yet (KWS dropout, adam / rmsprop)
-            raise NotImplementedError(
-                f"training {cfg.model.name} is not ported yet (ROADMAP.md Queue 1 item 16)")
         self.feature_shape = dsp.feature_shape(cfg.audio)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)
@@ -147,8 +146,8 @@ class Trainer:
                         generator: torch.Generator) -> torch.Tensor:
         """Batch indices -> [B, H, W, 1] training features: K3 (one kernel)
         when `frontend_fuse` selects it and the geometry allows, else
-        gather + augment (K1 / K6 / plain) then `dsp.preprocess` (K2 or
-        plain)."""
+        gather + augment (K1 / K6 / plain) then `dsp.preprocess` (K2, K8,
+        K9 or plain)."""
         cfg = self.cfg
         n = cfg.audio.desired_samples
         dataset, noise = self.data.wavs, self.data.noise_bank

@@ -1,10 +1,12 @@
 """Card-only tests of the PyTorch port's CUDA kernels: K4 (csrc/infer.cu),
-K1 and K6 (csrc/augment.cu), K2 (csrc/mfcc.cu), K3 (csrc/frontend.cu),
-K7 (csrc/tconv.cu) and K5 (csrc/infer2d.cu).
+K1 and K6 (csrc/augment.cu), K2, K8 and K9 (csrc/mfcc.cu), K3 in its three
+DFT variants (csrc/frontend.cu), K7 (csrc/tconv.cu) and K5
+(csrc/infer2d.cu).
 
 Each test carries the `cuda` marker and skips without a CUDA card (a CUDA
 kernel has no CPU mode; the plain versions are tested against JAX in
-tests/test_torch_{infer,augment,mfcc,train,tconv,infer2d}.py). This file imports no JAX,
+tests/test_torch_{infer,augment,mfcc,dft_variants,train,train2d,tconv,infer2d}.py).
+This file imports no JAX,
 so it also runs on a machine with the card and without JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
@@ -213,6 +215,74 @@ def test_trainer_steps_go_through_the_kernels(cuda_device, tmp_path, fuse):
     delta = (k16.k1_launches - counts[0], k2.launches - counts[1], k3.launches - counts[2])
     assert delta == ((0, 0, 3) if fuse == "on" else (3, 3, 0))
     assert np.isfinite(float(summary["total_loss"]))
+
+
+GEOMETRIES = {"30/10": AudioConfig(),
+              "40/20": AudioConfig(window_size_ms=40.0, window_stride_ms=20.0, num_mfccs=10)}
+
+
+@pytest.mark.parametrize("variant", ["phases", "radix4"])
+@pytest.mark.parametrize("geometry,method,matmul", [
+    ("30/10", "mfcc", "float32"), ("30/10", "log_mel_spectrogram", "float32"),
+    ("40/20", "mfcc", "float32"), ("40/20", "mfcc", "bfloat16")])
+def test_k8_k9_match_plain(cuda_device, variant, geometry, method, matmul):
+    """K8 (phases) and K9 (radix4) at 1 s against their plain versions."""
+    cfg = dataclasses.replace(GEOMETRIES[geometry], preprocess_method=method,
+                              dsp_matmul_dtype=matmul, dft_variant=variant)
+    wavs = _wavs(7, 16000, cuda_device, seed=5)
+    counter = f"{variant}_launches"
+    before = getattr(k2, counter), k2.launches
+    got = k2.fused_mfcc(wavs, cfg)
+    torch.cuda.synchronize()
+    assert (getattr(k2, counter), k2.launches) == (before[0] + 1, before[1])
+    want = k2.fused_mfcc_reference(wavs, cfg, variant)
+    assert got.shape == want.shape == (7,) + dsp.feature_shape(cfg)[:2]
+    tol = dict(atol=FEATURE_ATOL, rtol=0) if matmul == "float32" else BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    feats = dsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="pallas"))
+    torch.testing.assert_close(feats[..., 0], got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["phases", "radix4"])
+def test_k3_variants_equal_their_mfcc_of_k1(cuda_device, variant):
+    """K3's phases and radix4 entry points equal K8(K1(x)) / K9(K1(x)) bit
+    for bit, and their plain version within the feature tolerance."""
+    cfg = dataclasses.replace(GEOMETRIES["40/20"], dft_variant=variant)
+    data, idx, noise, scalars = _augment_case(cuda_device, 16000, batch=6, seed=4)
+    before = getattr(k3, f"{variant}_launches")
+    got = k3.frontend_features(data, idx, scalars, noise, cfg, 16000)
+    torch.cuda.synchronize()
+    assert getattr(k3, f"{variant}_launches") == before + 1
+    two = k2.fused_mfcc(k16.fused_gather_augment(data, idx, scalars, noise, 16000), cfg)
+    assert torch.equal(got, two)
+    plain = k3.frontend_reference(data, idx, scalars, noise, cfg, 16000)
+    torch.testing.assert_close(got, plain, atol=FEATURE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["phases", "radix4"])
+def test_trainer_steps_go_through_the_variant_kernels(cuda_device, tmp_path, variant):
+    """DSCNNS with adam: frontend_fuse "on" launches K3 in the variant once
+    per step, "off" K1 and K8 / K9."""
+    for fuse in ("on", "off"):
+        cfg = ExperimentConfig(
+            audio=AudioConfig(clip_duration_ms=160, window_size_ms=40.0, window_stride_ms=20.0,
+                              num_mfccs=10, dsp_backend="pallas", frontend_fuse=fuse,
+                              dft_variant=variant),
+            augment=AugmentConfig(backend="pallas"),
+            model=ModelConfig(name="DSCNNS", num_classes=4, weight_decay=0.0),
+            optim=OptimConfig(optimizer="adam", lr_list=(5e-4,), boundaries=()),
+            train=TrainConfig(batch_size=32))
+        ds = DeviceDataset(make_synthetic_dataset(num_samples=64, num_classes=4,
+                                                  desired_samples=2560, seed=1), cuda_device)
+        trainer = Trainer(cfg, ds, workdir=tmp_path / fuse)
+        counter = f"{variant}_launches"
+        counts = (k16.k1_launches, getattr(k2, counter), getattr(k3, counter))
+        summary = trainer.train_steps(3, start=0)
+        torch.cuda.synchronize()
+        delta = (k16.k1_launches - counts[0], getattr(k2, counter) - counts[1],
+                 getattr(k3, counter) - counts[2])
+        assert delta == ((0, 0, 3) if fuse == "on" else (3, 3, 0))
+        assert np.isfinite(float(summary["total_loss"]))
 
 
 # (k, stride, Ci, Co, T) of every TCResNet8-1.0 conv, then two of TCResNet14-1.5

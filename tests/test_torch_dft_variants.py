@@ -1,0 +1,206 @@
+"""The phase-grouped (K8) and radix-4 (K9) front ends of the port against
+the JAX package: their plain versions against the Pallas kernels in
+interpret mode (MFCC kernel and the single-kernel front end), the radix-4
+XLA path of dsp.preprocess, the constant builders and the variant
+resolution. The kernels' sizes are the JAX kernel tests' (n = 2560,
+tests/test_pallas.py) at both reference geometries."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tcresnet_tpu.ops import dsp as jdsp
+from tcresnet_tpu.ops.pallas import frontend as jfrontend
+from tcresnet_tpu.ops.pallas import mfcc as jmfcc
+from tcresnet_tpu.ops.pallas.augment import _draw_scalars
+from tcresnet_tpu_torch.config import AudioConfig, AugmentConfig
+from tcresnet_tpu_torch.ops import dsp
+from tcresnet_tpu_torch.ops.kernels import frontend, mfcc
+from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars
+from tests.test_torch_config import to_jax_config
+
+torch.set_num_threads(1)
+
+N, P = 2560, 4096  # the JAX kernel tests' clip; dataset rows padded to P
+ATOL = 1e-4  # the JAX package's kernel tolerance (tests/test_pallas.py)
+GEOMETRIES = {"30/10": AudioConfig(clip_duration_ms=N // 16),
+              "40/20": AudioConfig(clip_duration_ms=N // 16, window_size_ms=40.0,
+                                   window_stride_ms=20.0)}
+METHODS = ["mfcc", "log_mel_spectrogram"]
+
+
+def _cfg(geometry, method, variant):
+    return dataclasses.replace(GEOMETRIES[geometry], preprocess_method=method,
+                               dft_variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["phases", "radix4"])
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_plain_variant_matches_jax_kernel(geometry, method, variant):
+    """K8's and K9's plain versions (what fused_mfcc runs on a CPU tensor)
+    against JAX's fused_mfcc(interpret=True, variant=...)."""
+    cfg = _cfg(geometry, method, variant)
+    assert mfcc.resolve_dft_variant(cfg, N) == variant
+    wavs = np.random.default_rng(1).uniform(-1, 1, (4, N)).astype(np.float32)
+    want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True,
+                                       variant=variant))
+    got = mfcc.fused_mfcc(torch.tensor(wavs), cfg).numpy()
+    assert got.shape == want.shape == (4, dsp.num_frames_for(
+        N, cfg.window_size_samples, cfg.window_stride_samples), dsp.feature_width(cfg))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got, mfcc.fused_mfcc_reference(torch.tensor(wavs), cfg,
+                                                                 variant).numpy())
+    # dsp_backend="pallas" takes the same plain version on the CPU
+    feats = dsp.preprocess(torch.tensor(wavs), dataclasses.replace(cfg, dsp_backend="pallas"))
+    np.testing.assert_array_equal(feats[..., 0].numpy(), got)
+
+
+@pytest.mark.parametrize("variant", ["phases", "radix4"])
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_k3_plain_variant_matches_jax_kernel(geometry, method, variant):
+    """K3's phases and radix4 branches: the same scalars (JAX's draw) into
+    JAX's single-kernel front end and the port's plain K3 (K1's plain
+    version, then K8's or K9's)."""
+    rng = np.random.default_rng(2)
+    rows, batch = 12, 8
+    data = np.zeros((rows, P), np.int16)
+    data[:, :N] = rng.integers(-32768, 32768, (rows, N))
+    idx = rng.integers(0, rows, batch).astype(np.int32)
+    silent = rng.integers(0, 4, batch) == 0
+    noise = (rng.normal(size=(3, 3 * N)) * 0.1).astype(np.float32)
+    aug_cfg = AugmentConfig(background_frequency=0.8, background_max_volume=0.3)
+    cfg = _cfg(geometry, method, variant)
+    scalars = _draw_scalars(jax.random.key(3), jnp.asarray(silent), to_jax_config(aug_cfg),
+                            jnp.asarray(noise), N, True)
+    want = np.asarray(jfrontend._impl(
+        jnp.asarray(data.reshape(rows, P // 128, 128)), jnp.asarray(idx), scalars,
+        jnp.asarray(noise), N, to_jax_config(cfg), True, False, variant, 8))
+    ts = AugmentScalars(*(torch.tensor(np.asarray(a), dtype=torch.int32) for a in scalars[:3]),
+                        *(torch.tensor(np.asarray(a), dtype=torch.float32) for a in scalars[3:]))
+    got = frontend.frontend_features(torch.tensor(data[:, :N].copy()), torch.tensor(idx), ts,
+                                     torch.tensor(noise), cfg, N).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_radix4_preprocess_matches_jax_on_a_full_clip(geometry, method):
+    """dsp.preprocess with dft_variant="radix4" (the XLA path) at n = 16000
+    within 1e-5: absolute for log-mel, relative for MFCC, whose values reach
+    ~70 where float32 steps are 7.6e-6 (the dense path differs from JAX by
+    the same 2e-5 there: the DCT's float32 sums in another order)."""
+    cfg = dataclasses.replace(GEOMETRIES[geometry], clip_duration_ms=1000,
+                              preprocess_method=method, dft_variant="radix4")
+    wavs = np.random.default_rng(3).uniform(-1, 1, (3, 16000)).astype(np.float32)
+    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), to_jax_config(cfg)))
+    got = dsp.preprocess(torch.tensor(wavs), cfg).numpy()
+    assert got.shape == want.shape == (3,) + dsp.feature_shape(cfg)
+    if method == "mfcc":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    dense = dsp.preprocess(torch.tensor(wavs), dataclasses.replace(cfg, dft_variant="hops"))
+    assert np.abs(got - dense.numpy()).max() > 0  # another path, the same features
+    np.testing.assert_allclose(got, dense.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_radix4_bf16_preprocess_matches_jax():
+    """dsp_matmul_dtype="bfloat16": the windowed blocks round to bf16 and
+    the butterfly adds round again, then the products sum in float32."""
+    cfg = dataclasses.replace(GEOMETRIES["30/10"], dft_variant="radix4",
+                              dsp_matmul_dtype="bfloat16")
+    wavs = np.random.default_rng(4).uniform(-1, 1, (2, N)).astype(np.float32)
+    want = np.asarray(jdsp.preprocess(jnp.asarray(wavs), to_jax_config(cfg)))
+    got = dsp.preprocess(torch.tensor(wavs), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
+    f32 = dsp.preprocess(torch.tensor(wavs), dataclasses.replace(cfg, dsp_matmul_dtype="float32"))
+    assert np.abs(got - f32.numpy()).max() > 1e-4  # the rounding did happen
+
+
+@pytest.mark.parametrize("name,args", [
+    ("radix4_dft_matrices", (512,)), ("radix4_dft_matrices", (1024,)),
+    ("radix4_bin_map", (512,)), ("radix4_bin_map", (1024,)),
+    ("radix4_mel_matrix", (40, 512, 16000, 20.0, 4000.0)),
+    ("radix4_mel_matrix", (64, 1024, 16000, 80.0, 7600.0)),
+    ("radix4_window", (480, 512)), ("radix4_window", (640, 1024)),
+])
+def test_radix4_constants_equal_jax(name, args):
+    got, want = getattr(dsp, name)(*args), getattr(jdsp, name)(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("window,hop,n", [(480, 160, 16000), (640, 320, 16000),
+                                          (480, 160, N), (640, 320, N)])
+def test_phase_dft_plan_equals_jax(window, hop, n):
+    fft_length = dsp.fft_length_for(window)
+    got = mfcc.phase_dft_plan(window, hop, n, fft_length)
+    want = jmfcc.phase_dft_plan(window, hop, n, fft_length)
+    assert got[:4] == want[:4]
+    for (c, r, f, w), (jc, jr, jf, jw) in zip(got[4], want[4]):
+        assert (c, r, f) == (jc, jr, jf)
+        assert w.dtype == jw.dtype and np.array_equal(w, jw)
+    with pytest.raises(ValueError, match="lane-aligned"):
+        mfcc.phase_dft_plan(window, hop, 2720, fft_length)
+
+
+def test_resolve_dft_variant_equals_jax():
+    """Both geometries; the 60 ms window, where radix4 falls back (window >
+    lcm(hop, 128) + hop); the 2720-sample clip, where phases (and radix4)
+    fall back (not lane-aligned); an unknown string raises in both."""
+    configs = [*GEOMETRIES.values(), AudioConfig(window_size_ms=60.0),
+               AudioConfig(preprocess_method="log_mel_spectrogram")]
+    seen = set()
+    for base in configs:
+        for variant in ("auto", "hops", "phases", "radix4"):
+            cfg = dataclasses.replace(base, dft_variant=variant)
+            for n in (16000, N, 2720):
+                got = mfcc.resolve_dft_variant(cfg, n)
+                assert got == jmfcc.resolve_dft_variant(to_jax_config(cfg), n), (cfg, n)
+                seen.add((variant, got))
+    assert {("auto", "hops"), ("radix4", "hops"), ("phases", "hops"), ("phases", "phases"),
+            ("radix4", "radix4")} <= seen
+    wide = dataclasses.replace(AudioConfig(window_size_ms=60.0), dft_variant="radix4")
+    assert mfcc.resolve_dft_variant(wide, 16000) == "hops"
+    bad = dataclasses.replace(AudioConfig(), dft_variant="fft")
+    with pytest.raises(ValueError, match="dft_variant"):
+        mfcc.resolve_dft_variant(bad, 16000)
+    with pytest.raises(ValueError, match="dft_variant"):
+        jmfcc.resolve_dft_variant(to_jax_config(bad), 16000)
+
+
+@pytest.mark.parametrize("window_ms,hop_ms,tile", [(30.0, 10.0, 8), (40.0, 20.0, 4)])
+def test_kernel_shared_memory_plans(window_ms, hop_ms, tile):
+    """The plans of the three variants at 1 s: K2 and K8 share one; K9 keeps
+    the samples (64,000 B) and the permuted power (150,528 B) and tiles its
+    butterflies in what is left of a Hopper block."""
+    cfg = AudioConfig(window_size_ms=window_ms, window_stride_ms=hop_ms)
+    g = mfcc.front_end_geometry(cfg, 16000)
+    assert mfcc.smem_plan(g, "phases") == mfcc.smem_plan(g, "hops")
+    a, b, got_tile = mfcc.smem_plan(g, "radix4")
+    assert (4 * a, 4 * b, got_tile) == (64000, 150528, tile)
+    assert mfcc.smem_bytes(g, "radix4") <= mfcc.SMEM_LIMIT
+    for variant in ("hops", "phases", "radix4"):
+        assert mfcc.fused_mfcc_available(dataclasses.replace(cfg, dft_variant=variant), 16000)
+    # the phase plan's rows are 640 samples apart and its W_p carry the DFT
+    # rows at o_p; the interleave keeps (re_k, im_k) next to each other
+    fe = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="phases"), 16000, "cpu", "phases")
+    v = fe.variant_args()
+    assert v.s_rows * 128 == 640 and v.num_p == 640 // cfg.window_stride_samples
+    w0 = fe.dft[:v.rows[0] * 128 * 4 * g.ncg].reshape(v.rows[0] * 128, 4 * g.ncg).numpy()
+    std = mfcc.phase_dft_plan(g.window, g.hop, 16000, g.fft_length)[4][0][3]
+    np.testing.assert_array_equal(w0[:, 0::4], std[:, 0:g.num_bins:2])
+    np.testing.assert_array_equal(w0[:, 1::4], std[:, g.num_bins::2])
+    r4 = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="radix4"), 16000, "cpu", "radix4")
+    length = g.fft_length // 4
+    assert r4.args().num_bins == 2 * r4.args().ncg == 3 * length
+    assert tuple(r4.mel.shape) == (3 * length, cfg.num_mel_bins)
+    assert r4.dft.numel() == 8 * length * length

@@ -82,7 +82,8 @@ def test_preprocess_bf16_dft_matches_jax():
 
 def test_preprocess_backends():
     """"auto" is the plain path on the CPU; "pallas" names the K2 kernel,
-    whose plain version a CPU batch runs; radix4 is not ported;
+    whose plain version a CPU batch runs; radix4 takes the factored DFT,
+    the same features to reassociation level;
     no_preprocessing adds the channel axis."""
     cfg = GEOMETRIES["30/10ms"]
     wavs = torch.tensor(np.random.default_rng(9).uniform(
@@ -94,7 +95,8 @@ def test_preprocess_backends():
     assert torch.equal(plain, pallas)
     with pytest.raises(ValueError, match="dsp_backend"):
         tdsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="mosaic"))
-    with pytest.raises(NotImplementedError, match="radix4"):
-        tdsp.preprocess(wavs, dataclasses.replace(cfg, dft_variant="radix4"))
+    radix4 = tdsp.preprocess(wavs, dataclasses.replace(cfg, dft_variant="radix4"))
+    assert radix4.shape == plain.shape and not torch.equal(radix4, plain)
+    np.testing.assert_allclose(radix4.numpy(), plain.numpy(), rtol=0, atol=1e-4)
     raw = tdsp.preprocess(wavs, dataclasses.replace(cfg, preprocess_method="no_preprocessing"))
     assert raw.shape == (2, cfg.desired_samples, 1, 1)

@@ -89,13 +89,19 @@ def test_kernel_gates_and_variants():
     assert mfcc.fused_mfcc_available(AudioConfig(), 16000)
     a, b = mfcc.front_end_geometry(AudioConfig(), 16000).regions()
     assert 4 * (a + b) <= mfcc.SMEM_LIMIT
-    wavs = torch.zeros(2, N)
-    for variant, row in (("phases", "K8"), ("radix4", "K9")):
-        with pytest.raises(NotImplementedError, match=row):
-            mfcc.fused_mfcc(wavs, dataclasses.replace(CFG, dft_variant=variant))
+    wavs = torch.tensor(np.random.default_rng(4).uniform(-1, 1, (2, N)).astype(np.float32))
+    # the phase-grouped (K8) and radix-4 (K9) variants run their plain
+    # versions on the CPU and match the JAX kernels in interpret mode
+    for variant in ("phases", "radix4"):
+        vcfg = dataclasses.replace(CFG, dft_variant=variant)
+        assert mfcc.resolve_dft_variant(vcfg, N) == variant
+        want = jax_fused_mfcc(jnp.asarray(wavs.numpy()), to_jax_config(vcfg), interpret=True,
+                              variant=variant)
+        np.testing.assert_allclose(mfcc.fused_mfcc(wavs, vcfg).numpy(), np.asarray(want),
+                                   rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="dft_variant"):
         mfcc.fused_mfcc(wavs, dataclasses.replace(CFG, dft_variant="fft"))
-    assert mfcc.resolve_dft_variant(CFG) == "hops"
-    with pytest.raises(ValueError, match="no K2 kernel"):
+    assert mfcc.resolve_dft_variant(CFG, N) == "hops"
+    with pytest.raises(ValueError, match="no front-end kernel"):
         mfcc.fused_mfcc(torch.zeros(2, N, device="meta"), CFG)
 

@@ -152,8 +152,10 @@ def test_unknown_names_raise():
 
 
 def test_trainer_refuses_the_2d_families(tmp_path):
-    """Serving only: training a 2D family (KWS dropout, adam / rmsprop) is
-    not held to the JAX package yet, so the Trainer raises."""
+    """The Trainer refuses the 2D families no longer (their train mode and
+    steps are held to JAX in tests/test_torch_train2d.py): each takes two
+    adam steps on the CPU with a finite loss; what is still not ported
+    (optim.trainable_scopes) raises."""
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
     from tcresnet_tpu_torch.train.trainer import Trainer
@@ -162,7 +164,13 @@ def test_trainer_refuses_the_2d_families(tmp_path):
     host = make_synthetic_dataset(num_samples=8, num_classes=4,
                                   desired_samples=audio.desired_samples, seed=0)
     for name in ("Res8Narrow", "DSCNNS", "KWS", "ResNet2D8"):
-        cfg = tconfig.ExperimentConfig(audio=audio, model=tconfig.ModelConfig(
-            name=name, num_classes=4))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(cfg, DeviceDataset(host, "cpu"), workdir=tmp_path / name)
+        cfg = tconfig.ExperimentConfig(
+            audio=audio, model=tconfig.ModelConfig(name=name, num_classes=4),
+            optim=tconfig.OptimConfig(optimizer="adam", lr_list=(1e-3,), boundaries=()),
+            train=tconfig.TrainConfig(batch_size=4))
+        trainer = Trainer(cfg, DeviceDataset(host, "cpu"), workdir=tmp_path / name)
+        out = trainer.train_steps(2, start=0)
+        assert np.isfinite(float(out["total_loss"])) and int(trainer.state.step) == 2, name
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Trainer(cfg.replace(optim=tconfig.OptimConfig(trainable_scopes=("fc",))),
+                DeviceDataset(host, "cpu"), workdir=tmp_path / "scopes")

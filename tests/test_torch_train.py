@@ -155,8 +155,9 @@ def test_optimizer_matches_optax(name):
             np.testing.assert_allclose(tema[k].numpy(), np.asarray(jema[k]), rtol=1e-6, atol=1e-7)
     assert optim.resolve_boundaries(
         OptimConfig(boundaries=(3,), boundaries_epoch=True), 1000, 64) == (46,)
+    # adam and rmsprop are ported (tests/test_torch_train2d.py); trainable_scopes is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.build_optimizer(OptimConfig(optimizer="adam"))
+        optim.build_optimizer(OptimConfig(optimizer="adam", trainable_scopes=("fc",)))
 
 
 # ---------------------------------------------------------------------------
