@@ -58,21 +58,26 @@ print their lines:
               line and its cooperative grid
  18. kernel   K5 against its plain version (TF32 off) for every 2D preset
               (TCResNet2D8[Pool], Res8/15[Narrow], DSCNN S/M/L) and all 7 KWS
-              architectures at batch 1, 3, 8, 64, launch counter checked; K2
-              at 640/320 (MFCC-10 and MFCC-40) against the plain front end,
-              atol 1e-4; K5's softmax against the JAX golden
+              architectures at batch 1, 3, 8, 64, and the four timed presets
+              at 1024, launch counter checked, two calls equal bit for bit;
+              K2 at 640/320 (MFCC-10 and MFCC-40) against the plain front
+              end, atol 1e-4; K5's softmax against the JAX golden
               tcresnet_tpu_torch/testdata/infer2d_golden.npz
  19. serve    the 2D main path: build_inference_fn(backend="auto") for
               Res15, DSCNNL and KWSfpool3, 20 single requests each through
               K2 + K5 (launches counted) and one batch of 64 on the plain
               path, against backend="xla", precision="highest"
  20. times    TCResNet2D8-1.0, Res15, DSCNNL, KWSfpool3 at batch 1 and 1024:
-              K5, its plain version and the model on cuDNN (TF32 off) over
-              the same features, device time behind a device-side sleep
-              (each line names a time the host paced instead), and one
-              call of the cuDNN model under torch.profiler (its device time
-              alone, the library time where the profiler reports one); the
-              served request (K2 + K5, and "xla") on the host clock
+              K5, its plain version and the model on cuDNN (TF32 off, as a
+              CUDA graph) over the same features on one clock, CUDA events
+              behind a device-side sleep (K5 and cuDNN must not be paced by
+              the host; the line names the plain version if it was); one
+              eager cuDNN model call under torch.profiler as a second line;
+              K5's bound at the 3xTF32 rate and the earlier FP32-FMA design's
+              times beside; K5 per
+              step for Res15 and KWSfpool3 (the program cut after each
+              step); the served request (K2 + K5, and "xla") on the host
+              clock
  21. build    mfcc.cu (K2, K8, K9) and frontend.cu (K3 hops, phases,
               radix4) rebuilt, the ptxas line of every entry point
  22. kernel   K8 (phases) and K9 (radix4) against their plain versions (TF32
@@ -82,8 +87,9 @@ print their lines:
               followed by the variant's plain version, the same draws, at
               the JAX package's tolerance for features of dataset rows
               (DATASET_FEATURE_TOL: atol 2e-4, rtol 1e-5; MFCCs up to ~160),
-              and bit-equal to K8 / K9 over K1; the per-variant launch
-              counters
+              the kernel within atol 1e-4 of the same augmented rows in
+              float64 (the plain version's distance printed beside), and
+              bit-equal to K8 / K9 over K1; the per-variant launch counters
  23. train    the 2D main path: the DSCNNL preset (MFCC-10 at 40/20 ms,
               batch 100, float32, adam) with dft_variant="radix4" and
               frontend_fuse="on", 30 steps, a checkpoint every 10: K3-radix4
@@ -115,6 +121,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -137,7 +144,9 @@ FEATURE_ATOL = 1e-4
 # features of int16 dataset rows (loud tones, MFCC up to ~160, where
 # float32 steps are 1.5e-5) through a kernel against the plain path: the
 # JAX package's tolerance for the same comparison
-# (tests/test_pallas_frontend.py::test_fused_frontend_eval_mode)
+# (tests/test_pallas_frontend.py::test_fused_frontend_eval_mode). Against
+# a float64 evaluation of the same rows the K3 kernels are within
+# FEATURE_ATOL and the plain path (cuBLAS) is the farther side, ~1e-4
 DATASET_FEATURE_TOL = dict(atol=2e-4, rtol=1e-5)
 # K7 fwd and dx: the JAX package's kernel test (tests/test_pallas_tconv.py):
 # float32 sums in another order
@@ -158,6 +167,20 @@ SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# K5's bound rate: the float32-exact tensor-core rate. K5 computes its convs
+# and dense layers as 3xTF32 (three TF32 products per float32 product, at
+# the 495 TFLOP/s TF32 peak), so FP32_FLOPS is no longer the least time the
+# card could take for that work; every other kernel keeps FP32_FLOPS
+TF32X3_FLOPS = 495e12 / 3
+# K5's earlier design (per-thread FP32 FMA, no K split) and the cuDNN model
+# beside it, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3,
+# 700.00 W; K5 by CUDA events behind a device sleep, cuDNN one call under
+# torch.profiler): printed as quoted beside this run's times, never in the
+# kernels summary
+PR5_K5_MS = {("TCResNet2D8-1.0", 1): (0.3007, 0.2433), ("TCResNet2D8-1.0", 1024): (4.5128, 7.4011),
+             ("Res15", 1): (0.8173, 1.7687), ("Res15", 1024): (123.65, 122.46),
+             ("DSCNNL", 1): (0.2853, 0.2206), ("DSCNNL", 1024): (7.6675, 8.598),
+             ("KWSfpool3", 1): (0.3826, 0.1272), ("KWSfpool3", 1024): (9.1015, 3.1126)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -169,10 +192,11 @@ def seeded_wavs(seed: int, batch: int, n: int) -> np.ndarray:
     return np.random.default_rng(seed).uniform(-1, 1, (batch, n)).astype(np.float32)
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
     """The least time the card could take for work of `flops` float32
-    operations that must move `nbytes` bytes, and which of the two bounds it."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    operations at `rate` FLOP/s that must move `nbytes` bytes, and which of
+    the two bounds it."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -204,7 +228,9 @@ def queued_ms(fn, runs: int = 20) -> tuple:
     torch.cuda.synchronize()
     ev_sleep, ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     ev_sleep.record()
-    torch.cuda._sleep(int(2e9 * max(2 * host_s, 1e-3)))  # ~2 GHz SM clock
+    # ~2 GHz SM clock; four times the first enqueue, and at least 5 ms, so
+    # that the host's own noise does not outlast it
+    torch.cuda._sleep(int(2e9 * max(4 * host_s, 5e-3)))
     ev0.record()
     t0 = time.perf_counter()
     for _ in range(runs):
@@ -213,6 +239,43 @@ def queued_ms(fn, runs: int = 20) -> tuple:
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / runs, enqueue_ms < ev_sleep.elapsed_time(ev0)
+
+
+def graph_of(fn):
+    """fn() captured as a CUDA graph: (replay, its output). One launch per
+    replay, so a run of replays behind a device sleep never fills the
+    launch queue (a 2D model's eager call is ~100 launches, and 10 of them
+    behind a sleep block the host until the sleep ends)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph.replay, out
+
+
+def mfcc_float64(wavs: torch.Tensor, audio) -> torch.Tensor:
+    """MFCC of float32 wavs evaluated in float64 from the front end's float32
+    constants: frames @ windowed DFT -> power -> mel -> log -> DCT. Every DFT
+    variant computes this function; only its rounding differs."""
+    from tcresnet_tpu_torch.ops import dsp
+
+    win, hop = audio.window_size_samples, audio.window_stride_samples
+    fft = dsp.fft_length_for(win)
+    bins = fft // 2 + 1
+    frames = dsp.num_frames_for(wavs.shape[-1], win, hop)
+    idx = torch.tensor(np.arange(frames)[:, None] * hop + np.arange(win)[None, :],
+                       device=wavs.device)
+    const = lambda a: torch.tensor(a, dtype=torch.float64, device=wavs.device)  # noqa: E731
+    reim = wavs.double()[:, idx] @ const(dsp.windowed_rdft_matrix(win, fft))
+    power = reim[..., :bins] ** 2 + reim[..., bins:] ** 2
+    log_mel = torch.log(power @ const(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(audio)))
+                        + 1e-6)
+    return log_mel @ const(dsp.dct_ii_matrix(audio.num_mel_bins, audio.num_mfccs))
 
 
 def ptxas_line(name: str) -> str:
@@ -431,12 +494,14 @@ def device_ms(fn, runs: int = 20) -> float:
     return benchmark_on_device(lambda _: fn(), probe, warmup_runs=5, num_runs=runs)["median"] / 1e3
 
 
-def device_busy_ms(fn) -> float:
-    """Summed device-activity time of fn() in ms (kernels and copies, which
-    do not overlap on the one stream the port uses), from torch.profiler;
-    NaN when the profiler reports no device time. Device times are not
-    inflated by the profiler's host overhead, so this over an unprofiled
-    CUDA-event span of the same work is the device's busy share."""
+def device_times_ms(fn) -> tuple:
+    """(summed device-activity time of fn() in ms, kernels and copies, which
+    do not overlap on the one stream the port uses; the span from the first
+    activity's start to the last one's end; the number of activities), from
+    torch.profiler; NaN when the profiler reports no device time. Device
+    times are not inflated by the profiler's host overhead, so the sum over
+    an unprofiled CUDA-event span of the same work is the device's busy
+    share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -444,9 +509,17 @@ def device_busy_ms(fn) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    return dev_us / 1e3 if dev_us > 0 else float("nan")
+    spans = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(s.elapsed_us() for s in spans)
+    if busy_us <= 0:
+        return float("nan"), float("nan"), 0
+    return (busy_us / 1e3, (max(s.end for s in spans) - min(s.start for s in spans)) / 1e3,
+            len(spans))
+
+
+def device_busy_ms(fn) -> float:
+    """Summed device-activity time of fn() in ms (`device_times_ms`)."""
+    return device_times_ms(fn)[0]
 
 
 def training_phases(dev: torch.device, card: str):
@@ -1002,6 +1075,7 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
     from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
     from tcresnet_tpu_torch.models.kws import KWS_ARCHITECTURES
     from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.ops.kernels import _build
     from tcresnet_tpu_torch.ops.kernels import infer2d as k5
     from tcresnet_tpu_torch.ops.kernels import mfcc as k2
     from tcresnet_tpu_torch.serve.benchmark import benchmark_compiled
@@ -1035,17 +1109,20 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
     presets = ["TCResNet2D8-1.0", "TCResNet2D8Pool-1.0", "Res8", "Res8Narrow", "Res15",
                "Res15Narrow", "DSCNNS", "DSCNNM", "DSCNNL"]
     cases = [(p, None) for p in presets] + [("KWSfpool3", a) for a in KWS_ARCHITECTURES]
+    timed_presets = ("TCResNet2D8-1.0", "Res15", "DSCNNL", "KWSfpool3")
     k5_err = 0.0
     for preset, arch in cases:
         cfg = cfg_of(preset, arch)
         plan = plan_for(cfg)
         errs = []
-        for batch in (1, 3, 8, 64):
+        big = (1024,) if arch is None and preset in timed_presets else ()
+        for batch in (1, 3, 8, 64) + big:
             feats = k2.fused_mfcc(wavs_for(cfg, 700 + batch, batch), cfg.audio)
             before = k5.launches
-            got = k5.fused_infer2d(feats, plan)
+            got, again = k5.fused_infer2d(feats, plan), k5.fused_infer2d(feats, plan)
             torch.cuda.synchronize()
-            check(k5.launches == before + 1, f"K5 {preset} {arch} B={batch}: not launched")
+            check(k5.launches == before + 2, f"K5 {preset} {arch} B={batch}: not launched")
+            check(torch.equal(got, again), f"K5 {preset} {arch} B={batch}: two calls differ")
             want = k5.fused_infer2d_reference(feats, plan)
             check(got.shape == want.shape == (batch, cfg.model.num_classes), f"K5 {preset}: shape")
             check(bool(torch.isfinite(got).all()), f"K5 {preset} {arch} B={batch}: non-finite")
@@ -1059,7 +1136,7 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
         label = preset if arch is None else f"KWS {arch}"
         print(f"[kernel] K5 {label} ({len(plan.program)} steps, "
               f"{plan.macs_per_utterance():,} multiply-adds/utt): max |logit| / |softmax| err "
-              f"vs plain: " + ", ".join(errs))
+              f"vs plain: " + ", ".join(errs) + "; two calls equal bit for bit")
 
     for label, preset in (("MFCC-10 (DS-CNN, 49x10)", "DSCNNS"),
                           ("MFCC-40 (KWS, 49x40)", "KWSfpool3")):
@@ -1127,8 +1204,26 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
           "softmax err vs xla/highest " + ", ".join(f"{p} {e:.2e}" for p, e in serve_err.items()))
 
     # ---- 20. times ----
-    times = {}
-    for preset in ("TCResNet2D8-1.0", "Res15", "DSCNNL", "KWSfpool3"):
+    # K5, its plain version and the cuDNN model (TF32 off) on one clock:
+    # CUDA events around calls the host enqueues behind a device sleep. The
+    # cuDNN model runs as a CUDA graph (one launch a call): eager, its ~100
+    # launches a call fill the launch queue behind the sleep within 10 calls
+    # and the host then waits (no call of the path synchronises: tests/
+    # test_torch_cuda.py::test_xla_serving_path_does_not_synchronise). The
+    # library time is the least of the graph, eager and profiler readings
+    def k5_prefix(plan, feats, n_ops):
+        """K5 on the program's first n_ops steps (the last kept step writes
+        its slot, not the logits): for per-step attribution."""
+        out = torch.empty((feats.shape[0], plan.ncls), device=dev)
+        ws, partial = plan.buffers(feats.shape[0])
+        args = plan.kernel_args(feats, out, ws, partial)
+        args.n_ops = n_ops
+        buffers = (out, ws, partial)  # alive as long as the launcher is
+        return lambda: _build.launch(k5._library(), "k5_infer2d", "k5_error_string", args,
+                                     buffers[0].device)
+
+    times, steps = {}, {}
+    for preset in timed_presets:
         cfg = cfg_of(preset)
         v = variables_for(cfg, seed=0)
         plan = k5.build_fused_infer2d(cfg.model, cfg.audio, v["params"], v["batch_stats"],
@@ -1144,34 +1239,79 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
             heavy = batch > 1 and plan.macs_per_utterance() > 1e8
             runs = 3 if heavy else 20
             with torch.no_grad():
+                replay, graph_out = graph_of(lambda: model(feats4))
+                replay()
+                torch.cuda.synchronize()
+                check(torch.allclose(graph_out, model(feats4), atol=1e-6, rtol=0),
+                      f"{preset} B={batch}: the cuDNN graph differs from the model")
                 timed = [queued_ms(fn, runs) for fn in (
                     lambda: k5.fused_infer2d(feats, plan),
                     lambda: k5.fused_infer2d_reference(feats, plan),
-                    lambda: model(feats4),
+                    replay, replay,
                     lambda: k5.fused_infer2d(feats, plan))]
-                # one call of the cuDNN model under torch.profiler: its device
-                # time alone, whether or not the host paced the timed calls (the
-                # profiler does not see K5's launch through ctypes: NaN)
-                busy_lib = device_busy_ms(lambda: model(feats4))
-            (a, b, c, d), full = zip(*timed)
+                # more readings of the cuDNN model: eager calls on the same
+                # clock (5 calls, so that their launches fit the queue, and
+                # one call alone, beside one K5 call alone; a host-paced
+                # reading is dropped), and under torch.profiler one eager
+                # call's device time and five back-to-back calls' device
+                # time and span (per call), with the device activities each
+                # saw (a one-call reading that saw fewer than a fifth of the
+                # five calls' is dropped)
+                eager, eager_full = queued_ms(lambda: model(feats4), 5)
+                eager1, eager1_full = queued_ms(lambda: model(feats4), 1)
+                k5_one = queued_ms(lambda: k5.fused_infer2d(feats, plan), 1)[0]
+                busy_lib, _, n_one = device_times_ms(lambda: model(feats4))
+                busy5, span5, n_five = device_times_ms(lambda: [model(feats4) for _ in range(5)])
+                busy5, span5 = busy5 / 5, span5 / 5
+                if preset in ("Res15", "KWSfpool3"):
+                    cum = [queued_ms(k5_prefix(plan, feats, n), runs)[0]
+                           for n in range(1, len(plan.program) + 1)]
+                    steps[(preset, batch)] = [
+                        (op.kind if op.kind != "conv" else f"conv-{op.mode}",
+                         f"{op.t_out}x{op.f_out}x{op.c_out}", t)
+                        for op, t in zip(plan.program, [cum[0]] + [
+                            b - a for a, b in zip(cum, cum[1:])])]
+            (a, b, c, c2, d), full = zip(*timed)
+            for name, ok in zip(("K5", "cuDNN graph", "cuDNN graph", "K5"),
+                                (full[0], full[2], full[3], full[4])):
+                check(ok, f"{preset} B={batch}: the {name} time is host-paced")
             host_fused = benchmark_compiled(fused_fn, wavs, warmup_runs=2, num_runs=runs)
             host_xla = benchmark_compiled(xla_fn, wavs, warmup_runs=2, num_runs=runs)
             flops = 2 * batch * plan.macs_per_utterance()
             nbytes = 4 * (feats.numel() + plan.wts.numel() + batch * plan.ncls)
-            library = busy_lib if np.isfinite(busy_lib) else c
-            times[(preset, batch)] = dict(ms=min(a, d), plain_ms=b, library_ms=library,
-                                          **bound(flops, nbytes))
+            # the library yardstick: the fastest reading of the cuDNN model
+            lib_readings = ([c, c2, busy5] + ([busy_lib] if 5 * n_one >= n_five else [])
+                            + ([eager] if eager_full else []) + ([eager1] if eager1_full else []))
+            times[(preset, batch)] = dict(
+                ms=min(a, d), plain_ms=b, one_call_ms=k5_one,
+                library_ms=min(x for x in lib_readings if not math.isnan(x)),
+                library_graph_ms=min(c, c2), library_eager_ms=eager if eager_full else None,
+                library_one_call_ms=eager1 if eager1_full else None,
+                library_profiler_ms=busy_lib, **bound(flops, nbytes, TF32X3_FLOPS))
             t = times[(preset, batch)]
-            paced = ", ".join(name for name, ok in zip(("kernel", "plain", "cuDNN", "kernel"), full)
-                              if not ok) or "none"
+            paced = "plain" if not full[1] else "none"
+            pr5_k5, pr5_lib = PR5_K5_MS[(preset, batch)]
             print(f"[times] K5 {preset} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain {b:.4f} ms, "
-                  f"cuDNN model f32 (TF32 off) {c:.4f} ms (device, mean of {runs} behind a "
-                  f"device sleep; order kernel, plain, cuDNN, kernel; host-paced: {paced}); "
-                  f"one cuDNN model call's device time (torch.profiler) {busy_lib:.4f} ms; "
-                  f"bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of it); served request "
-                  f"wav -> softmax host avg fused (K2 + K5) {host_fused['avg'] / 1e3:.4f} ms, "
-                  f"xla {host_xla['avg'] / 1e3:.4f} ms | {card}")
+                  f"cuDNN model f32 (TF32 off) as a CUDA graph {c:.4f} / {c2:.4f} ms (device, mean "
+                  f"of {runs} behind a device sleep; order kernel, plain, cuDNN, cuDNN, kernel; "
+                  f"host-paced: {paced}); bound {t['bound_ms']:.4f} ms ({t['bound_by']} at "
+                  f"3xTF32 {TF32X3_FLOPS / 1e12:.0f} TFLOP/s, {t['bound_ms'] / t['ms']:.1%} of it)"
+                  f"; PR 5 (quoted, not this run): kernel {pr5_k5} ms, cuDNN {pr5_lib} ms | {card}")
+            print(f"[times] K5 {preset} B={batch}: the cuDNN model eager behind a device sleep, "
+                  f"5 calls {eager:.4f} ms (host-paced: {'no' if eager_full else 'yes, dropped'}), "
+                  f"1 call {eager1:.4f} ms (host-paced: {'no' if eager1_full else 'yes, dropped'})"
+                  f" against 1 K5 call {k5_one:.4f} ms; one eager call's device time "
+                  f"(torch.profiler) {busy_lib:.4f} ms over {n_one} device activities"
+                  f"{'' if 5 * n_one >= n_five else ' (dropped: too few)'}, five "
+                  f"back-to-back calls' {busy5:.4f} ms and span {span5:.4f} ms per call over "
+                  f"{n_five} (torch.profiler); library "
+                  f"{t['library_ms']:.4f} ms (the least reading); served request wav -> softmax "
+                  f"host avg fused (K2 + K5) {host_fused['avg'] / 1e3:.4f} ms, xla "
+                  f"{host_xla['avg'] / 1e3:.4f} ms | {card}")
+            if (preset, batch) in steps:
+                print(f"[times] K5 {preset} B={batch} per step (the program cut after each step, "
+                      f"successive differences, ms): " + " | ".join(
+                          f"{kind} {shape} {ms:.4f}" for kind, shape, ms in steps[(preset, batch)]))
 
     main = times[("Res15", 1)]
     return [{
@@ -1183,6 +1323,8 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "timed": "Res15, batch 1",
         "by_preset": {f"{p} B={b}": t for (p, b), t in times.items()},
+        "steps_ms": {f"{p} B={b}": [[k, sh, ms] for k, sh, ms in st]
+                     for (p, b), st in steps.items()},
     }]
 
 
@@ -1287,6 +1429,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
         return idx, aug.draw_scalars(gen, silent, augment_cfg, ds.noise_bank, n, True)
 
     k3_errs = {"phases": 0.0, "radix4": 0.0}
+    k3_f64 = {"phases": (0.0, 0.0), "radix4": (0.0, 0.0)}
     for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
         for variant in ("phases", "radix4"):
             cfg = dataclasses.replace(geoms[label], dft_variant=variant)
@@ -1306,8 +1449,14 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                                     cfg)
                 check(torch.equal(got, two), f"K3-{variant} {label}: differs from "
                       f"{kname[variant]}(K1)")
+                # both sides against the same augmented rows in float64
+                f64 = mfcc_float64(k16.augment_reference(ds.wavs, idx, sc, ds.noise_bank, n), cfg)
+                e64, p64 = ((x.double() - f64).abs().max().item() for x in (got, want))
+                check(e64 <= FEATURE_ATOL, f"K3-{variant} {label} B={batch}: {e64} from float64")
                 k3_errs[variant] = max(k3_errs[variant], err)
-                line.append(f"B={batch} {err:.2e}")
+                k3_f64[variant] = (max(k3_f64[variant][0], e64), max(k3_f64[variant][1], p64))
+                line.append(f"B={batch} {err:.2e} (kernel / plain vs float64 {e64:.2e} / "
+                            f"{p64:.2e}, max |MFCC| {f64.abs().max().item():.1f})")
             print(f"[kernel] K3-{variant} {label} vs K1-plain -> {kname[variant]}-plain (same "
                   f"draws, atol 2e-4 rtol 1e-5): " + ", ".join(line)
                   + f"; equal to {kname[variant]}(K1) bit for bit")
@@ -1518,14 +1667,16 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
     return [
         entry("k8_mfcc", "tcresnet_tpu_torch/csrc/mfcc.cu", "tcresnet_tpu/ops/pallas/mfcc.py:438",
               "phases", errs["phases"], ms, "480/160 MFCC-40"),
-        entry("k8_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
-              "tcresnet_tpu/ops/pallas/frontend.py:164", "phases", k3_errs["phases"], k3_ms,
-              "480/160 MFCC-40"),
+        {**entry("k8_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
+                 "tcresnet_tpu/ops/pallas/frontend.py:164", "phases", k3_errs["phases"], k3_ms,
+                 "480/160 MFCC-40"), "float64_err": dict(zip(("kernel", "plain"),
+                                                             k3_f64["phases"]))},
         entry("k9_mfcc", "tcresnet_tpu_torch/csrc/mfcc.cu", "tcresnet_tpu/ops/pallas/mfcc.py:422",
               "radix4", errs["radix4"], ms, "640/320 MFCC-10"),
-        entry("k9_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
-              "tcresnet_tpu/ops/pallas/frontend.py:175", "radix4", k3_errs["radix4"], k3_ms,
-              "640/320 MFCC-10"),
+        {**entry("k9_frontend", "tcresnet_tpu_torch/csrc/frontend.cu",
+                 "tcresnet_tpu/ops/pallas/frontend.py:175", "radix4", k3_errs["radix4"], k3_ms,
+                 "640/320 MFCC-10"), "float64_err": dict(zip(("kernel", "plain"),
+                                                             k3_f64["radix4"]))},
     ]
 
 

@@ -20,6 +20,10 @@ This module:
   folded into that conv's epilogue, in JAX's order. The folded weights
   live in one flat device buffer at 16-byte offsets, the output-channel
   axis padded to a multiple of 4 for 16-byte loads;
+- plans, per batch size, how the kernel's implicit GEMM covers each conv
+  (full, c1) and dense step (`gemm_plan`): its output tiles, the K parts
+  it splits a step into so that a batch-1 step reaches every block of the
+  grid, and how the parts are added (`op_rows`, `FusedInfer2D.op_table`);
 - holds the kernel's plain PyTorch version (`fused_infer2d_reference`),
   which replays the same program with per-tap matmuls, broadcast
   multiplies for the `c1` / `dw` convs, the pools, the dense layers,
@@ -39,6 +43,7 @@ with its valid width, the reshape trick for strided slices and the
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -70,10 +75,28 @@ OP_FIELDS = ("kind", "mode", "relu", "relu2", "res", "src", "dst",
              "kh", "kw", "sh", "sw", "dil", "pad_t", "pad_f",
              "t_in", "f_in", "c_in", "t_out", "f_out", "c_out", "c_pad",
              "w_off", "w2_off", "b_off", "aff_off", "rank", "n_chunks", "chunk")
+# the GEMM plan of a conv (full, c1) or dense step, per batch (`gemm_plan`),
+# the last fields of K5Op
+PLAN_FIELDS = ("tile", "vec", "k_total", "tiles_m", "tiles_n", "splits", "split_slices")
 INPUT, OUTPUT = -1, -2  # slot numbers of the features and of the logits
 N_SLOTS = 3  # x, the shortcut and the op's output
 GAP_CHUNK = 64  # positions a warp sums in the first pass of "gap"
-DENSE_CHUNK = 512  # inputs a warp takes in the first pass of "dense"
+# the kernel's GEMM tiles (K5Wide, K5Narrow in csrc/infer2d.cu), by an op's
+# `tile`: output rows x output channels x the K slice of one shared-memory
+# stage. Steps with at most NARROW_N (padded) output channels take tile 1,
+# whose 128 x 32 leaves no warp idle on N.
+GEMM_TILES = ((64, 64, 32), (128, 32, 32))
+NARROW_N = 32
+# the shortest K part of a split step, in K indices (taps x input
+# channels); a whole number of slices. A step is split until tiles x parts
+# reaches the grid or every part is this short.
+MIN_K_PART = 32
+# op tables a plan keeps, one per batch size, the least recently used
+# dropped first
+MAX_TABLES = 16
+# the cooperative grid of an H100 (132 SMs x 2 blocks), which a CPU plan
+# assumes; on the card the plan takes the grid the launch will use
+H100_GRID_BLOCKS = 264
 
 
 def fused_infer2d_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> bool:
@@ -566,8 +589,7 @@ def lower(ops, weights, feature_shape, ncls):
             k, u = w.shape
             if k != ti * fi * ci:
                 raise ValueError(f"{kind}: a [{k}, {u}] kernel on a {x[1]} input")
-            op = _Op("dense", x[0], new_slot(), 1, 1, k, 1, 1, u, relu=relu, c_pad=_pad4(u),
-                     chunk=DENSE_CHUNK, n_chunks=-(-k // DENSE_CHUNK))
+            op = _Op("dense", x[0], new_slot(), 1, 1, k, 1, 1, u, relu=relu, c_pad=_pad4(u))
             op.w_off = buf.put(w, pad_last=True)
             op.w = view(op.w_off, (k, op.c_pad))
             with_bias(op, b)
@@ -613,6 +635,59 @@ def lower(ops, weights, feature_shape, ncls):
     return prog, np.concatenate(buf.pieces) if buf.pieces else np.zeros(0, np.float32)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def is_gemm(op: _Op) -> bool:
+    """Whether the kernel runs the step as its implicit GEMM: a conv in full
+    or c1 mode, or a dense layer (a 1x1 conv over a 1x1 map)."""
+    return op.kind == "dense" or (op.kind == "conv" and op.mode != "dw")
+
+
+def gemm_plan(op: _Op, batch: int, blocks: int = H100_GRID_BLOCKS) -> Dict[str, int]:
+    """The GEMM plan of a conv (full, c1) or dense step at `batch` on a grid
+    of `blocks`: the `tile` (GEMM_TILES), M = batch x t_out x f_out rows in
+    `tiles_m` tiles, N = c_out in `tiles_n`, K = taps x c_in (`k_total`) in
+    32-wide slices, cut into `splits` parts of `split_slices` slices (the
+    last part may be shorter). Units = tiles x splits.
+
+    A step with fewer tiles than the grid has blocks is split until its
+    units reach the grid or each part is MIN_K_PART long: parts of
+    slices // ceil(blocks / tiles) slices, and never fewer than
+    MIN_K_PART / 32; a thread per output adds the parts in split order.
+    `vec` is 4 where c_in is a multiple of 4 (16-byte copies of the
+    activations), else 1 (4-byte copies)."""
+    tile = 1 if op.c_pad <= NARROW_N else 0
+    bm, bn, bk = GEMM_TILES[tile]
+    k_total = op.kh * op.kw * op.c_in
+    m = batch * op.t_out * op.f_out
+    tiles_m, tiles_n = _cdiv(m, bm), _cdiv(op.c_out, bn)
+    slices = _cdiv(k_total, bk)
+    per = max(_cdiv(MIN_K_PART, bk), slices // _cdiv(blocks, tiles_m * tiles_n))
+    return dict(tile=tile, vec=4 if op.c_in % 4 == 0 else 1, k_total=k_total, tiles_m=tiles_m,
+                tiles_n=tiles_n, splits=_cdiv(slices, per), split_slices=per)
+
+
+def op_rows(program: List[_Op], batch: int, blocks: int = H100_GRID_BLOCKS):
+    """-> (the kernel's op table at `batch`, one row of OP_FIELDS + PLAN_FIELDS
+    per step; the floats the `partial` buffer needs: the largest of a split
+    step's splits x M x c_out and gap's batch x n_chunks x c_in)."""
+    rows, partial = [], 4
+    for op in program:
+        floats = max(op.t_in * op.f_in * op.c_in, op.t_out * op.f_out * max(op.c_out, op.c_pad))
+        if batch * floats >= 2**31:
+            raise ValueError(f"batch {batch}: a {op.t_out} x {op.f_out} x {op.c_out} step "
+                             "exceeds the kernel's 32-bit item index")
+        plan = gemm_plan(op, batch, blocks) if is_gemm(op) else {}
+        rows.append(op.row() + [plan.get(f, 0) for f in PLAN_FIELDS])
+        if plan.get("splits", 1) > 1:
+            partial = max(partial, plan["splits"] * batch * op.t_out * op.f_out * op.c_out)
+        elif op.kind == "gap":
+            partial = max(partial, batch * op.n_chunks * op.c_in)
+    return rows, partial
+
+
 # ---------------------------------------------------------------------------
 # the plan: the program and its weights on the device
 # ---------------------------------------------------------------------------
@@ -623,8 +698,7 @@ class _K5Args(ctypes.Structure):
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("feats", "out", "wts", "ops", "ws", "partial")]
-        + [(f, ctypes.c_int) for f in (
-            "batch", "n_ops", "in_floats", "slot_floats", "partial_floats", "ncls")]
+        + [(f, ctypes.c_int) for f in ("batch", "n_ops", "in_floats", "slot_floats", "ncls")]
     )
 
 
@@ -633,8 +707,15 @@ def _library() -> ctypes.CDLL:
     lib = _build.bind("infer2d", _K5Args, ["k5_infer2d"], "k5_args_size", "k5_error_string")
     lib.k5_op_fields.restype = ctypes.c_int
     lib.k5_grid_size.restype = ctypes.c_int
-    if lib.k5_op_fields() != len(OP_FIELDS):
-        raise RuntimeError(f"K5Op has {lib.k5_op_fields()} fields, OP_FIELDS {len(OP_FIELDS)}")
+    lib.k5_gemm_tile.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k5_gemm_tile.restype = ctypes.c_int
+    fields = len(OP_FIELDS) + len(PLAN_FIELDS)
+    if lib.k5_op_fields() != fields:
+        raise RuntimeError(f"K5Op has {lib.k5_op_fields()} fields, the host {fields}")
+    tiles = tuple(tuple(lib.k5_gemm_tile(t, axis) for axis in range(3))
+                  for t in range(len(GEMM_TILES)))
+    if tiles != GEMM_TILES:
+        raise RuntimeError(f"the kernel's GEMM tiles are {tiles}, the host plans {GEMM_TILES}")
     return lib
 
 
@@ -686,11 +767,41 @@ class FusedInfer2D:
         for op in self.program:
             for name in ("w", "w2", "b", "aff"):
                 setattr(op, name, dev_view(getattr(op, name)))
-        self.ops = torch.tensor([op.row() for op in self.program], dtype=torch.int32,
-                                device=self.device)
         self.slot_floats = _pad4(max([op.out_floats for op in self.program[:-1]] + [1]))
-        self.partial_floats = max([op.n_chunks * (op.c_pad or op.c_in)
-                                   for op in self.program if op.n_chunks] + [4])
+        self._grid = None
+        self._tables: collections.OrderedDict[int, Tuple[torch.Tensor, int]] = (
+            collections.OrderedDict())
+
+    def grid_blocks(self) -> int:
+        """The grid the plan splits K for: the launch's on the card, an
+        H100's on the CPU."""
+        if self._grid is None:
+            self._grid = (grid_blocks(self.device) if self.device.type == "cuda"
+                          else H100_GRID_BLOCKS)
+        return self._grid
+
+    def op_table(self, batch: int) -> torch.Tensor:
+        """The kernel's op table at `batch` [n_ops, fields] int32 on the
+        device. Made at the first call at a batch size and kept for the
+        last MAX_TABLES sizes; the copy to the card goes from pinned memory
+        without waiting for the stream."""
+        return self._table(batch)[0]
+
+    def partial_floats(self, batch: int) -> int:
+        return self._table(batch)[1]
+
+    def _table(self, batch: int) -> Tuple[torch.Tensor, int]:
+        entry = self._tables.pop(batch, None)
+        if entry is None:
+            rows, partial = op_rows(self.program, batch, self.grid_blocks())
+            host = torch.tensor(rows, dtype=torch.int32)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            entry = (host.to(self.device, non_blocking=True), partial)
+        self._tables[batch] = entry
+        if len(self._tables) > MAX_TABLES:
+            self._tables.popitem(last=False)
+        return entry
 
     def macs_per_utterance(self) -> int:
         """Multiply-adds one utterance needs: every conv tap that meets the
@@ -716,11 +827,21 @@ class FusedInfer2D:
 
     def kernel_args(self, feats: torch.Tensor, out: torch.Tensor, ws: torch.Tensor,
                     partial: torch.Tensor) -> _K5Args:
+        """The launch's arguments; its `n_ops` may be cut to run a prefix of
+        the program (the last kept step then writes its slot)."""
         t, f, _ = self.feature_shape
         return _K5Args(feats.data_ptr(), out.data_ptr(), self.wts.data_ptr(),
-                       self.ops.data_ptr(), ws.data_ptr(), partial.data_ptr(),
-                       feats.shape[0], len(self.program), t * f, self.slot_floats,
-                       self.partial_floats, self.ncls)
+                       self.op_table(feats.shape[0]).data_ptr(), ws.data_ptr(),
+                       partial.data_ptr(), feats.shape[0], len(self.program), t * f,
+                       self.slot_floats, self.ncls)
+
+    def buffers(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(workspace, partial) for a launch at `batch`, uninitialised."""
+        ws = torch.empty(N_SLOTS * batch * self.slot_floats, device=self.device,
+                         dtype=torch.float32)
+        partial = torch.empty(self.partial_floats(batch), device=self.device,
+                              dtype=torch.float32)
+        return ws, partial
 
     def __call__(self, wavs: torch.Tensor) -> torch.Tensor:
         return fused_infer2d(mfcc.fused_mfcc(wavs, self.audio), self)
@@ -863,9 +984,7 @@ def fused_infer2d(feats: torch.Tensor, plan: FusedInfer2D) -> torch.Tensor:
     out = torch.empty((batch, plan.ncls), device=feats.device, dtype=torch.float32)
     if batch == 0:
         return out
-    ws = torch.empty(N_SLOTS * batch * plan.slot_floats, device=feats.device,
-                     dtype=torch.float32)
-    partial = torch.empty(batch * plan.partial_floats, device=feats.device, dtype=torch.float32)
+    ws, partial = plan.buffers(batch)
     _build.launch(_library(), "k5_infer2d", "k5_error_string",
                   plan.kernel_args(feats, out, ws, partial), feats.device)
     launches += 1

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port's CUDA kernels: K4 (csrc/infer.cu),
 K1 and K6 (csrc/augment.cu), K2, K8 and K9 (csrc/mfcc.cu), K3 in its three
 DFT variants (csrc/frontend.cu), K7 (csrc/tconv.cu) and K5
-(csrc/infer2d.cu).
+(csrc/infer2d.cu), and that the `xla` and `fused` serving paths wait on
+the device in no call (sync-debug mode "error").
 
 Each test carries the `cuda` marker and skips without a CUDA card (a CUDA
 kernel has no CPU mode; the plain versions are tested against JAX in
@@ -383,6 +384,77 @@ def test_k5_matches_plain_version(cuda_device, preset, arch):
         torch.testing.assert_close(got, want, **LOGIT_TOL)
         torch.testing.assert_close(torch.softmax(got, -1), torch.softmax(want, -1),
                                    atol=SOFTMAX_ATOL, rtol=0)
+
+
+# the presets chip_smoke.py times (phase 20)
+K5_TIMED = ["TCResNet2D8-1.0", "Res15", "DSCNNL", "KWSfpool3"]
+
+
+@pytest.mark.parametrize("preset", K5_TIMED)
+def test_k5_matches_plain_version_at_batch_1024(cuda_device, preset):
+    """The timed presets at batch 1 (the most K parts) and 1024 (the
+    widest grid of tiles): K5 == its plain version, and two calls give the
+    same bits."""
+    cfg, plan = _k5_plan(preset, None, cuda_device)
+    for batch in (1, 1024):
+        feats = k2.fused_mfcc(_wavs(batch, cfg.audio.desired_samples, cuda_device, seed=7),
+                              cfg.audio)
+        before = k5.launches
+        got, again = k5.fused_infer2d(feats, plan), k5.fused_infer2d(feats, plan)
+        torch.cuda.synchronize()
+        assert k5.launches == before + 2
+        assert torch.equal(got, again)
+        want = k5.fused_infer2d_reference(feats, plan)
+        torch.testing.assert_close(got, want, **LOGIT_TOL)
+        torch.testing.assert_close(torch.softmax(got, -1), torch.softmax(want, -1),
+                                   atol=SOFTMAX_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("preset", K5_TIMED)
+def test_xla_serving_path_does_not_synchronise(cuda_device, preset):
+    """backend="xla" (dsp.preprocess + the model on cuDNN) at batch 1 and
+    1024 under torch.cuda.set_sync_debug_mode("error"): no call waits for
+    the device, so its device time can be taken behind a device-side sleep
+    (chip_smoke.py, phase 20). The first calls run before the mode is on."""
+    cfg = get_preset(preset)
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    xla = build_inference_fn(cfg, v, backend="xla", precision="highest", device=cuda_device)
+    batches = [_wavs(b, cfg.audio.desired_samples, cuda_device, seed=b) for b in (1, 1024)]
+    warm = [xla(x) for x in batches]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode is on: .item() waits
+            torch.ones(1, device=cuda_device).item()
+        again = [xla(x) for x in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(warm, again):
+        torch.testing.assert_close(a, b, atol=SOFTMAX_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("preset", K5_TIMED)
+def test_fused_serving_path_does_not_synchronise(cuda_device, preset):
+    """backend="fused" (K2 + K5) under sync-debug mode "error", at batch
+    sizes the plan has not seen: making a batch's op table and copying it to
+    the card waits for the device in no call. The front end's constants are
+    made by a first call before the mode is on."""
+    cfg = get_preset(preset)
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    fused = build_inference_fn(cfg, v, backend="fused", device=cuda_device)
+    fused(_wavs(2, cfg.audio.desired_samples, cuda_device))
+    batches = [_wavs(b, cfg.audio.desired_samples, cuda_device, seed=b) for b in (1, 7, 1024)]
+    torch.cuda.synchronize()
+    before = k5.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [fused(x) for x in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert k5.launches == before + 3
+    ref = build_inference_fn(cfg, v, backend="xla", precision="highest", device=cuda_device)
+    for x, y in zip(batches, got):
+        torch.testing.assert_close(y, ref(x), atol=SOFTMAX_ATOL, rtol=0)
 
 
 def test_k5_meets_the_jax_golden(cuda_device):

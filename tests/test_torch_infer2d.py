@@ -3,6 +3,11 @@ JAX package's 2D inference kernel (ops/pallas/infer2d.py).
 
 - The port's op list equals JAX's `build_op_list`, op for op, weights
   bit for bit, for every family and KWS architecture.
+- The kernel's GEMM plan at batch 1 and 1024 for every preset: its tiles
+  and K parts cover each output and each (tap, channel) index once, and a
+  batch-1 conv reaches every block of the grid; the program replayed with
+  the kernel's im2col indexing and its split-K order meets the plain
+  version.
 - The plain version (features -> logits through the lowered program that
   the CUDA kernel runs) meets the JAX kernel in interpret mode and the
   JAX "xla" path within the 1e-5 softmax gate, on the same numpy weights
@@ -14,6 +19,7 @@ The CNN families run at the JAX test's small geometry (250 ms, MFCC-20:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +32,7 @@ from tcresnet_tpu.models import build_model as jax_build_model
 from tcresnet_tpu.ops.pallas import infer2d as jk5
 from tcresnet_tpu.serve.export import build_inference_fn as jax_build_inference_fn
 from tcresnet_tpu_torch import config as tconfig
-from tcresnet_tpu_torch.models.convert import variables_from_jax
+from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
 from tcresnet_tpu_torch.models.kws import KWS_ARCHITECTURES
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import infer2d as k5
@@ -175,7 +181,13 @@ def test_program_slots_and_epilogues():
         assert op.dst != op.src and op.dst != op.res
         assert op.src in (k5.INPUT, 0, 1, 2)
     assert plan.program[-1].dst == k5.OUTPUT
-    assert plan.ops.shape == (16, len(k5.OP_FIELDS))
+    table = plan.op_table(1)
+    assert table.shape == (16, len(k5.OP_FIELDS) + len(k5.PLAN_FIELDS))
+    assert table.dtype == torch.int32 and plan.op_table(1) is table  # made once per batch
+    col = {f: len(k5.OP_FIELDS) + i for i, f in enumerate(k5.PLAN_FIELDS)}
+    assert bool((table[:14, col["splits"]] >= 1).all())
+    assert table[14, len(k5.OP_FIELDS):].abs().sum() == 0  # gap has no GEMM plan
+    assert int(table[15, col["k_total"]]) == plan.program[15].c_in  # dense: K = its inputs
     assert int(plan.wts.numel()) % 4 == 0
     for op in plan.program:
         for off in (op.w_off, op.w2_off):
@@ -220,3 +232,183 @@ def test_every_preset_is_served_by_a_fused_kernel():
     by_k4 = [p for p in SUPPORTED
              if k4.fused_infer_available(tconfig.get_preset(p).model, tconfig.get_preset(p).audio)]
     assert len(by_k5) == 11 and len(by_k4) == 4 and not set(by_k4) & set(by_k5)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's GEMM plan (tiles, K parts), made on the host per batch
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _preset_plan(preset, arch):
+    """A plan at the preset's own geometry (random weights from a seed)."""
+    cfg = tconfig.get_preset(preset)
+    if arch is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, kws_architecture=arch))
+    v = variables_from_jax(cfg.model, **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), 0))
+    return k5.build_fused_infer2d(cfg.model, cfg.audio, v["params"], v["batch_stats"],
+                                  device="cpu")
+
+
+def _plan_fields(plan, batch):
+    rows = plan.op_table(batch).tolist()
+    return [dict(zip(k5.OP_FIELDS + k5.PLAN_FIELDS, row)) for row in rows]
+
+
+def _partition(starts, total, tile):
+    """The [start, start + tile) runs, cut at `total`, tile [0, total) once."""
+    starts = np.asarray(starts)
+    ends = np.minimum(starts + tile, total)
+    assert starts[0] == 0 and ends[-1] == total
+    assert np.all(ends > starts) and np.array_equal(ends[:-1], starts[1:])
+
+
+@pytest.mark.parametrize("batch", [1, 1024])
+@pytest.mark.parametrize("preset,arch", OP_LIST_CASES,
+                         ids=[p if a is None else f"KWS-{a}" for p, a in OP_LIST_CASES])
+def test_gemm_plan_covers_every_output_and_k_index_once(preset, arch, batch):
+    """Every conv (full, c1) and dense step: the M x N tiles cover each
+    output element once, the K parts each (tap, input channel) index once;
+    the other steps carry no plan."""
+    plan = _preset_plan(preset, arch)
+    gemms = 0
+    for op, f in zip(plan.program, _plan_fields(plan, batch)):
+        if not k5.is_gemm(op):
+            assert all(f[name] == 0 for name in k5.PLAN_FIELDS), op.kind
+            continue
+        gemms += 1
+        bm, bn, bk = k5.GEMM_TILES[f["tile"]]
+        assert f["tile"] == (1 if op.c_pad <= k5.NARROW_N else 0)
+        m_total = batch * op.t_out * op.f_out
+        taps = op.kh * op.kw
+        assert f["k_total"] == taps * op.c_in and (op.mode != "c1" or op.c_in == 1)
+        _partition(np.arange(f["tiles_m"]) * bm, m_total, bm)
+        _partition(np.arange(f["tiles_n"]) * bn, op.c_out, bn)
+        slices = -(-f["k_total"] // bk)
+        part = f["split_slices"] * bk
+        _partition(np.arange(f["splits"]) * part, slices * bk, part)
+        # the kernel's unit index u -> (n tile fastest, then m tile, then part)
+        units = f["tiles_m"] * f["tiles_n"] * f["splits"]
+        u = np.arange(units)
+        decoded = {(int(s), int(tm), int(tn)) for s, tm, tn in zip(
+            u // f["tiles_n"] // f["tiles_m"], u // f["tiles_n"] % f["tiles_m"], u % f["tiles_n"])}
+        assert len(decoded) == units
+        assert f["vec"] == (4 if op.c_in % 4 == 0 else 1)
+    assert gemms >= 1
+
+
+@pytest.mark.parametrize("preset,arch", OP_LIST_CASES,
+                         ids=[p if a is None else f"KWS-{a}" for p, a in OP_LIST_CASES])
+def test_batch_one_spreads_every_conv_over_the_grid(preset, arch):
+    """At batch 1 each conv step (full, c1) has at least as many work units
+    as an H100's 264-block grid, or is cut into K parts of the minimum
+    length (MIN_K_PART, 32 K indices: one slice); no part of any GEMM step
+    is shorter, but a step's last; a split step sizes its partial buffer."""
+    plan = _preset_plan(preset, arch)
+    assert k5.H100_GRID_BLOCKS == 264 and k5.MIN_K_PART == 32
+    fields = _plan_fields(plan, 1)
+    for op, f in zip(plan.program, fields):
+        if not k5.is_gemm(op):
+            continue
+        bk = k5.GEMM_TILES[f["tile"]][2]
+        assert k5.MIN_K_PART % bk == 0
+        part = f["split_slices"] * bk
+        assert part >= k5.MIN_K_PART
+        if op.kind == "conv":
+            units = f["tiles_m"] * f["tiles_n"] * f["splits"]
+            assert units >= 264 or part == k5.MIN_K_PART, (op.mode, units, f)
+        if f["splits"] > 1:
+            assert plan.partial_floats(1) >= f["splits"] * op.t_out * op.f_out * op.c_out
+
+
+def test_op_tables_are_kept_for_the_last_batch_sizes():
+    """A plan makes its op table once per batch size, equal to `op_rows`,
+    and keeps only the MAX_TABLES sizes used last."""
+    plan = _preset_plan("DSCNNS", None)
+    first = plan.op_table(1)
+    assert plan.op_table(1) is first
+    rows, partial = k5.op_rows(plan.program, 1, k5.H100_GRID_BLOCKS)
+    assert first.dtype == torch.int32 and first.tolist() == rows
+    assert plan.partial_floats(1) == partial
+    for batch in range(2, k5.MAX_TABLES + 6):
+        plan.op_table(batch)
+        assert len(plan._tables) <= k5.MAX_TABLES
+    assert 1 not in plan._tables and k5.MAX_TABLES + 5 in plan._tables
+    assert plan.op_table(1) is not first and plan.op_table(1).tolist() == rows
+
+
+def _replay_split_k(feats, plan):
+    """The kernel's program on the CPU with its GEMM steps computed its
+    way: the im2col operand gathered by the kernel's index arithmetic
+    (row -> utterance and window origin, k -> tap and channel, taps off the
+    map zero), one partial product per K part, the parts added in split
+    order, then the epilogue. The other steps take the plain version's."""
+    batch = feats.shape[0]
+    slots = {k5.INPUT: feats}
+    out = None
+    for op, f in zip(plan.program, _plan_fields(plan, batch)):
+        x = slots[op.src].reshape(batch, op.t_in, op.f_in, op.c_in)
+        if not k5.is_gemm(op):
+            if op.kind == "conv":
+                res = None if op.res < 0 else slots[op.res]
+                y = k5._conv_ref(x, op, res)
+            elif op.kind in ("pool", "maxpool"):
+                y = k5._pool_ref(x, op)
+            elif op.kind == "gap":
+                y = x.mean(dim=(1, 2))
+            elif op.kind == "tconv_full":
+                y = k5._tconv_full_ref(x, op)
+            else:
+                y = k5._svdf_ref(x, op)
+            out = slots[op.dst] = y
+            continue
+        p = op.t_out * op.f_out
+        m = torch.arange(batch * p)
+        b, q = m // p, m % p
+        r0, c0 = (q // op.f_out) * op.sh - op.pad_t, (q % op.f_out) * op.sw - op.pad_f
+        k = torch.arange(f["k_total"])
+        tap, ci = k // op.c_in, k % op.c_in
+        rows = r0[:, None] + (tap // op.kw)[None] * op.dil
+        cols = c0[:, None] + (tap % op.kw)[None] * op.dil
+        ok = (rows >= 0) & (rows < op.t_in) & (cols >= 0) & (cols < op.f_in)
+        at = ((rows.clamp(0, op.t_in - 1) * op.f_in + cols.clamp(0, op.f_in - 1)) * op.c_in
+              + ci[None])
+        a = torch.where(ok, x.reshape(batch, -1)[b[:, None], at], torch.zeros(()))
+        w = op.w.reshape(-1, op.c_pad)[:, :op.c_out]
+        bk = k5.GEMM_TILES[f["tile"]][2]
+        acc = None
+        for s in range(f["splits"]):
+            k0 = s * f["split_slices"] * bk
+            k1 = min(k0 + f["split_slices"] * bk, f["k_total"])
+            part = a[:, k0:k1] @ w[k0:k1]
+            acc = part if acc is None else acc + part
+        y = (acc if op.b is None else acc + op.b).reshape(batch, op.t_out, op.f_out, op.c_out)
+        if op.relu:
+            y = torch.relu(y)
+        if op.res >= 0:
+            y = y + slots[op.res].reshape(y.shape)
+            if op.relu2:
+                y = torch.relu(y)
+        if op.aff is not None:
+            y = y * op.aff[0] + op.aff[1]
+        out = slots[op.dst] = y
+    return out.reshape(batch, plan.ncls)
+
+
+@pytest.mark.parametrize("preset,arch", OP_LIST_CASES,
+                         ids=[p if a is None else f"KWS-{a}" for p, a in OP_LIST_CASES])
+def test_split_k_replay_matches_the_plain_version(preset, arch):
+    """The batch-1 plan (the most K parts) replayed in the kernel's order
+    meets fused_infer2d_reference within the logit tolerance (atol 5e-4,
+    rtol 1e-4) and the 1e-5 softmax gate; CNN presets at the small
+    geometry, KWS at its own."""
+    cfg, jcfg = _cfg(preset, arch)
+    plan = _plan(cfg, _flax_variables(jcfg))
+    feats = torch.tensor(np.random.default_rng(17).normal(
+        2.0, 3.0, (1,) + dsp.feature_shape(cfg.audio)[:2]).astype(np.float32))
+    with torch.no_grad():
+        got, want = _replay_split_k(feats, plan), k5.fused_infer2d_reference(feats, plan)
+    assert any(f["splits"] > 1 for f in _plan_fields(plan, 1))
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
+    torch.testing.assert_close(torch.softmax(got, -1), torch.softmax(want, -1),
+                               atol=SOFTMAX_ATOL, rtol=0)

@@ -151,10 +151,10 @@ def test_unknown_names_raise():
         variables_from_jax(cfg, {"lin": {"kernel": np.zeros((3, 3))}}, {})
 
 
-def test_trainer_refuses_the_2d_families(tmp_path):
-    """The Trainer refuses the 2D families no longer (their train mode and
-    steps are held to JAX in tests/test_torch_train2d.py): each takes two
-    adam steps on the CPU with a finite loss; what is still not ported
+def test_trainer_trains_each_2d_family(tmp_path):
+    """Each 2D family takes two adam steps in the Trainer on the CPU with a
+    finite loss (train mode and steps are held to JAX in
+    tests/test_torch_train2d.py); what is still not ported
     (optim.trainable_scopes) raises."""
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset

@@ -36,7 +36,7 @@ from tcresnet_tpu_torch.models.convert import variables_to_jax
 from tcresnet_tpu_torch.models.kws import KWS_ARCHITECTURES
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops.kernels import frontend, mfcc
-from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars
+from tcresnet_tpu_torch.ops.kernels.augment import AugmentScalars, augment_reference
 from tcresnet_tpu_torch.train import loss, optim
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
 from tcresnet_tpu_torch.train.trainer import Trainer
@@ -263,32 +263,24 @@ STEP_CASES = [
 ]
 
 
-@pytest.mark.parametrize("name,arch,variant,fuse,window_ms,hop_ms,optimizer,method",
-                         STEP_CASES)
-def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, name, arch, variant, fuse,
-                                      window_ms, hop_ms, optimizer, method):
-    """The port's Trainer step with injected indices, augmentation scalars
-    and dropout masks against decode_rows -> the JAX gather+augment kernel
-    (interpret) -> dsp.preprocess (the radix-4 XLA path for "radix4"; the
-    dense one, whose math "phases" reorders) -> model.apply(training=True)
-    -> loss -> optax -> scale_updates: losses within 1e-5. "on" runs K3's
-    plain version in the config's variant, "off" K1's then the variant's
-    MFCC plain version."""
-    masks = SharedMasks(21).install(monkeypatch)
-    cfg = _step_cfg(tmp_path, name, arch, variant, fuse, window_ms, hop_ms, optimizer, method)
-    assert mfcc.resolve_dft_variant(cfg.audio, N) == variant
-    host = make_synthetic_dataset(num_samples=40, num_classes=4, desired_samples=N, seed=6)
+def _step_draws(rows=40, steps=3):
+    """Each step's indices and augmentation scalars, made with numpy."""
     rng = np.random.default_rng(8)
     draws = []
-    for _ in range(3):
+    for _ in range(steps):
         draws.append(dict(
-            idx=rng.integers(0, 40, BATCH).astype(np.int32),
+            idx=rng.integers(0, rows, BATCH).astype(np.int32),
             scalars=(rng.integers(-320, 320, BATCH).astype(np.int32),
                      rng.integers(0, 4, BATCH).astype(np.int32),
                      rng.integers(0, N + 1, BATCH).astype(np.int32),
                      np.where(rng.uniform(size=BATCH) < 0.8,
                               rng.uniform(0, 0.3, BATCH), 0).astype(np.float32))))
+    return draws
 
+
+def _port_losses(tmp_path, monkeypatch, cfg, host, draws):
+    """(the JAX-layout initial variables, the port Trainer's step losses)
+    with the draws injected."""
     ds = DeviceDataset(host, "cpu")
     trainer = Trainer(cfg, ds, workdir=tmp_path)
     init = variables_to_jax(cfg.model, {"params": trainer.state.params,
@@ -308,31 +300,47 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, name, arch, variant
     monkeypatch.setattr(DeviceDataset, "sample_indices", staticmethod(fake_indices))
     monkeypatch.setattr(aug, "draw_scalars", fake_scalars)
     k3_before = (frontend.phases_launches, frontend.radix4_launches)
-    got = [float(trainer.train_steps(1)["total_loss"]) for _ in range(3)]
-    assert calls["n"] == 3 and int(trainer.state.step) == 3
+    got = [float(trainer.train_steps(1)["total_loss"]) for _ in range(len(draws))]
+    assert calls["n"] == len(draws) and int(trainer.state.step) == len(draws)
     assert (frontend.phases_launches, frontend.radix4_launches) == k3_before  # CPU: plain
-    if optimizer == "adam":
-        assert int(trainer.state.opt_state["count"]) == 3
+    if cfg.optim.optimizer == "adam":
+        assert int(trainer.state.opt_state["count"]) == len(draws)
+    return init, got
 
-    # the JAX step
-    jmodel = jax_build_model(to_jax_config(cfg.model),
-                             jdsp.feature_shape(to_jax_config(cfg.audio)))
-    tx, sched = joptim.build_optimizer(to_jax_config(cfg.optim))
-    params, stats = _jnp(init["params"]), _jnp(init["batch_stats"])
-    opt_state = tx.init(params)
-    padded = np.zeros((40, P), np.int16)
+
+def _jax_features(cfg, host, draws):
+    """Each step's (features, labels) through the JAX package's front end:
+    decode_rows -> its gather+augment kernel (interpret) -> dsp.preprocess."""
+    rows = host.wavs.shape[0]
+    padded = np.zeros((rows, P), np.int16)
     padded[:, :N] = host.wavs
-    wavs3d = jnp.asarray(padded.reshape(40, P // 128, 128))
+    wavs3d = jnp.asarray(padded.reshape(rows, P // 128, 128))
     noise = jnp.asarray(host.noise_bank)
     xla_audio = to_jax_config(dataclasses.replace(cfg.audio, dsp_backend="xla"))
-    want = []
-    for step, d in enumerate(draws):
+    out = []
+    for d in draws:
         idx = jnp.asarray(d["idx"])
         keeps = jnp.where(jnp.asarray(host.is_silent)[idx], 0.0, 1.0)
         scalars = tuple(jnp.asarray(a) for a in d["scalars"]) + (keeps,)
         wavs = _fused_gather_augment_impl(wavs3d, idx, scalars, noise, N, True)
-        feats = jdsp.preprocess(wavs, xla_audio)
-        onehot = jax.nn.one_hot(jnp.asarray(host.labels)[idx], 4)
+        out.append((np.asarray(jdsp.preprocess(wavs, xla_audio)), host.labels[d["idx"]]))
+    return out
+
+
+def _jax_losses(cfg, init, batches, dtype=jnp.float32):
+    """The JAX step composed from the JAX package from the same variables:
+    model.apply(training=True) -> loss -> optax -> scale_updates over the
+    (features, labels) batches, in `dtype` (float64 needs jax_enable_x64)."""
+    jmodel = jax_build_model(to_jax_config(cfg.model),
+                             jdsp.feature_shape(to_jax_config(cfg.audio)))
+    tx, sched = joptim.build_optimizer(to_jax_config(cfg.optim))
+    cast = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)  # noqa: E731
+    params, stats = cast(init["params"]), cast(init["batch_stats"])
+    opt_state = tx.init(params)
+    want = []
+    for step, (feats, labels) in enumerate(batches):
+        feats = jnp.asarray(feats, dtype)
+        onehot = jax.nn.one_hot(jnp.asarray(labels), cfg.model.num_classes, dtype=dtype)
 
         def loss_fn(p):
             logits, mutated = jmodel.apply({"params": p, "batch_stats": stats}, feats,
@@ -346,9 +354,120 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, name, arch, variant
         updates = joptim.scale_updates(updates, sched(step))
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         want.append(float(total))
+    return want
+
+
+@pytest.mark.parametrize("name,arch,variant,fuse,window_ms,hop_ms,optimizer,method",
+                         STEP_CASES)
+def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, name, arch, variant, fuse,
+                                      window_ms, hop_ms, optimizer, method):
+    """The port's Trainer step with injected indices, augmentation scalars
+    and dropout masks against decode_rows -> the JAX gather+augment kernel
+    (interpret) -> dsp.preprocess (the radix-4 XLA path for "radix4"; the
+    dense one, whose math "phases" reorders) -> model.apply(training=True)
+    -> loss -> optax -> scale_updates: losses within 1e-5. "on" runs K3's
+    plain version in the config's variant, "off" K1's then the variant's
+    MFCC plain version."""
+    masks = SharedMasks(21).install(monkeypatch)
+    cfg = _step_cfg(tmp_path, name, arch, variant, fuse, window_ms, hop_ms, optimizer, method)
+    assert mfcc.resolve_dft_variant(cfg.audio, N) == variant
+    host = make_synthetic_dataset(num_samples=40, num_classes=4, desired_samples=N, seed=6)
+    draws = _step_draws()
+    init, got = _port_losses(tmp_path, monkeypatch, cfg, host, draws)
+    want = _jax_losses(cfg, init, _jax_features(cfg, host, draws))
     assert masks.port_calls == masks.jax_calls == (6 if name == "KWS" else 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert want[2] != want[0]
+
+
+# The Res8 MFCC / adam case held to JAX in float64, in a child process: x64
+# is process-wide in JAX, and no other test may see it. Both JAX steps take
+# the port's features (K1's then K8's plain version, what the Trainer's
+# "off" path ran): the two front ends differ by ~1e-5 on MFCCs up to ~25
+# (float32 sums in another order), and adam's normalised update turns that
+# into a 4e-5 loss difference by step 2, which is no fault of either step.
+# The child reads the features, labels and the port's initial variables
+# from a file and prints its losses.
+RES8_MFCC_ARGS = ("Res8", "conv", "phases", "off", 30.0, 10.0, "adam", "mfcc")
+_X64_CHILD = """
+import json, sys
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from tests import test_torch_train2d as t
+data = np.load(sys.argv[2])
+init = {"params": {}, "batch_stats": {}}
+for key in data.files:
+    if key.startswith(("feats", "labels")):
+        continue
+    node = init
+    *path, leaf = key.split("/")
+    for part in path:
+        node = node.setdefault(part, {})
+    node[leaf] = data[key]
+batches = [(data[f"feats{i}"], data[f"labels{i}"]) for i in range(3)]
+cfg = t._step_cfg(sys.argv[3], *t.RES8_MFCC_ARGS)
+losses = t._jax_losses(cfg, init, batches, jnp.float64)
+print(json.dumps({"x64": bool(jax.config.jax_enable_x64), "losses": losses}))
+"""
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        out.update(_flatten(value, name + "/") if isinstance(value, dict) else {name: value})
+    return out
+
+
+def _port_features(cfg, host, draws):
+    """Each step's (features, labels) through the port's plain front end:
+    K1's plain version, then the config's MFCC plain version."""
+    ds = DeviceDataset(host, "cpu")
+    out = []
+    for d in draws:
+        idx = torch.tensor(d["idx"])
+        keeps = torch.where(torch.tensor(host.is_silent)[idx.long()], 0.0, 1.0)
+        scalars = AugmentScalars(*(torch.tensor(a) for a in d["scalars"]), keeps)
+        wavs = augment_reference(ds.wavs, idx, scalars, ds.noise_bank, N)
+        out.append((mfcc.fused_mfcc_reference(wavs, cfg.audio).numpy()[..., None],
+                    host.labels[d["idx"]]))
+    return out
+
+
+def test_res8_mfcc_adam_steps_match_jax_in_float64(tmp_path, monkeypatch):
+    """Res8 on MFCC features with adam: three port Trainer steps (float32)
+    against the JAX step on the same features in float32, within the 1e-5
+    gate (measured 5e-7), and in float64 (model, loss and optimizer; x64 in
+    a child process), within 2e-5: float32 arithmetic under adam drifts
+    from float64 by 1.4e-5 at step 3, JAX's own float32 step by the same."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    cfg = _step_cfg(tmp_path, *RES8_MFCC_ARGS)
+    host = make_synthetic_dataset(num_samples=40, num_classes=4, desired_samples=N, seed=6)
+    draws = _step_draws()
+    init, got = _port_losses(tmp_path, monkeypatch, cfg, host, draws)
+    batches = _port_features(cfg, host, draws)
+    np.testing.assert_allclose(got, _jax_losses(cfg, init, batches), rtol=0, atol=1e-5)
+    flat = tmp_path / "steps.npz"
+    np.savez(flat, **{f"{group}/{k}": np.asarray(v)
+                      for group in ("params", "batch_stats")
+                      for k, v in _flatten(init[group]).items()},
+             **{f"feats{i}": f for i, (f, _) in enumerate(batches)},
+             **{f"labels{i}": y for i, (_, y) in enumerate(batches)})
+    root = str(Path(__file__).resolve().parent.parent)
+    proc = subprocess.run([sys.executable, "-c", _X64_CHILD, root, str(flat), str(tmp_path)],
+                          capture_output=True, text=True, timeout=420, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert child["x64"] and not jax.config.jax_enable_x64
+    np.testing.assert_allclose(got, child["losses"], rtol=0, atol=2e-5)
+    assert child["losses"][2] != child["losses"][0]
 
 
 def test_adam_resume_is_exact(tmp_path):
