@@ -20,7 +20,9 @@ print their lines:
               checked against backend="xla", precision="highest"; the
               kernel's launch count shows the requests went through it
   6. times    kernel and plain path at batch 1 and 1024, host clock and
-              CUDA events, beside the card's name and power limit
+              CUDA events, beside the card's name and power limit; K4 and
+              the `xla` model (wav -> softmax, TF32 off, as a CUDA graph) on
+              one clock behind a device sleep, K4's bound at both batches
   7. build    the training slice's kernels: augment.cu (K1, K6), mfcc.cu
               (K2), frontend.cu (K3), with their ptxas lines
   8. augment  K1 and K6 against their plain version on the 24,100 x 16,000
@@ -79,11 +81,13 @@ print their lines:
               step); the served request (K2 + K5, and "xla") on the host
               clock
  21. build    mfcc.cu (K2, K8, K9) and frontend.cu (K3 hops, phases,
-              radix4) rebuilt, the ptxas line of every entry point
+              radix4) rebuilt, the ptxas line of every kernel (K9's in its
+              64-row and 112-row products)
  22. kernel   K8 (phases) and K9 (radix4) against their plain versions (TF32
               off) at 480/160 MFCC-40, 640/320 MFCC-10 and MFCC-40, MFCC and
               log-mel, batch 1, 8, 1536, atol 1e-4, and with the bf16 DFT at
-              5e-3; K3's phases and radix4 entry points against K1-plain
+              5e-3, two K9 calls equal bit for bit; K3's phases and radix4
+              entry points against K1-plain
               followed by the variant's plain version, the same draws, at
               the JAX package's tolerance for features of dataset rows
               (DATASET_FEATURE_TOL: atol 2e-4, rtol 1e-5; MFCCs up to ~160),
@@ -103,7 +107,9 @@ print their lines:
               each through K9 + K5 and K8 + K5, against "xla", "highest"
  24. times    K2, K8, K9, their plain versions and dsp.preprocess on cuBLAS
               (TF32 off, the library time) at batch 1536 for both
-              geometries; K3 in its variants; ms/step, utt/s and the
+              geometries, K9's bound at the 3xTF32 rate and PR 5's K9
+              times beside (quoted); K9 and the library call at batch 1
+              behind a device sleep; K3 in its variants; ms/step, utt/s and the
               device's busy share of the DSCNNL and Res15 train steps at
               their preset batch
 
@@ -123,6 +129,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -167,10 +174,11 @@ SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# K5's bound rate: the float32-exact tensor-core rate. K5 computes its convs
-# and dense layers as 3xTF32 (three TF32 products per float32 product, at
-# the 495 TFLOP/s TF32 peak), so FP32_FLOPS is no longer the least time the
-# card could take for that work; every other kernel keeps FP32_FLOPS
+# K5's and K9's bound rate: the float32-exact tensor-core rate. K5 computes
+# its convs and dense layers, K9 its stage-2 DFT products, as 3xTF32 (three
+# TF32 products per float32 product, at the 495 TFLOP/s TF32 peak), so
+# FP32_FLOPS is no longer the least time the card could take for that work;
+# every other kernel keeps FP32_FLOPS
 TF32X3_FLOPS = 495e12 / 3
 # K5's earlier design (per-thread FP32 FMA, no K split) and the cuDNN model
 # beside it, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3,
@@ -181,6 +189,10 @@ PR5_K5_MS = {("TCResNet2D8-1.0", 1): (0.3007, 0.2433), ("TCResNet2D8-1.0", 1024)
              ("Res15", 1): (0.8173, 1.7687), ("Res15", 1024): (123.65, 122.46),
              ("DSCNNL", 1): (0.2853, 0.2206), ("DSCNNL", 1024): (7.6675, 8.598),
              ("KWSfpool3", 1): (0.3826, 0.1272), ("KWSfpool3", 1024): (9.1015, 3.1126)}
+# K9's earlier design (per-thread FP32 FMA over 4- or 8-frame tiles) at batch
+# 1536, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3, 700.00 W;
+# CUDA-event medians): (k9_mfcc, k3_radix4), printed beside this run's times
+PR5_K9_MS = {"640/320 MFCC-10": (6.2600, 6.2280), "480/160 MFCC-40": (4.0636, 3.9814)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -280,14 +292,17 @@ def mfcc_float64(wavs: torch.Tensor, audio) -> torch.Tensor:
 
 def ptxas_line(name: str) -> str:
     """ptxas's registers and spills of csrc/<name>.cu, each labelled with
-    its entry point's DFT variant where the source has one per variant."""
+    its kernel's DFT variant where the source has one per variant (K9's
+    with the rows of its product: <MI, WM> is WM * MI * 16 rows)."""
     from tcresnet_tpu_torch.ops.kernels import _build
 
     log = _build.library_path(name).with_suffix(".log")
-    variants, entry, parts = {"0": "hops: ", "1": "phases: ", "2": "radix4: "}, "", []
+    variants, entry, parts = {"0": "hops: ", "1": "phases: "}, "", []
     for line in log.read_text().splitlines() if log.exists() else []:
         if "Compiling entry function" in line and "ILi" in line:
-            entry = variants.get(line.split("ILi")[1][:1], "")
+            params = [int(p) for p in re.findall(r"Li(\d+)E", line)]
+            entry = (f"radix4 {params[1] * params[0] * 16}-row: " if "radix4" in line
+                     or "k9_kernel" in line else variants.get(str(params[0]), ""))
         elif "registers" in line or "spill" in line:
             parts.append(entry + line.split("ptxas info    :")[-1].strip())
     return " ".join(parts) or "cached build"
@@ -438,7 +453,29 @@ def main() -> int:
         to, lo, _ = same_padding(t, k, s)
         macs += valid_taps(to, t, k, s, lo) * ci * co
     consts = sum(a.numel() for a in (plan8.wts, plan8.fc, plan8.dft, plan8.mel, plan8.dct))
-    k4_bound = bound(2 * macs, 4 * (n + consts + flagship.model.num_classes))
+    k4_bound = {b: bound(2 * b * macs, 4 * (b * n + consts + b * flagship.model.num_classes))
+                for b in (1, 1024)}
+
+    # the library yardstick: the `xla` model (wav -> softmax, TF32 off) as
+    # a CUDA graph, so that its launches do not pace the reading, and K4 on
+    # the same clock, behind a device sleep
+    k4_lib = {}
+    for batch in (1, 1024):
+        x = torch.tensor(seeded_wavs(3000 + batch, batch, n), device=dev)
+        with torch.no_grad():
+            replay, graph_out = graph_of(lambda: ref(x))
+            replay()
+            torch.cuda.synchronize()
+            check(torch.allclose(graph_out, ref(x), atol=1e-6, rtol=0),
+                  f"K4 B={batch}: the xla graph differs from the call")
+            (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
+                lambda: k4.fused_infer(x, plan8), replay, lambda: k4.fused_infer(x, plan8)))
+        check(a_full and c_full and d_full, f"K4 B={batch}: a K4 or xla time is host-paced")
+        k4_lib[batch] = dict(ms=min(a, d), library_ms=c)
+        print(f"[times] K4 B={batch}: kernel {a:.4f} / {d:.4f} ms, the xla model wav -> softmax "
+              f"(TF32 off) as a CUDA graph {c:.4f} ms (device, mean of 20 behind a device "
+              f"sleep; order kernel, xla, kernel); bound {k4_bound[batch]['bound_ms']:.4f} ms "
+              f"({k4_bound[batch]['bound_by']}) | {card}")
 
     train_kernels, ds = training_phases(dev, card)
     tconv_kernels = tconv_phases(dev, card, ds)
@@ -453,10 +490,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times[("kernel", 1)] / 1e3,
         "plain_ms": times[("kernel_plain_version", 1)] / 1e3,
-        **k4_bound,
-        "library_ms": times[("serve_xla_highest", 1)] / 1e3,
+        **k4_bound[1],
+        "library_ms": k4_lib[1]["library_ms"],
+        "ms_queued": k4_lib[1]["ms"],
         "ms_b1024": times[("kernel", 1024)] / 1e3,
         "plain_ms_b1024": times[("kernel_plain_version", 1024)] / 1e3,
+        "bound_ms_b1024": k4_bound[1024]["bound_ms"],
+        "bound_by_b1024": k4_bound[1024]["bound_by"],
+        "library_ms_b1024": k4_lib[1024]["library_ms"],
+        "ms_queued_b1024": k4_lib[1024]["ms"],
     }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
@@ -1331,19 +1373,20 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
 def variant_macs(audio, variant: str) -> int:
     """Multiply-adds one clip needs in a DFT variant: K8's are K2's (the
     zero rows of W_p need no work); K9's are its factored products over
-    their live columns only (M0's k2 <= L/2: L x 2(L/2 + 1); M1: 2L x 2L;
-    M2's k2 < L/2: L x 2(L/2); 6L^2 + 2L per frame, the zeroed columns need
-    no work) and the mel over the 2L + 1 live rows of its permuted power
-    (`dsp.radix4_bin_map`); both with the DCT for MFCC."""
+    their live columns (M0's and M2's k2 < L/2: L x L each; M1: 2L x 2L;
+    6L^2 per frame: the zeroed columns need no work, nor M0's k2 = L/2,
+    the Nyquist bin, whose mel weight is zero) and the mel's nonzero
+    weights (`mfcc.radix4_kernel_constants`); both with the DCT for MFCC."""
+    from tcresnet_tpu_torch.ops import dsp
     from tcresnet_tpu_torch.ops.kernels import mfcc
 
     if variant != "radix4":
         return front_end_macs(audio)
     g = mfcc.front_end_geometry(audio, audio.desired_samples)
     length = g.fft_length // 4
-    stage2 = length * 2 * (length // 2 + 1) + 4 * length * length + length * 2 * (length // 2)
+    nnz = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(audio))[2].size
     dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
-    return g.frames * (stage2 + (2 * length + 1) * g.num_mel) + dct
+    return g.frames * (6 * length * length + nnz) + dct
 
 
 def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
@@ -1409,6 +1452,9 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                         # zero rows adding exact zeros: bit for bit
                         hops = k2.fused_mfcc(wavs, dataclasses.replace(cfg, dft_variant="hops"))
                         check(torch.equal(got, hops), f"K8 {label} {feat}: differs from K2")
+                    else:
+                        check(torch.equal(got, k2.fused_mfcc(wavs, cfg)),
+                              f"K9 {label} {feat} B={batch}: two calls differ")
                     check(bool(torch.isfinite(got).all()), f"{kname[variant]} {label}: non-finite")
                     err = (got - want).abs().max().item()
                     check(torch.allclose(got, want, atol=tol[0], rtol=tol[1]),
@@ -1418,7 +1464,8 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                     line.append(f"B={batch} {err:.2e}")
                 print(f"[kernel] {kname[variant]} ({variant}) {label} {feat} vs plain (TF32 off, "
                       f"atol {tol[0]}): " + ", ".join(line)
-                      + ("; equal to K2 bit for bit" if variant == "phases" else ""))
+                      + ("; equal to K2 bit for bit" if variant == "phases" else
+                         "; two calls equal bit for bit"))
 
     gen = torch.Generator(device=dev)
     augment_cfg = get_preset("TCResNet8-1.0").augment
@@ -1449,6 +1496,8 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                                     cfg)
                 check(torch.equal(got, two), f"K3-{variant} {label}: differs from "
                       f"{kname[variant]}(K1)")
+                check(torch.equal(got, k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg,
+                                                            n)), f"K3-{variant}: two calls differ")
                 # both sides against the same augmented rows in float64
                 f64 = mfcc_float64(k16.augment_reference(ds.wavs, idx, sc, ds.noise_bank, n), cfg)
                 e64, p64 = ((x.double() - f64).abs().max().item() for x in (got, want))
@@ -1459,7 +1508,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                             f"{p64:.2e}, max |MFCC| {f64.abs().max().item():.1f})")
             print(f"[kernel] K3-{variant} {label} vs K1-plain -> {kname[variant]}-plain (same "
                   f"draws, atol 2e-4 rtol 1e-5): " + ", ".join(line)
-                  + f"; equal to {kname[variant]}(K1) bit for bit")
+                  + f"; equal to {kname[variant]}(K1) bit for bit, two calls equal")
 
     # ---- 23. train the 2D families: the main path ----
     workdir = tempfile.mkdtemp(prefix="chip_smoke_2d_")
@@ -1597,6 +1646,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                 for label, a in geoms.items()}
     ms, k3_ms = {}, {}
     batch = 1536
+    rate = {"hops": FP32_FLOPS, "phases": FP32_FLOPS, "radix4": TF32X3_FLOPS}
     for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
         wavs = torch.tensor(seeded_wavs(77, batch, n), device=dev)
         library = device_ms(lambda: dsp.preprocess(wavs, xla_hops[label]))
@@ -1607,14 +1657,37 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                           device_ms(lambda: k2.fused_mfcc_reference(wavs, cfg, variant)),
                           device_ms(lambda: k2.fused_mfcc(wavs, cfg)))
             bnd = bound(2 * batch * variant_macs(cfg, variant),
-                        4 * batch * (n + np.prod(dsp.feature_shape(cfg)[:2])))
+                        4 * batch * (n + np.prod(dsp.feature_shape(cfg)[:2])), rate[variant])
             ms[(variant, label)] = dict(ms=min(a, d), plain_ms=min(b, c), library_ms=library,
                                         **bnd)
             print(f"[times] {kname[variant]} ({variant}) {label} B={batch}: kernel {a:.4f} / "
                   f"{d:.4f} ms, plain {b:.4f} / {c:.4f} ms, dsp.preprocess on cuBLAS (TF32 off, "
-                  f"dense) {library:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
-                  f"{bnd['bound_ms'] / min(a, d):.1%} of it) (CUDA events, median of 20; order "
-                  f"kernel, plain, plain, kernel) | {card}")
+                  f"dense) {library:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+                  f"{' at 3xTF32' if variant == 'radix4' else ''}, {bnd['bound_ms'] / min(a, d):.1%}"
+                  f" of it) (CUDA events, median of 20; order kernel, plain, plain, kernel)"
+                  + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][0]} ms"
+                     if variant == "radix4" else "") + f" | {card}")
+        # the served request's front end: K9 and the library call at batch 1
+        # on one clock, behind a device sleep (the library call as a CUDA
+        # graph, as phase 20 replays the cuDNN model)
+        cfg = dataclasses.replace(geoms[label], dft_variant="radix4")
+        one = wavs[:1].contiguous()
+        lib_replay, lib_out = graph_of(lambda: dsp.preprocess(one, xla_hops[label]))
+        lib_replay()
+        torch.cuda.synchronize()
+        check(torch.equal(lib_out, dsp.preprocess(one, xla_hops[label])),
+              f"{label}: the library graph differs from the call")
+        (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
+            lambda: k2.fused_mfcc(one, cfg), lib_replay, lambda: k2.fused_mfcc(one, cfg)))
+        check(a_full and c_full and d_full, f"{label} B=1: a K9 or library time is host-paced")
+        bnd = bound(2 * variant_macs(cfg, "radix4"),
+                    4 * (n + np.prod(dsp.feature_shape(cfg)[:2])), TF32X3_FLOPS)
+        ms[("radix4", label)].update(ms_b1=min(a, d), library_ms_b1=c,
+                                     bound_ms_b1=bnd["bound_ms"])
+        print(f"[times] K9 (radix4) {label} B=1: kernel {a:.4f} / {d:.4f} ms, dsp.preprocess on "
+              f"cuBLAS (TF32 off, dense) as a CUDA graph {c:.4f} ms (device, mean of 20 behind a "
+              f"device sleep; order kernel, library, kernel); bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']} at 3xTF32) | {card}")
         idx, sc = draw(batch, 77)
         mixed = int((sc.vols != 0).sum())
         for variant in ("hops", "phases", "radix4"):
@@ -1626,12 +1699,15 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                 device_ms(lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)))
             bnd = bound(2 * batch * variant_macs(cfg, variant),
                         2 * batch * n + 4 * mixed * n
-                        + 4 * batch * np.prod(dsp.feature_shape(cfg)[:2]))
+                        + 4 * batch * np.prod(dsp.feature_shape(cfg)[:2]), rate[variant])
             k3_ms[(variant, label)] = dict(ms=min(a, d), plain_ms=min(b, c), library_ms=library,
                                            **bnd)
             print(f"[times] K3 ({variant}) {label} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain "
                   f"(K1-plain -> {kname[variant]}-plain) {b:.4f} / {c:.4f} ms; bound "
-                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | {card}")
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+                  f"{' at 3xTF32' if variant == 'radix4' else ''})"
+                  + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][1]} ms"
+                     if variant == "radix4" else "") + f" | {card}")
 
     for label, tr, variant in (("DSCNNL B=100 f32 adam, K3-radix4", trainer, "radix4"),
                                ("Res15 B=64 f32 adam, K3-phases", legs["Res15"], "phases")):
@@ -1662,6 +1738,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                 "launches": path_launches[name], "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "timed": f"{label}, batch {batch}",
+                **{k: t[k] for k in ("ms_b1", "library_ms_b1", "bound_ms_b1") if k in t},
                 "other_geometry": {other: timed[(key, other)]}}
 
     return [

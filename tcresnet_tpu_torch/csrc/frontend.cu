@@ -8,15 +8,16 @@
 // k3_phases (the phases branch, K8's stage, frontend.py:164-173) and
 // k3_radix4 (the radix4 branch, K9's stage, frontend.py:175-185). K1's
 // body (augment.cuh) writes the augmented row into shared memory, and the
-// shared front end (frontend.cuh, also K2's, K8's, K9's and K4's) turns it
-// into features. Per 1 s row that reads 32 KB of int16 and a 64 KB noise
-// crop and writes 15.7 KB of features, where K1 then K2 also write and
-// read back the 64 KB augmented row.
+// front end (frontend.cuh, also K2's, K8's and K4's; radix4.cuh, K9's)
+// turns it into features. Per 1 s row that reads 32 KB of int16 and a 64
+// KB noise crop and writes 15.7 KB of features, where K1 then K2 also
+// write and read back the 64 KB augmented row.
 //
-// What bounds it on the H100: the DFT stage's FP32 FMA issue, as in
-// mfcc.cu; the augment phase adds a few microseconds of memory traffic per
-// block. The design is mfcc.cu's (one block per utterance, the constants
-// L2-resident) with the sample load replaced by the augment.
+// What bounds it on the H100: the DFT stage, as in mfcc.cu (FP32 FMA issue
+// for hops and phases; the 3xTF32 products and their L2 reads of M0-M2
+// for radix4); the augment phase adds a few microseconds of memory traffic
+// per block. The design is mfcc.cu's (one block per utterance) with the
+// sample load replaced by the augment.
 //
 // Numerics: the augmented samples are bit-exact with K1 (augment.cuh),
 // and the features are computed by the same code as mfcc.cu's, so K3
@@ -29,6 +30,7 @@
 
 #include "augment.cuh"
 #include "frontend.cuh"
+#include "radix4.cuh"
 
 struct K3Args {
   FeArgs fe;
@@ -45,31 +47,45 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k3_kernel(const K3Args a) {
   const int b = blockIdx.x;
   const AugRow<short> r = aug_row<short>(a.aug, b, 1.0f / 32768.0f);
   for (int t = threadIdx.x; t < a.fe.n; t += blockDim.x)
-    reg_a[t] = fe_sample_v<V>(a.fe, aug_sample(r, a.aug.n, t));
+    reg_a[t] = fe_sample(a.fe, aug_sample(r, a.aug.n, t));
   __syncthreads();
   fe_features_v<V>(a.fe, a.v, reg_a, reg_b);
   fe_store(a.fe, reg_b, a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
 }
 
-template <int V>
-static int launch(const K3Args* args, void* stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      k3_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
+// radix4: the augmented samples unrounded (the butterfly rounds after the window)
+template <int MI, int WM>
+__global__ void __launch_bounds__(FE_THREADS, 1) k3_radix4_kernel(const K3Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const AugRow<short> r = aug_row<short>(a.aug, b, 1.0f / 32768.0f);
+  for (int t = threadIdx.x; t < a.fe.n; t += blockDim.x) smem[t] = aug_sample(r, a.aug.n, t);
+  r4_features<MI, WM>(a.fe, a.v, smem, a.region_a,
+                      a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
+}
+
+static int launch(void (*kernel)(K3Args), const K3Args* args, void* stream) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  k3_kernel<V><<<args->aug.batch, FE_THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
+  kernel<<<args->aug.batch, FE_THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int k3_frontend(const K3Args* args, void* stream) {
-  return launch<FE_HOPS>(args, stream);
+  return launch(k3_kernel<FE_HOPS>, args, stream);
 }
 
 extern "C" int k3_phases(const K3Args* args, void* stream) {
-  return launch<FE_PHASES>(args, stream);
+  return launch(k3_kernel<FE_PHASES>, args, stream);
 }
 
+// as k9_mfcc: the 64-row product up to 64 frames, the 112-row one up to 112
 extern "C" int k3_radix4(const K3Args* args, void* stream) {
-  return launch<FE_RADIX4>(args, stream);
+  if (args->fe.frames > R4_MAX_FRAMES) return (int)cudaErrorInvalidValue;
+  return launch(args->fe.frames <= R4_SMALL_FRAMES ? k3_radix4_kernel<2, 2>
+                                                   : k3_radix4_kernel<7, 1>,
+                args, stream);
 }
 
 extern "C" int k3_args_size(void) { return (int)sizeof(K3Args); }

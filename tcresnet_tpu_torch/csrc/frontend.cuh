@@ -1,13 +1,15 @@
 // The spectral front end shared by the port's CUDA kernels: one
 // utterance's samples in shared memory -> MFCC or log-mel features.
 //
-// One implementation for four kernels, as the JAX package has one
-// `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
+// One implementation for the hops and phases kernels, as the JAX package
+// has one `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
 // front-end and inference kernels:
-//   K2/K8/K9 csrc/mfcc.cu     wav -> features (mfcc.py::_kernel,
-//                             ::_kernel_phases, ::_kernel_radix4)
+//   K2/K8    csrc/mfcc.cu     wav -> features (mfcc.py::_kernel, ::_kernel_phases)
 //   K3       csrc/frontend.cu gather + augment -> features (frontend.py::_kernel)
 //   K4       csrc/infer.cu    wav -> features -> convs -> logits (infer.py::_kernel)
+// K9 (mfcc.py::_kernel_radix4, and K3's radix4 entry point) has its own
+// stage and tail in radix4.cuh, on the tensor cores; it shares FeArgs,
+// FeVariant and fe_bf16 with this file.
 //
 // A kernel runs, with all threads of the block:
 //   1. a DFT stage into the power (MFCC) or magnitude (log-mel) spectrum
@@ -18,39 +20,26 @@
 //                       of a strided view of the utterance (rows of
 //                       rows_p * 128 samples, 640 apart at both reference
 //                       geometries) against that phase's W_p, whose rows
-//                       outside [o_p, o_p + window) are zero (K8),
-//        fe_dft_radix4  the radix-4 DIF factored rDFT: windowed blocks,
-//                       butterfly, three stage-2 products, power rows in the
-//                       branch-permuted [3L] layout (K9);
+//                       outside [o_p, o_p + window) are zero (K8);
 //   2. fe_tail: mel and log(mel + 1e-6), then the DCT for MFCC.
 // The DFT is the bulk of the work: per 1 s clip 24.2 M multiply-adds
 // (hops) or 28.9 M with W_p's zero rows (phases) at 480/160, 32.2 M or
-// 35.3 M at 640/320, and frames * 8 L^2 for radix4 (12.85 M at L = 128,
-// 25.7 M at L = 256). Its bound on the H100 is FP32 FMA issue (no tensor
-// cores here). It is register-blocked: each thread owns 4 output columns
-// x RF frames, the columns interleaved (re_k, im_k, re_k+1, im_k+1) so that
-// a thread forms two power bins from its own accumulators.
+// 35.3 M at 640/320. Its bound on the H100 is FP32 FMA issue: these two
+// stages run on the CUDA cores. It is register-blocked: each thread owns 4
+// output columns x RF frames, the columns interleaved (re_k, im_k, re_k+1,
+// im_k+1) so that a thread forms two power bins from its own accumulators.
 //
 // Shared memory: region A holds the samples on entry and the log-mel after
 // step 2; region B holds the power spectrum [frames, nbp] after step 1 and
-// the features [frames, C] on return (C <= nbp). nbp = 2 * ncg; for radix4
-// the host sets ncg = 3L / 2 and num_bins = 3L, so the tail reads the
-// permuted power rows against the row-permuted mel matrix unchanged.
-// radix4 also uses region C, right after B: the butterflies of `tile`
-// frames at a time (4L floats each). The samples (64,000 B at 1 s) and
-// the power (150,528 B at both reference geometries) leave 17,920 B of the
-// 227 KB block, so the butterflies of the whole utterance (200,704 B) are
-// never stored: the stage runs over tiles of 8 (L = 128) or 4 (L = 256)
-// frames. The caller fills region A (through fe_sample, which applies the
-// bf16 rounding of dsp_matmul_dtype="bfloat16" to the DFT's A operand)
-// and synchronises before the call; the call ends synchronised.
+// the features [frames, C] on return (C <= nbp). nbp = 2 * ncg. The caller
+// fills region A (through fe_sample, which applies the bf16 rounding of
+// dsp_matmul_dtype="bfloat16" to the DFT's A operand) and synchronises
+// before the call; the call ends synchronised.
 //
 // Numerics: float32, fmaf in a fixed order, IEEE logf/sqrtf (the build
 // has no --use_fast_math). With round_bf16 the DFT's A operand is rounded
 // to bf16 and its constant is passed already rounded; products still
-// accumulate in float32 (the JAX path's preferred_element_type=f32). For
-// radix4 the A operand is the butterfly: the windowed samples are rounded
-// to bf16 and every butterfly add rounds again, as JAX adds bf16 arrays.
+// accumulate in float32 (the JAX path's preferred_element_type=f32).
 
 #pragma once
 
@@ -59,12 +48,11 @@
 
 #define FE_THREADS 256
 #define FE_RF 14  // frames per thread in the DFT micro-tile
-#define FE_R4_RF 4  // frames per thread in the radix-4 stage-2 micro-tile
 #define FE_RM 7   // frames per thread in the mel / DCT micro-tile
 #define FE_LANES 128  // samples per row of the phase plan
 #define FE_MAX_PHASES 8
 
-enum { FE_HOPS = 0, FE_PHASES = 1, FE_RADIX4 = 2 };
+enum { FE_HOPS = 0, FE_PHASES = 1 };
 
 struct FeArgs {
   const float* dft;  // [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1)
@@ -74,14 +62,18 @@ struct FeArgs {
   int magnitude, round_bf16;
 };
 
-// The DFT stage of K8 (phases) and K9 (radix4); the hops stage needs none.
+// The DFT stage of K8 (phases) and K9 (radix4, radix4.cuh); the hops
+// stage needs none.
 struct FeVariant {
-  // phases: W_p [rows[p] * 128, 4 ncg] at w + off[p]; radix4: M0 [L, 2L],
-  // M1 [2L, 2L], M2 [L, 2L] back to back, interleaved like the DFT
+  // phases: W_p [rows[p] * 128, 4 ncg] at w + off[p]; radix4: the live
+  // columns of M0 [L, L], M1 [2L, 2L], M2 [L, L] back to back, row-major,
+  // each as (re, im) pairs
   const float* w;
-  const float* win;  // radix4: the window zero-padded to 4L
-  int num_p, s_rows;  // phases: P and the rows of a superblock (lcm(hop, 128) / 128)
-  int length, tile;   // radix4: L and the frames per butterfly tile
+  const float* win;    // radix4: the window zero-padded to 4L
+  const int* runs;     // radix4: the mel runs [units][num_mel][3] (radix4.cuh)
+  int num_p, s_rows;   // phases: P and the rows of a superblock (lcm(hop, 128) / 128)
+  int length;          // radix4: L
+  int mel_nnz;         // radix4: the mel's nonzero weights (FeArgs.mel)
   int c[FE_MAX_PHASES], rows[FE_MAX_PHASES], frames[FE_MAX_PHASES], off[FE_MAX_PHASES];
 };
 
@@ -91,12 +83,6 @@ __device__ __forceinline__ float fe_bf16(float x) {
 
 __device__ __forceinline__ float fe_sample(const FeArgs& a, float x) {
   return a.round_bf16 ? fe_bf16(x) : x;
-}
-
-// The sample load of variant V: radix4 rounds after the window, not here.
-template <int V>
-__device__ __forceinline__ float fe_sample_v(const FeArgs& a, float x) {
-  return V == FE_RADIX4 ? x : fe_sample(a, x);
 }
 
 __device__ __forceinline__ int fe_width(const FeArgs& a) {
@@ -203,73 +189,6 @@ __device__ __forceinline__ void fe_dft_phases(const FeArgs& a, const FeVariant& 
   }
 }
 
-// K9. Per tile of frames: the butterfly of each frame's four L-wide blocks
-// of windowed samples into region C as [u0 | u1re | u1im | u2] (4L floats),
-// then the stage-2 products u0 @ M0, [u1re | u1im] @ M1, u2 @ M2, whose
-// power lands in power row columns [0, L), [L, 2L), [2L, 3L).
-__device__ __forceinline__ void fe_dft_radix4(const FeArgs& a, const FeVariant& v,
-                                              const float* reg_a, float* reg_b, float* reg_c) {
-  const int len = v.length;
-  const int nbp = 3 * len;
-  const int cgb = len / 2;  // column groups per branch (2L columns)
-  const bool rnd = a.round_bf16;
-  for (int f0 = 0; f0 < a.frames; f0 += v.tile) {
-    const int nt = min(v.tile, a.frames - f0);
-    for (int i = threadIdx.x; i < nt * len; i += blockDim.x) {
-      const int t = i / len;
-      const int l = i - t * len;
-      const float* x = reg_a + (f0 + t) * a.hop;
-      float b[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = q * len + l;  // window samples past `window` are zero
-        const float xw = j < a.window ? __fmul_rn(x[j], __ldg(&v.win[j])) : 0.f;
-        b[q] = rnd ? fe_bf16(xw) : xw;
-      }
-      float* u = reg_c + t * 4 * len;
-      float s = __fadd_rn(b[0], b[1]);
-      s = rnd ? fe_bf16(s) : s;
-      s = __fadd_rn(s, b[2]);
-      s = rnd ? fe_bf16(s) : s;
-      s = __fadd_rn(s, b[3]);
-      u[l] = rnd ? fe_bf16(s) : s;
-      const float re1 = __fsub_rn(b[0], b[2]);
-      const float im1 = __fsub_rn(b[3], b[1]);
-      u[len + l] = rnd ? fe_bf16(re1) : re1;
-      u[2 * len + l] = rnd ? fe_bf16(im1) : im1;
-      float d = __fsub_rn(b[0], b[1]);
-      d = rnd ? fe_bf16(d) : d;
-      d = __fadd_rn(d, b[2]);
-      d = rnd ? fe_bf16(d) : d;
-      d = __fsub_rn(d, b[3]);
-      u[3 * len + l] = rnd ? fe_bf16(d) : d;
-    }
-    __syncthreads();
-    const int ngroups = (nt + FE_R4_RF - 1) / FE_R4_RF;
-    for (int item = threadIdx.x; item < 3 * cgb * ngroups; item += blockDim.x) {
-      const int col = item % (3 * cgb);
-      const int g = item / (3 * cgb);
-      const int br = col / cgb;
-      const int cg = col - br * cgb;
-      const int aoff = br == 0 ? 0 : (br == 1 ? len : 3 * len);  // u0 | u1re u1im | u2
-      const int woff = br == 0 ? 0 : (br == 1 ? 2 * len * len : 6 * len * len);  // M0 | M1 | M2
-      int base[FE_R4_RF];
-#pragma unroll
-      for (int i = 0; i < FE_R4_RF; ++i)
-        base[i] = min(g * FE_R4_RF + i, nt - 1) * 4 * len + aoff;
-      float acc[FE_R4_RF][4];
-      fe_dft_tile<FE_R4_RF>(reg_c, base, reinterpret_cast<const float4*>(v.w + woff), cgb, cg,
-                            br == 1 ? 2 * len : len, acc);
-#pragma unroll
-      for (int i = 0; i < FE_R4_RF; ++i) {
-        const int t = g * FE_R4_RF + i;
-        if (t < nt) fe_power2(a, acc[i], reg_b + (f0 + t) * nbp + br * len + 2 * cg);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ---- 2-3. mel, log and DCT ----
 __device__ __forceinline__ void fe_tail(const FeArgs& a, float* reg_a, float* reg_b) {
   const int nbp = 2 * a.ncg;  // power bins per row, padded to the column groups
@@ -334,16 +253,14 @@ __device__ __forceinline__ void fe_tail(const FeArgs& a, float* reg_a, float* re
 }
 
 // Steps 1-3 with the DFT stage of variant V (K4 runs FE_HOPS, whose stage
-// reads nothing of v); region C (radix4) follows B.
+// reads nothing of v).
 template <int V>
 __device__ __forceinline__ void fe_features_v(const FeArgs& a, const FeVariant& v, float* reg_a,
                                               float* reg_b) {
   if constexpr (V == FE_HOPS) {
     fe_dft_hops(a, reg_a, reg_b);
-  } else if constexpr (V == FE_PHASES) {
-    fe_dft_phases(a, v, reg_a, reg_b);
   } else {
-    fe_dft_radix4(a, v, reg_a, reg_b, reg_b + a.frames * 2 * a.ncg);
+    fe_dft_phases(a, v, reg_a, reg_b);
   }
   __syncthreads();
   fe_tail(a, reg_a, reg_b);

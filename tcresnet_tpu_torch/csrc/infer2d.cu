@@ -101,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 #define K5_THREADS 256
@@ -187,41 +189,6 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float x, const float4 w) {
   acc[1] = fmaf(x, w.y, acc[1]);
   acc[2] = fmaf(x, w.z, acc[2]);
   acc[3] = fmaf(x, w.w, acc[3]);
-}
-
-// ---- cp.async and 3xTF32 mma.sync ----
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// x = hi + lo: hi is x with its low 13 mantissa bits cleared (a TF32
-// value), lo = x - hi exactly; the tensor cores read the top 19 bits of lo,
-// so hi*hi + hi*lo + lo*hi is x*y to ~2^-21 relative
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---- the epilogue of a conv / dense output, after its bias: the TPU

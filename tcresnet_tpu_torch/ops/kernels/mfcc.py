@@ -11,11 +11,12 @@ of `csrc/mfcc.cu`:
                 utterance against W_p (`phase_dft_plan`)
   "radix4"  K9  `_kernel_radix4`: the radix-4 DIF factored rDFT (window,
                 butterfly, three stage-2 products, branch-permuted power
-                and mel; `dsp.radix4_dft_matrices`)
+                and mel; `dsp.radix4_dft_matrices`), on the tensor cores
 
-Their spectral code is `csrc/frontend.cuh`, shared with K3
-(`frontend.cu`) and K4 (`infer.cu`, always "hops" as in JAX); the source
-notes say what bounds each on the H100. This module:
+Their spectral code is `csrc/frontend.cuh` (hops, phases), shared with K3
+(`frontend.cu`) and K4 (`infer.cu`, always "hops" as in JAX), and
+`csrc/radix4.cuh` (radix4, shared with K3's radix4 entry point); the
+source notes say what bounds each on the H100. This module:
 
 - resolves a config's variant as the JAX package does
   (`resolve_dft_variant`, with its fallback to "hops" where a geometry
@@ -25,7 +26,9 @@ notes say what bounds each on the H100. This module:
 - lays each variant's constants out for the kernels and keeps them on the
   device, once per (audio config, clip length, device, variant)
   (`front_end` -> `FrontEnd`, the ctypes mirrors of `FeArgs` and
-  `FeVariant`);
+  `FeVariant`; K9's live columns, rows and mel runs:
+  `radix4_kernel_constants`), with each kernel's shared-memory plan
+  (`smem_plan`);
 - holds the plain PyTorch versions (`fused_mfcc_reference`): the port's
   dense front end for "hops", the radix-4 path of `ops/dsp.py` for
   "radix4", and `phases_reim`, the per-phase products of
@@ -43,7 +46,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -60,6 +63,14 @@ radix4_launches = 0  # K9
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 LANES = 128  # the TPU lane width the phase plan and the radix-4 rules are stated in
 MAX_PHASES = 8  # FE_MAX_PHASES in csrc/frontend.cuh
+# K9's product (csrc/radix4.cuh): K slices of R4_BK rows of M through a ring
+# of R4_STAGES; units of R4_BN columns, R4_BN / 2 (re, im) pairs; the A
+# slice, M slice and power tile row strides; frames up to 64 take a
+# 64-row product, up to 112 a 112-row one
+R4_BK, R4_BN, R4_STAGES = 32, 128, 3
+R4_PAIRS = R4_BN // 2
+R4_SA, R4_SB, R4_SP = R4_BK + 4, R4_BN + 8, R4_PAIRS + 1
+R4_PRODUCT_ROWS = (64, 112)
 VARIANTS = ("hops", "phases", "radix4")
 ENTRIES = {"hops": "k2_mfcc", "phases": "k8_mfcc", "radix4": "k9_mfcc"}
 _COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
@@ -199,8 +210,8 @@ class FeVariant(ctypes.Structure):
     radix-4 (K9) DFT stage."""
 
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("w", "win")]
-        + [(f, ctypes.c_int) for f in ("num_p", "s_rows", "length", "tile")]
+        [(f, ctypes.c_void_p) for f in ("w", "win", "runs")]
+        + [(f, ctypes.c_int) for f in ("num_p", "s_rows", "length", "mel_nnz")]
         + [(f, ctypes.c_int * MAX_PHASES) for f in ("c", "rows", "frames", "off")]
     )
 
@@ -238,23 +249,100 @@ def front_end_geometry(cfg: AudioConfig, n: int) -> FrontEndGeometry:
     )
 
 
-def smem_plan(g: FrontEndGeometry, variant: str) -> Tuple[int, int, int]:
-    """(region A, region B, butterfly tile) of frontend.cuh's shared-memory
-    plan for `variant`: A holds the samples, later the log-mel; B the power
-    spectrum, later the features; for "radix4" B is [frames, 3L] and a
-    region C after it holds the butterflies of `tile` frames at a time
-    (as many as the block's shared memory leaves room for; 0 if none)."""
+def radix4_product_rows(frames: int) -> Optional[int]:
+    """Rows of K9's product for `frames` frames: the smallest of
+    R4_PRODUCT_ROWS that holds them, None past the largest."""
+    return next((rows for rows in R4_PRODUCT_ROWS if frames <= rows), None)
+
+
+@functools.lru_cache(maxsize=None)
+def radix4_kernel_constants(num_mel_bins: int, fft_length: int, sample_rate: int,
+                            lower_edge_hertz: float, upper_edge_hertz: float) -> tuple:
+    """K9's constants (csrc/radix4.cuh), L = fft_length / 4:
+
+      w       [6 L^2] the live columns of M0, M1, M2 (`dsp.radix4_dft_matrices`)
+              as (re, im) pairs, row-major, back to back: M0's and M2's
+              k2 < L/2 ([L, L] each), all of M1 ([2L, 2L]); the kernel's
+              2L power rows are the rows of `dsp.radix4_mel_matrix` for
+              those pairs, in their order (`radix4_kernel_rows`), 64 a unit
+      runs    [units, M, 3] int32: per unit and mel band, the [first, end)
+              rows of the unit with nonzero weight ((0, 0) if none) and
+              where their weights start in `vals`
+      vals    [nonzero weights] float32: each run's weights, in runs' order
+
+    The rows left out are dead (zero mel rows: M0's k2 > L/2, M2's k2 >=
+    L/2) or M0's k2 = L/2, the Nyquist bin, whose mel weight is zero when
+    the upper edge is at most the Nyquist frequency; a nonzero weight on a
+    row left out raises ValueError."""
+    length = fft_length // 4
+    m0, m1, m2 = dsp.radix4_dft_matrices(fft_length)
+
+    def pairs(m, count):  # the first `count` (re, im) columns, interleaved
+        re, im = m[:, :count], m[:, length:length + count]
+        return np.stack([re, im], axis=-1).reshape(m.shape[0], 2 * count)
+
+    w = np.concatenate([pairs(m0, length // 2).ravel(), pairs(m1, length).ravel(),
+                        pairs(m2, length // 2).ravel()])
+    mel = dsp.radix4_mel_matrix(num_mel_bins, fft_length, sample_rate, lower_edge_hertz,
+                                upper_edge_hertz)
+    rows = radix4_kernel_rows(fft_length)
+    if np.delete(mel, rows, axis=0).any():
+        raise ValueError(f"a radix-4 power row K9 leaves out has mel weight (fft {fft_length}, "
+                         f"upper edge {upper_edge_hertz} Hz)")
+    kmel = mel[rows]
+    units = kmel.shape[0] // R4_PAIRS
+    runs = np.zeros((units, num_mel_bins, 3), np.int32)
+    vals, offset = [], 0
+    for u in range(units):
+        for m in range(num_mel_bins):
+            col = kmel[u * R4_PAIRS:(u + 1) * R4_PAIRS, m]
+            nz = np.flatnonzero(col)
+            first, end = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+            runs[u, m] = first, end, offset
+            vals.append(col[first:end])
+            offset += end - first
+    vals = np.concatenate(vals).astype(np.float32)
+    for a in (w, runs, vals):
+        a.setflags(write=False)
+    return w, runs, vals
+
+
+def radix4_kernel_rows(fft_length: int) -> np.ndarray:
+    """The rows of `dsp.radix4_mel_matrix` (the branch-permuted power) that
+    K9's 2L power rows are, in order: branch 0's k2 < L/2, all of branch
+    1, branch 2's k2 < L/2."""
+    length = fft_length // 4
+    return np.concatenate([np.arange(length // 2), length + np.arange(length),
+                           2 * length + np.arange(length // 2)])
+
+
+def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0) -> Optional[Dict[str, int]]:
+    """The regions of the variant's shared-memory plan, in floats, in their
+    order. hops and phases (frontend.cuh): "a" the samples, later the
+    log-mel; "b" the power spectrum, later the features. radix4
+    (radix4.cuh), each region but the last a multiple of 4 floats: the
+    "samples", the "window" (4L), the mel's "runs" and its `nnz` nonzero
+    weights, "vals" (`radix4_kernel_constants`), the "ring" (R4_STAGES
+    slices of M, [R4_BK, R4_SB]), the "stage" (two A slices, [rows,
+    R4_SA]), the "power" tile of a unit ([frames, R4_SP]) and the "mel"
+    sums ([num_mel, frames]); None where the frames exceed the largest
+    product."""
     a, b = g.regions()
     if variant != "radix4":
-        return a, b, 0
+        return {"a": a, "b": b}
+    rows = radix4_product_rows(g.frames)
+    if rows is None:
+        return None
     length = g.fft_length // 4
-    b = g.frames * 3 * length
-    return a, b, max(0, min(g.frames, (SMEM_LIMIT // 4 - a - b) // (4 * length)))
+    up4 = lambda x: x + (-x % 4)  # noqa: E731
+    return {"samples": up4(g.n), "window": 4 * length,
+            "runs": up4(4 * length // R4_BN * g.num_mel * 3), "vals": up4(nnz),
+            "ring": R4_STAGES * R4_BK * R4_SB, "stage": 2 * rows * R4_SA,
+            "power": up4(g.frames * R4_SP), "mel": g.frames * g.num_mel}
 
 
-def smem_bytes(g: FrontEndGeometry, variant: str) -> int:
-    a, b, tile = smem_plan(g, variant)
-    return 4 * (a + b + tile * g.fft_length)
+def smem_bytes(g: FrontEndGeometry, variant: str, nnz: int = 0) -> int:
+    return 4 * sum(smem_plan(g, variant, nnz).values())
 
 
 def front_end_supported(cfg: AudioConfig, n: int) -> bool:
@@ -273,7 +361,8 @@ def front_end_supported(cfg: AudioConfig, n: int) -> bool:
 def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
     """The JAX kernel's condition (hop-decomposable geometry: window % hop
     == 0, n % hop == 0, n >= window; MFCC or log-mel) and the kernels': the
-    shared front end's, a phase count that FeVariant holds, and a
+    shared front end's, a phase count that FeVariant holds, for radix4 the
+    frames of one product and no mel weight on a row it leaves out, and a
     shared-memory plan of the resolved variant that fits one block."""
     window, hop = cfg.window_size_samples, cfg.window_stride_samples
     if window % hop or n % hop or not front_end_supported(cfg, n):
@@ -283,9 +372,17 @@ def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
     if variant == "phases" and phase_dft_plan(
             window, hop, n, g.fft_length)[0] > MAX_PHASES:
         return False
+    nnz = 0
     if variant == "radix4":
-        return smem_plan(g, variant)[2] >= 1
-    return smem_bytes(g, variant) <= SMEM_LIMIT
+        try:
+            nnz = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
+        except ValueError:
+            return False
+        # the DCT is staged in the ring after the products
+        if (smem_plan(g, variant) is None
+                or g.num_mel * g.width > R4_STAGES * R4_BK * R4_SB):
+            return False
+    return smem_bytes(g, variant, nnz) <= SMEM_LIMIT
 
 
 def auto_takes_kernel(cfg: AudioConfig, device: torch.device, batch: int, n: int) -> bool:
@@ -300,8 +397,9 @@ class FrontEnd:
 
       hops    the interleaved windowed DFT [window, 4 ncg]
       phases  the P interleaved W_p [rows_p * 128, 4 ncg], back to back
-      radix4  M0 | M1 | M2 interleaved ([L, 2L], [2L, 2L], [L, 2L]), the
-              zero-padded window [fft] and the row-permuted mel [3L, M]
+      radix4  the live columns of M0 | M1 | M2, the zero-padded window
+              [fft], the mel's nonzero weights as `mel` and each unit's
+              runs of them as `runs` (`radix4_kernel_constants`)
 
     and the mel matrix and the DCT (None for log-mel). Made once per
     (config, n, device, variant) by `front_end`; read it, never write it."""
@@ -319,10 +417,14 @@ class FrontEnd:
         self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
         self.dct = None if g.magnitude else dev(
             dsp.dct_ii_matrix(cfg.num_mel_bins, cfg.num_mfccs))
-        self.region_a, self.region_b, self.tile = smem_plan(g, variant)
-        self.smem_bytes = smem_bytes(g, variant)
+        nnz = 0
+        if variant == "radix4":
+            w, runs, vals = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))
+            nnz = vals.size
+        self.region_a = next(iter(smem_plan(g, variant, nnz).values()))
+        self.smem_bytes = smem_bytes(g, variant, nnz)
         self._variant = FeVariant()
-        self.dft = self.win = None
+        self.dft = self.win = self.runs = None
         if variant == "hops":
             self.dft = dev(interleaved_dft_matrix(g.window, g.fft_length, g.ncg), rounded=True)
         elif variant == "phases":
@@ -336,13 +438,12 @@ class FrontEnd:
                 v.c[p], v.rows[p], v.frames[p], v.off[p] = c, rows_p, frames_p, off
                 off += w.size
         elif variant == "radix4":
-            length = g.fft_length // 4
-            ms = [interleave_reim(m, length, length // 2)
-                  for m in dsp.radix4_dft_matrices(g.fft_length)]
-            self.dft = dev(np.concatenate([m.ravel() for m in ms]), rounded=True)
+            self.dft = dev(w, rounded=True)
             self.win = dev(dsp.radix4_window(g.window, g.fft_length))
-            self.mel = dev(dsp.radix4_mel_matrix(*dsp.radix4_mel_args(cfg)))
-            self._variant.length, self._variant.tile = length, self.tile
+            self.mel = dev(np.pad(vals, (0, -vals.size % 4)))  # copied as float4s
+            self.runs = torch.tensor(runs, device=self.device)
+            self._variant.length, self._variant.mel_nnz = g.fft_length // 4, nnz
+            self._variant.runs = self.runs.data_ptr()
         else:
             raise ValueError(f"unknown DFT variant {variant!r}")
         self._variant.w = self.dft.data_ptr()
@@ -350,12 +451,12 @@ class FrontEnd:
 
     def args(self) -> FeArgs:
         """The FeArgs of this front end; for radix4 the power rows are the
-        branch-permuted [3L] (num_bins = 3L = 2 ncg)."""
+        kernel's 2L (num_bins = 2L = 2 ncg)."""
         g = self.geom
         dct = self.mel if self.dct is None else self.dct
         num_bins, ncg = g.num_bins, g.ncg
         if self.variant == "radix4":
-            num_bins = 3 * (g.fft_length // 4)
+            num_bins = g.fft_length // 2
             ncg = num_bins // 2
         return FeArgs(
             self.dft.data_ptr(), self.mel.data_ptr(), dct.data_ptr(),
@@ -468,6 +569,8 @@ def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
     if not wavs.is_contiguous():
         raise ValueError("wavs must be contiguous")
+    if variant == "radix4" and wavs.data_ptr() % 16:
+        raise ValueError("K9 copies wavs in 16-byte chunks: wavs must be 16-byte aligned")
     if not fused_mfcc_available(cfg, n):
         raise ValueError(
             f"no front-end kernel serves this geometry ({cfg.preprocess_method}, n {n}, "

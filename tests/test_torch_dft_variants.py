@@ -180,19 +180,35 @@ def test_resolve_dft_variant_equals_jax():
         jmfcc.resolve_dft_variant(to_jax_config(bad), 16000)
 
 
-@pytest.mark.parametrize("window_ms,hop_ms,tile", [(30.0, 10.0, 8), (40.0, 20.0, 4)])
-def test_kernel_shared_memory_plans(window_ms, hop_ms, tile):
+@pytest.mark.parametrize("window_ms,hop_ms,rows", [(30.0, 10.0, 112), (40.0, 20.0, 64)])
+def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     """The plans of the three variants at 1 s: K2 and K8 share one; K9 keeps
-    the samples (64,000 B) and the permuted power (150,528 B) and tiles its
-    butterflies in what is left of a Hopper block."""
+    the samples (64,000 B), the window and the mel's runs and nonzero
+    weights, and no power spectrum: a ring of three [32, 136] slices of M,
+    two A slices of its product's rows, a [frames, 65] power tile and the
+    [frames, num_mel] mel sums, within a Hopper block."""
     cfg = AudioConfig(window_size_ms=window_ms, window_stride_ms=hop_ms)
     g = mfcc.front_end_geometry(cfg, 16000)
+    length = g.fft_length // 4
     assert mfcc.smem_plan(g, "phases") == mfcc.smem_plan(g, "hops")
-    a, b, got_tile = mfcc.smem_plan(g, "radix4")
-    assert (4 * a, 4 * b, got_tile) == (64000, 150528, tile)
-    assert mfcc.smem_bytes(g, "radix4") <= mfcc.SMEM_LIMIT
+    nnz = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
+    plan = mfcc.smem_plan(g, "radix4", nnz)
+    assert mfcc.radix4_product_rows(g.frames) == rows
+    assert plan == {"samples": 16000, "window": 4 * length,
+                    "runs": 4 * length // 128 * g.num_mel * 3, "vals": nnz + (-nnz % 4),
+                    "ring": 3 * 32 * 136, "stage": 2 * rows * 36,
+                    "power": g.frames * 65 + (-g.frames * 65 % 4),
+                    "mel": g.frames * g.num_mel}
+    assert all(x % 4 == 0 for x in plan.values())  # the ring's 16-byte copies stay aligned
+    assert mfcc.smem_bytes(g, "radix4", nnz) == 4 * sum(plan.values()) <= mfcc.SMEM_LIMIT
     for variant in ("hops", "phases", "radix4"):
         assert mfcc.fused_mfcc_available(dataclasses.replace(cfg, dft_variant=variant), 16000)
+    # a clip whose frames exceed the largest product has no radix4 plan
+    long = mfcc.front_end_geometry(cfg, 40960)
+    assert long.frames > 112 and mfcc.smem_plan(long, "radix4") is None
+    long_cfg = dataclasses.replace(cfg, dft_variant="radix4")
+    assert mfcc.resolve_dft_variant(long_cfg, long.n) == "radix4"
+    assert not mfcc.fused_mfcc_available(long_cfg, long.n)
     # the phase plan's rows are 640 samples apart and its W_p carry the DFT
     # rows at o_p; the interleave keeps (re_k, im_k) next to each other
     fe = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="phases"), 16000, "cpu", "phases")
@@ -203,10 +219,189 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, tile):
     np.testing.assert_array_equal(w0[:, 0::4], std[:, 0:g.num_bins:2])
     np.testing.assert_array_equal(w0[:, 1::4], std[:, g.num_bins::2])
     r4 = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="radix4"), 16000, "cpu", "radix4")
+    assert r4.args().num_bins == 2 * r4.args().ncg == 2 * length
+    assert r4.region_a == 16000 and r4.smem_bytes == mfcc.smem_bytes(g, "radix4", nnz)
+    assert tuple(r4.mel.shape) == (nnz + (-nnz % 4),) and r4.variant_args().mel_nnz == nnz
+    assert r4.dft.numel() == 6 * length * length
+    assert tuple(r4.runs.shape) == (4 * length // 128, cfg.num_mel_bins, 3)
+
+
+@pytest.mark.parametrize("fft_length,mel_args", [(512, (64, 16000, 20.0, 4000.0)),
+                                                 (1024, (40, 16000, 20.0, 8000.0))])
+def test_radix4_kernel_constants_are_the_live_parts(fft_length, mel_args):
+    """K9's compacted constants equal the full radix4_dft_matrices and
+    radix4_mel_matrix on their live parts: M0's and M2's k2 < L/2 columns
+    and all of M1 as (re, im) pairs, the mel rows of those pairs; what is
+    left out is zero (M0's k2 > L/2, M2's k2 >= L/2, their mel rows) or the
+    Nyquist bin (M0's k2 = L/2), whose mel weight is zero up to an upper
+    edge at the Nyquist frequency. Each unit's mel runs hold every nonzero
+    weight of their band and only those, and point at them in `vals`."""
+    num_mel, *rest = mel_args
+    length = fft_length // 4
+    w, runs, vals = mfcc.radix4_kernel_constants(num_mel, fft_length, *rest)
+    m0, m1, m2 = dsp.radix4_dft_matrices(fft_length)
+    assert w.dtype == np.float32 and w.size == 6 * length * length
+    k0 = w[:length * length].reshape(length, length)
+    k1 = w[length * length:5 * length * length].reshape(2 * length, 2 * length)
+    k2 = w[5 * length * length:].reshape(length, length)
+    for k, m, count in ((k0, m0, length // 2), (k1, m1, length), (k2, m2, length // 2)):
+        np.testing.assert_array_equal(k[:, 0::2], m[:, :count])
+        np.testing.assert_array_equal(k[:, 1::2], m[:, length:length + count])
+    assert not m0[:, length // 2 + 1:length].any() and not m0[:, length + length // 2 + 1:].any()
+    assert not m2[:, length // 2:length].any() and not m2[:, length + length // 2:].any()
+    assert np.abs(m0[:, length + length // 2]).max() < 1e-12  # sin(pi n): the Nyquist bin
+    mel = dsp.radix4_mel_matrix(num_mel, fft_length, *rest)
+    rows = mfcc.radix4_kernel_rows(fft_length)
+    kmel = mel[rows]
+    assert rows.shape == (2 * length,) and len(set(rows.tolist())) == 2 * length
+    # the kernel's power rows are its pairs' bins: M0's and M2's k2 < L/2, all of M1
+    bins = dsp.radix4_bin_map(fft_length)
+    np.testing.assert_array_equal(
+        bins[rows], np.concatenate([4 * np.arange(length // 2), bins[length:2 * length],
+                                    2 + 4 * np.arange(length // 2)]))
+    assert bins[length // 2] == fft_length // 2
+    assert not np.delete(mel, rows, axis=0).any()
+    assert runs.shape == (2 * length // 64, num_mel, 3)
+    for u in range(runs.shape[0]):
+        for m in range(num_mel):
+            col = kmel[u * 64:(u + 1) * 64, m]
+            r0, r1, off = runs[u, m]
+            assert np.count_nonzero(col) == r1 - r0 and np.all(col[r0:r1] != 0)
+            np.testing.assert_array_equal(vals[off:off + r1 - r0], col[r0:r1])
+    assert vals.dtype == np.float32 and vals.size == np.count_nonzero(kmel)
+    # an upper edge past the Nyquist frequency weighs the bin K9 leaves out
+    with pytest.raises(ValueError, match="mel weight"):
+        mfcc.radix4_kernel_constants(num_mel, fft_length, 16000, 20.0, 9000.0)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 mantissa bits cleared: what the tensor cores read."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest TF32 value, ties away from zero (the bits
+    plus half a TF32 ulp, then cleared): csrc/async_mma.cuh's split_tf32_rn."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, hi=_tf32) -> torch.Tensor:
+    """A 3xTF32 product emulated: each operand split into hi = `hi(x)` (a
+    TF32 value: the truncated split by default) and lo = `hi(x - hi)`, as
+    the tensor cores read it; hi*hi + (lo*hi + hi*lo), every product of
+    TF32 values exact in float32 and summed in float32."""
+    ahi, bhi = hi(a), hi(b)
+    alo, blo = hi(a - ahi), hi(b - bhi)
+    return ahi @ bhi + (alo @ bhi + ahi @ blo)
+
+
+def radix4_replay(wavs: torch.Tensor, cfg: AudioConfig, product=torch.matmul) -> torch.Tensor:
+    """K9's order on the CPU (csrc/radix4.cuh): the butterfly of every
+    frame, then unit by unit (128 columns of one branch of the compacted
+    M0 | M1 | M2) the product over K steps of 8 rows (the mma's k8), each
+    step's `product` added to the unit's float32 sums; the unit's power;
+    its contribution through its mel runs added to the (frame, band) sums;
+    then log(mel + 1e-6) and the DCT for MFCC."""
+    n = wavs.shape[-1]
+    g = mfcc.front_end_geometry(cfg, n)
     length = g.fft_length // 4
-    assert r4.args().num_bins == 2 * r4.args().ncg == 3 * length
-    assert tuple(r4.mel.shape) == (3 * length, cfg.num_mel_bins)
-    assert r4.dft.numel() == 8 * length * length
+    dtype = dsp.dsp_matmul_dtype(cfg)
+    w, runs, vals = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(cfg))
+    w = dsp.round_operand(torch.tensor(w), dtype)
+    ms = (w[:length * length].reshape(length, length),
+          w[length * length:5 * length * length].reshape(2 * length, 2 * length),
+          w[5 * length * length:].reshape(length, length))
+    fr = dsp.frame_signal(wavs, g.window, g.hop) * torch.tensor(dsp.hann_window(g.window))
+    fr = torch.nn.functional.pad(fr, (0, g.fft_length - g.window)).to(dtype)
+    us = [u.to(torch.float32) for u in dsp.radix4_butterfly(fr, g.fft_length)]
+    vals = torch.tensor(vals)
+    sums = torch.zeros(wavs.shape[0], g.frames, g.num_mel)
+    unit = 0
+    for u, m in zip(us, ms):
+        for n0 in range(0, m.shape[1], 128):
+            acc = torch.zeros(wavs.shape[0], g.frames, 128)
+            for k0 in range(0, m.shape[0], 8):
+                acc = acc + product(u[..., k0:k0 + 8], m[k0:k0 + 8, n0:n0 + 128])
+            power = acc[..., 0::2] * acc[..., 0::2] + acc[..., 1::2] * acc[..., 1::2]
+            if g.magnitude:
+                power = torch.sqrt(power)
+            for band in range(g.num_mel):
+                r0, r1, off = (int(x) for x in runs[unit, band])
+                sums[..., band] += (power[..., r0:r1] * vals[off:off + r1 - r0]).sum(-1)
+            unit += 1
+    log_mel = torch.log(sums + 1e-6)
+    if g.magnitude:
+        return log_mel
+    return log_mel @ torch.tensor(dsp.dct_ii_matrix(cfg.num_mel_bins, cfg.num_mfccs))
+
+
+FULL_CLIPS = {"480-160": "TCResNet8-1.0", "640-320": "DSCNNL"}
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("clip", sorted(FULL_CLIPS))
+def test_radix4_replay_meets_plain_version_on_full_clips(clip, method):
+    """The kernel's order (column units, K steps of 8, the mel summed unit
+    by unit over the live rows) at n = 16000 within ATOL of K9's plain
+    version."""
+    cfg = dataclasses.replace(get_preset(FULL_CLIPS[clip]).audio, preprocess_method=method,
+                              dft_variant="radix4")
+    wavs = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (3, 16000)).astype(np.float32))
+    got = radix4_replay(wavs, cfg)
+    want = mfcc.fused_mfcc_reference(wavs, cfg, "radix4")
+    assert got.shape == want.shape == (3,) + dsp.feature_shape(cfg)[:2]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("dsp_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_radix4_replay_meets_jax_kernel(geometry, dsp_dtype):
+    """The kernel's order against JAX's _kernel_radix4 in interpret mode at
+    n = 2560: ATOL in float32, the bf16 tolerance with the bf16 DFT."""
+    cfg = dataclasses.replace(_cfg(geometry, "mfcc", "radix4"), dsp_matmul_dtype=dsp_dtype)
+    wavs = np.random.default_rng(6).uniform(-1, 1, (3, N)).astype(np.float32)
+    want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True,
+                                       variant="radix4"))
+    got = radix4_replay(torch.tensor(wavs), cfg).numpy()
+    tol = ATOL if dsp_dtype == "float32" else 5e-3
+    np.testing.assert_allclose(got, want, rtol=0 if dsp_dtype == "float32" else tol, atol=tol)
+
+
+def _dataset_rows(n: int, batch: int = 8):
+    """Synthetic dataset rows (loud tones) augmented by K1's plain version."""
+    ds = DeviceDataset(make_synthetic_dataset(num_samples=48, num_classes=12,
+                                              desired_samples=n, seed=0), "cpu")
+    gen = torch.Generator().manual_seed(958)
+    idx, _, silent = DeviceDataset.sample_indices(ds.arrays, gen, batch)
+    scalars = aug.draw_scalars(gen, silent, get_preset("TCResNet8-1.0").augment, ds.noise_bank,
+                               n, True)
+    return augment_reference(ds.wavs, idx, scalars, ds.noise_bank, n)
+
+
+@pytest.mark.parametrize("split", ["truncated", "rounded"])
+@pytest.mark.parametrize("source", ["wavs", "dataset rows"])
+@pytest.mark.parametrize("clip", sorted(FULL_CLIPS))
+def test_radix4_3xtf32_emulation_meets_float64(clip, source, split):
+    """3xTF32 products emulated over the radix-4 stage in the kernel's
+    order, within ATOL of the float64 MFCC, on seeded wavs and on dataset
+    rows (MFCCs up to ~160): with the truncated split (hi = x & 0xffffe000,
+    lo the rest read as TF32: K5's) and with both parts rounded to the
+    nearest TF32 value (K9's)."""
+    cfg = dataclasses.replace(get_preset(FULL_CLIPS[clip]).audio, dft_variant="radix4")
+    n = 16000
+    if source == "wavs":
+        wavs = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (4, n)).astype(np.float32))
+    else:
+        wavs = _dataset_rows(n)
+    hi = _tf32 if split == "truncated" else _tf32_rn
+    got = radix4_replay(wavs, cfg, lambda a, b: tf32x3_matmul(a, b, hi)).numpy()
+    want = mfcc_float64(wavs.numpy(), cfg)
+    if source == "dataset rows":
+        assert np.abs(want).max() > 100
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    # the split did round: one TF32 product alone misses the gate
+    coarse = radix4_replay(wavs, cfg, lambda a, b: _tf32(a) @ _tf32(b)).numpy()
+    assert np.abs(coarse - want).max() > ATOL
 
 
 def mfcc_float64(wavs: np.ndarray, cfg: AudioConfig) -> np.ndarray:
