@@ -39,11 +39,12 @@ print their lines:
  11. times    each new kernel against its plain version at batch 1536;
               ms/step, utt/s and the device's busy share of the step for
               the input legs at batch 1536 and 4096
- 12. build    tconv.cu (K7: fwd, dx, dw), its ptxas line
+ 12. build    tconv.cu (K7: fwd, dx, dw), the ptxas line of each kernel
+              (K7 fwd's by its n8-tile width)
  13. kernel   K7 against its plain version (TF32 off) at TCResNet8-1.0's ten
               conv geometries, batch 1, 8, 1536, f32 and bf16-rounded
               inputs, and TCResNet14-1.5's at batch 1536; launch counters;
-              dw identical on two calls
+              fwd and dw identical on two calls
  14. train    the main path through K7: Trainer with conv_backend="pallas"
               at batch 1536 in bf16, 30 steps, a checkpoint every 10; K7
               launches per step (10 fwd, 9 dx, 10 dw) and per train-stream
@@ -53,9 +54,13 @@ print their lines:
               synthetic valid split: each checkpoint scored once through
               K7's forward, the best promoted and re-scored identically;
               "pallas" against "xla" on one checkpoint
- 16. times    K7 against its plain version and cuDNN over one step's ten
-              convs at batch 1536; the train step "pallas" against "xla";
-              eval utt/s
+ 16. times    K7 fwd, dx and dw and cuDNN (TF32 off) over one step's ten
+              convs at batch 1536 and per conv, CUDA events behind a device
+              sleep (a drained launch queue is named in the line), the eager
+              readings (host gaps included) and the plain versions beside;
+              the FP32-FMA fwd design's time quoted; the host's enqueue of
+              the ten fwd calls; the train step "pallas" against "xla"; eval
+              utt/s
  17. build    infer2d.cu (K5, the 2D families' op-list kernel), its ptxas
               line and its cooperative grid
  18. kernel   K5 against its plain version (TF32 off) for every 2D preset
@@ -193,6 +198,11 @@ PR5_K5_MS = {("TCResNet2D8-1.0", 1): (0.3007, 0.2433), ("TCResNet2D8-1.0", 1024)
 # 1536, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3, 700.00 W;
 # CUDA-event medians): (k9_mfcc, k3_radix4), printed beside this run's times
 PR5_K9_MS = {"640/320 MFCC-10": (6.2600, 6.2280), "480/160 MFCC-40": (4.0636, 3.9814)}
+# K7 fwd's earlier design (per-thread FP32 FMA, 4 output channels a thread)
+# over the ten convs of a TCResNet8-1.0 step at batch 1536, behind a device
+# sleep as phase 16 times it (ms; NVIDIA H100 80GB HBM3, 700.00 W): printed
+# beside this run's time, never in the kernels summary
+FP32_K7_FWD_MS = 0.6834
 
 
 def check(ok: bool, what: str) -> None:
@@ -253,6 +263,19 @@ def queued_ms(fn, runs: int = 20) -> tuple:
     return ev0.elapsed_time(ev1) / runs, enqueue_ms < ev_sleep.elapsed_time(ev0)
 
 
+def enqueue_us(fn, runs: int = 50) -> float:
+    """Median host µs of enqueueing fn(), each run after a synchronize, so
+    the launch queue is empty and nothing waits on the device."""
+    times = []
+    for _ in range(runs + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times[3:])) * 1e6
+
+
 def graph_of(fn):
     """fn() captured as a CUDA graph: (replay, its output). One launch per
     replay, so a run of replays behind a device sleep never fills the
@@ -299,7 +322,13 @@ def ptxas_line(name: str) -> str:
     log = _build.library_path(name).with_suffix(".log")
     variants, entry, parts = {"0": "hops: ", "1": "phases: "}, "", []
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "Compiling entry function" in line and "ILi" in line:
+        k7 = re.search(r"_Z(\d+)(k7_\w+)", line)
+        if "Compiling entry function" in line and k7:
+            # K7's kernels by name, with their template arguments
+            name = k7.group(2)[:int(k7.group(1))]
+            params = re.findall(r"Li(\d+)E", k7.group(2)[len(name):])
+            entry = f"{name}<{','.join(params)}>: " if params else f"{name}: "
+        elif "Compiling entry function" in line and "ILi" in line:
             params = [int(p) for p in re.findall(r"Li(\d+)E", line)]
             entry = (f"radix4 {params[1] * params[0] * 16}-row: " if "radix4" in line
                      or "k9_kernel" in line else variants.get(str(params[0]), ""))
@@ -879,12 +908,14 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
                 k, s, _, _, t = geom
                 x, w, dy = conv_inputs(batch, geom, bf16)
                 before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
-                y, dx = k7.tconv_fwd(x, w, s), k7.tconv_dx(dy, w, t, s)
+                y, y_again = k7.tconv_fwd(x, w, s), k7.tconv_fwd(x, w, s)
+                dx = k7.tconv_dx(dy, w, t, s)
                 dw, dw_again = k7.tconv_dw(x, dy, k, s), k7.tconv_dw(x, dy, k, s)
                 torch.cuda.synchronize()
                 check((k7.fwd_launches, k7.dx_launches, k7.dw_launches)
-                      == (before[0] + 1, before[1] + 1, before[2] + 2),
+                      == (before[0] + 2, before[1] + 1, before[2] + 2),
                       f"K7 {geom} B={batch}: launch counters did not advance by one per call")
+                check(torch.equal(y, y_again), f"K7 fwd {geom} B={batch}: two calls differ")
                 want_y = k7.tconv_fwd_reference(x, w, s)
                 want_dx = k7.tconv_dx_reference(dy, w, t, s)
                 want_dw = k7.tconv_dw_reference(x, dy, k, s)
@@ -902,8 +933,8 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
                 errs[op] = max(errs[op], worst[op])
             print(f"[kernel] K7 {label} B={batch} {'bf16-rounded' if bf16 else 'f32'} inputs, "
                   f"{len(gs)} convs: max |err| fwd {worst['fwd']:.2e}, dx {worst['dx']:.2e}, "
-                  f"dw {worst['dw']:.2e} ({worst['dw_rel']:.1e} of max|dw|); dw bit-identical "
-                  f"on two calls")
+                  f"dw {worst['dw']:.2e} ({worst['dw_rel']:.1e} of max|dw|); fwd and dw "
+                  f"bit-identical on two calls")
 
     # ---- 14. train through K7: the main path ----
     workdir = tempfile.mkdtemp(prefix="chip_smoke_k7_")
@@ -1018,33 +1049,63 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
 
     # ---- 16. times ----
     batch = 1536
-    sets = []
+    convs = []
     for geom in geoms:
         k, s, ci, co, t = geom
         x, w, dy = conv_inputs(batch, geom)
         _, lo, hi = same_padding(t, k, s)
-        sets.append((k, s, t, lo, hi, x, w, dy, F.pad(x, (lo, hi))))
+        convs.append(dict(geom=geom, k=k, s=s, t=t, lo=lo, x=x, w=w, dy=dy, xp=F.pad(x, (lo, hi))))
+    # per conv: (kernel, plain version, cuDNN f32)
     ops = {
-        "fwd": (lambda: [k7.tconv_fwd(x, w, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-                lambda: [k7.tconv_fwd_reference(x, w, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-                lambda: [F.conv1d(xp, w, stride=s) for k, s, t, lo, hi, x, w, dy, xp in sets]),
-        "dx": (lambda: [k7.tconv_dx(dy, w, t, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-               lambda: [k7.tconv_dx_reference(dy, w, t, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-               lambda: [torch.nn.grad.conv1d_input(xp.shape, w, dy, stride=s)[..., lo:lo + t]
-                        for k, s, t, lo, hi, x, w, dy, xp in sets]),
-        "dw": (lambda: [k7.tconv_dw(x, dy, k, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-               lambda: [k7.tconv_dw_reference(x, dy, k, s) for k, s, t, lo, hi, x, w, dy, xp in sets],
-               lambda: [torch.nn.grad.conv1d_weight(xp, w.shape, dy, stride=s)
-                        for k, s, t, lo, hi, x, w, dy, xp in sets]),
+        "fwd": (lambda c: k7.tconv_fwd(c["x"], c["w"], c["s"]),
+                lambda c: k7.tconv_fwd_reference(c["x"], c["w"], c["s"]),
+                lambda c: F.conv1d(c["xp"], c["w"], stride=c["s"])),
+        "dx": (lambda c: k7.tconv_dx(c["dy"], c["w"], c["t"], c["s"]),
+               lambda c: k7.tconv_dx_reference(c["dy"], c["w"], c["t"], c["s"]),
+               lambda c: torch.nn.grad.conv1d_input(c["xp"].shape, c["w"], c["dy"],
+                                                    stride=c["s"])[..., c["lo"]:c["lo"] + c["t"]]),
+        "dw": (lambda c: k7.tconv_dw(c["x"], c["dy"], c["k"], c["s"]),
+               lambda c: k7.tconv_dw_reference(c["x"], c["dy"], c["k"], c["s"]),
+               lambda c: torch.nn.grad.conv1d_weight(c["xp"], c["w"].shape, c["dy"],
+                                                     stride=c["s"])),
     }
+
+    def ten(f):
+        return lambda: [f(c) for c in convs]
+
+    # the ten convs behind a device sleep (CUDA events time the device's
+    # work, not the host's ten launches), in the order kernel, cuDNN,
+    # cuDNN, kernel; the eager reading beside it counts the gaps the host
+    # leaves between the launches
     ms = {}
     for op, (kernel, plain, cudnn) in ops.items():
-        a, b, c, d = device_ms(kernel), device_ms(plain), device_ms(plain), device_ms(kernel)
-        e = device_ms(cudnn)
-        ms[op] = (min(a, d), min(b, c), e)
-        print(f"[times] K7 {op} B={batch}, the ten convs of one step: kernel {a:.4f} / {d:.4f} ms, "
-              f"plain {b:.4f} / {c:.4f} ms, cuDNN f32 (TF32 off) {e:.4f} ms (CUDA events, median "
-              f"of 20; order kernel, plain, plain, kernel, cuDNN) | {card}")
+        (a, fa), (b, fb), (c, fc), (d, fd) = (queued_ms(ten(f)) for f in (kernel, cudnn, cudnn, kernel))
+        full = fa and fb and fc and fd
+        ek, ep, ec = device_ms(ten(kernel)), device_ms(ten(plain)), device_ms(ten(cudnn))
+        ms[op] = dict(ms=min(a, d), library_ms=min(b, c), plain_ms=ep, ms_eager=ek,
+                      library_ms_eager=ec, queue_full=full)
+        quoted = (f"; the FP32-FMA design (quoted, not this run): {FP32_K7_FWD_MS} ms, "
+                  f"{FP32_K7_FWD_MS / min(a, d):.2f}x this run's" if op == "fwd" else "")
+        print(f"[times] K7 {op} B={batch}, the ten convs of one step, behind a device sleep: "
+              f"kernel {a:.4f} / {d:.4f} ms, cuDNN f32 (TF32 off) {b:.4f} / {c:.4f} ms (mean of "
+              f"20; order kernel, cuDNN, cuDNN, kernel; "
+              + ("queue full" if full else "a queue DRAINED: host-paced") + ") | eager (host gaps "
+              f"included, median of 20): kernel {ek:.4f} ms, plain {ep:.4f} ms, cuDNN {ec:.4f} ms"
+              f"{quoted} | {card}")
+    for i, conv in enumerate(convs):
+        parts = []
+        for op, (kernel, _, cudnn) in ops.items():
+            (a, fa), (b, fb), (d, fd) = (queued_ms(lambda: f(conv)) for f in (kernel, cudnn, kernel))
+            parts.append(f"{op} {min(a, d):.4f} / cuDNN {b:.4f} ms ({min(a, d) / b:.2f}x)"
+                         + ("" if fa and fb and fd else " (a queue DRAINED)"))
+        print(f"[times] K7 conv {i} (k, s, Ci, Co, T) = {conv['geom']} B={batch}, behind a device "
+              f"sleep: " + ", ".join(parts) + f" | {card}")
+    # the host's cost of launching the ten fwd convs (the enqueue alone)
+    enqueue = {name: enqueue_us(ten(f)) for name, f in (("kernel", ops["fwd"][0]),
+                                                         ("cuDNN", ops["fwd"][2]))}
+    ms["fwd"]["host_enqueue_us"] = enqueue["kernel"]
+    print(f"[times] K7 fwd, host enqueue of the ten convs: kernel {enqueue['kernel']:.1f} us, cuDNN "
+          f"{enqueue['cuDNN']:.1f} us (median of 50 enqueues, each after a synchronize) | {card}")
 
     trainers, spans = {}, {"pallas": [], "xla": []}
     for backend in spans:
@@ -1099,15 +1160,15 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
         k7_flops += 2 * batch * valid_taps(to, t, k, s, lo) * ci * co
         k7_bytes += 4 * (batch * ci * t + co * ci * k + batch * co * to)
 
-    def entry(op, line):
+    def entry(op, line, rate=FP32_FLOPS):
         return {"name": f"k7_tconv_{op}", "route": "cuda",
                 "source": "tcresnet_tpu_torch/csrc/tconv.cu",
                 "replaces": f"tcresnet_tpu/ops/pallas/tconv.py:{line}",
                 "launches": main_launches[op], "max_abs_err": errs[op],
-                "ms": ms[op][0], "plain_ms": ms[op][1], **bound(k7_flops, k7_bytes),
-                "library_ms": ms[op][2], "cudnn_ms": ms[op][2]}
+                **ms[op], **bound(k7_flops, k7_bytes, rate), "cudnn_ms": ms[op]["library_ms"]}
 
-    return [entry("fwd", 63), entry("dx", 68), entry("dw", 99)]
+    # fwd computes its products as 3xTF32; dx and dw in FP32 FMA
+    return [entry("fwd", 63, TF32X3_FLOPS), entry("dx", 68), entry("dw", 99)]
 
 
 def infer2d_phases(dev: torch.device, card: str) -> list:

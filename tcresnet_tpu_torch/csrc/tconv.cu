@@ -11,36 +11,64 @@
 //                     over the j with t+lo-j divisible by s, quotient in [0, To)
 //   dw:  dw[co,ci,j] = sum_b sum_o dy[b,co,o] * x[b,ci,o*s+j-lo]
 //
-// What bounds it on the H100: FP32 FMA issue and launch count. TC-ResNet's
-// convs are 16-72 channels wide, narrower than one wgmma tile, and at batch
-// 1536 a TCResNet8-1.0 step's activations (~10 MB) live in the 50 MB L2, so
-// no pass is bound by HBM. Each pass is ~2.3 G multiply-adds per step.
+// What bounds it on the H100: TC-ResNet's convs are 16-72 channels wide,
+// narrower than one wgmma tile; each pass is ~2.3 G multiply-adds per
+// TCResNet8-1.0 step at batch 1536, over ~141 MB of activations, so at the
+// float32-exact tensor-core rate (3xTF32, 165 TFLOP/s) a pass is bound by
+// its bytes (~0.04 ms), at the FP32 FMA rate (67 TFLOP/s) by its operations.
 //
 // What the design does about it:
-// - fwd and dx: a block stages a group of samples' input rows (zero-padded
-//   for SAME in fwd) and a 16-channel slice of the weights in shared memory;
-//   each thread accumulates 4 output channels at one time position in FP32
-//   registers, one float4 weight read per input value.
-// - dx reads dy as it is: per input position t it sums only the taps j with
+// - fwd is an implicit GEMM on the tensor cores: M = (sample, output
+//   position) rows, N = output channels, K = (input channel, tap). A block
+//   computes 128 rows, which pack several samples (m = n * To + o; the last
+//   block of TCResNet8 has To = 13), for up to 72 output channels. It stages
+//   the zero-padded input rows of the samples its rows span, not an im2col:
+//   per input channel and stride phase one row of slots, so that tap j of
+//   output o reads slot o + j / s of phase j % s, and a k = 9 conv copies each
+//   input value once. A slot row holds only the positions the block's rows
+//   read (128 rows plus each sample's halo of (k - 1) / s), whatever T is.
+//   The channel stride is 8 mod 16 floats, so a fragment load (8 rows x 4
+//   channels a warp) hits 32 banks. The weights come in with the input rows,
+//   one slice of input channels (all taps) at a time, by cp.async (4-byte
+//   copies: T and Ci * k need not be multiples of 4), laid out in smem in
+//   the mma's B-fragment order. A block holds one slice: several blocks
+//   share an SM (10-50 KB each at TCResNet8-1.0) and overlap one another's
+//   copies; a two-stage ring measured no faster on the card.
+// - 3xTF32 mma.sync m16n8k8 (async_mma.cuh), both parts of each operand
+//   rounded to the nearest TF32 value. Per k8 step (8 input channels at one
+//   tap) a tile's lo*hi, hi*lo, hi*hi are summed from zero on the tensor
+//   cores and added to the float32 sums: the tensor cores' accumulation
+//   rounds toward zero, and chained over K = 432 its bias alone reaches the
+//   1e-5 gate. The three products of every tile are issued in three passes,
+//   so no mma waits on the one before it. Steps run in a fixed order
+//   (channel step, then tap) with no split K and no atomics: two calls give
+//   the same bits.
+// - dx: a block stages a group of samples' dy rows and a 16-channel slice of
+//   the weights in shared memory; each thread accumulates 4 input channels at
+//   one position in FP32 registers, one float4 weight read per dy value. It
+//   reads dy as it is: per input position t it sums only the taps j with
 //   t + lo - j divisible by the stride. The TPU kernel zero-stuffed dy by the
 //   stride to stay within Mosaic's reshape rules; here no multiply-add
 //   touches a stuffed zero.
 // - dw is a reduction over B * To rows (150,528 for conv0 at batch 1536).
 //   Blocks run in no order, so it uses no float atomics: each block sums a
 //   fixed batch chunk into its own partial [Co, Ci * k] (4 x 4 outputs per
-//   thread), and a second kernel adds the partials in chunk order. Two calls
-//   give the same bits.
-// - FP32 FMA throughout, no tensor cores: the TPU kernels ran in f32 too.
+//   thread, FP32 FMA), and a second kernel adds the partials in chunk order.
+//   Two calls give the same bits.
 //
 // How it differs from the TPU kernels: no batch tile or batch padding (the
 // grid covers the batch exactly), no VMEM-resident dw carried across a
 // sequential grid (partials and a fixed-order second pass instead), no
-// zero-stuffed dy.
+// zero-stuffed dy; fwd computes in 3xTF32 where the TPU kernel used f32
+// matmuls.
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
 // launch on the given stream and return cudaGetLastError()).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "async_mma.cuh"
 
 struct K7Args {
   const float* x;   // fwd, dw: [batch, ci, t]
@@ -49,14 +77,22 @@ struct K7Args {
   float* out;       // fwd: [batch, co, to]; dx: [batch, ci, t]; dw: [co, ci, k]
   float* partial;   // dw: [nchunks, co, ci * k] scratch
   int batch, ci, co, k, stride, t, to, lo;
-  int nb;       // samples staged in shared memory at once
+  int nb;       // dx, dw: samples staged in shared memory at once
   int chunk;    // dw: samples summed into one partial
   int nchunks;  // dw: ceil(batch / chunk)
   int smem_bytes;
+  // fwd: slots per sample in a staged row (to + (k - 1) / stride), slots of
+  // one phase's row, floats between two channels' rows, channel steps of 8
+  // per slice, n8 tiles of output channels per block
+  int ql, slot_len, xrow, kslice, nt;
 };
 
 #define K7_THREADS 256
-#define K7_CT 16  // output channels per block in fwd and dx
+#define K7_CT 16  // input channels per dx block
+
+#define K7F_WARPS 4
+#define K7F_MT 2                            // m16 tiles per warp
+#define K7F_ROWS (K7F_WARPS * K7F_MT * 16)  // output rows per fwd block
 
 __device__ __forceinline__ void fma4(float4& acc, float v, float4 w) {
   acc.x = fmaf(v, w.x, acc.x);
@@ -73,47 +109,164 @@ __device__ __forceinline__ void store4(float* p, int stride, int valid, float4 v
   if (valid > 3) p[3 * stride] = v.w;
 }
 
-// fwd. grid (ceil(batch / nb), ceil(co / 16)); K = k when it is 1, 3 or 9
-// (unrolled taps), else 0 and the taps come from a.k.
-template <int K>
-__global__ void __launch_bounds__(K7_THREADS) k7_fwd_kernel(const K7Args a) {
+// fwd. grid (ceil(batch * to / 128), ceil(ceil(co / 8) / NT)); a block
+// computes rows [128 x, 128 x + 128) of y viewed as [batch * to, co], for the
+// NT * 8 output channels from 8 NT y. Warp w holds rows 32 w .. 32 w + 31
+// (two m16 tiles).
+//
+// Shared memory: xs[c][phase][slot] for the slice's 8 * kslice input
+// channels (floats a.xrow apart), then the weights ws[(c8 * k + j) * NT + ni]
+// [lane] as float2 (b0, b1): w[co, ci, j] at ci = c0 + 8 c8 + lane % 4 (+ 4
+// for b1), co = co0 + 8 ni + lane / 4. Sample n0 + nl's position q of a phase
+// is slot nl * ql + q - o_first, where o_first is the block's first row's
+// position: 128 consecutive rows and each sample's halo fit in a.slot_len.
+template <int NT>
+__global__ void __launch_bounds__(K7F_WARPS * 32) k7_fwd_kernel(const K7Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int k = K > 0 ? K : a.k;
-  const int tp = (a.to - 1) * a.stride + k;  // padded input positions read
-  const int kc = a.ci * k;
-  const int co0 = blockIdx.y * K7_CT;
-  const int b0 = blockIdx.x * a.nb;
-  const int nb = min(a.nb, a.batch - b0);
-  // ws[(ci * k + j) * 16 + c] = w[co0 + c, ci, j]; xs[n][ci][p] = x[b0 + n, ci, p - lo]
-  const float4* ws = reinterpret_cast<const float4*>(smem);
-  float* xs = smem + kc * K7_CT;
-  for (int i = threadIdx.x; i < kc * K7_CT; i += blockDim.x) {
-    const int c = i % K7_CT, m = i / K7_CT;
-    smem[i] = co0 + c < a.co ? a.w[(size_t)(co0 + c) * kc + m] : 0.f;
-  }
-  const int rows = a.ci * tp;
-  const float* x = a.x + (size_t)b0 * a.ci * a.t;
-  for (int i = threadIdx.x; i < nb * rows; i += blockDim.x) {
-    const int r = i / tp, p = i - r * tp - a.lo;  // r = n * ci + channel
-    xs[i] = (p >= 0 && p < a.t) ? x[(size_t)r * a.t + p] : 0.f;
-  }
-  __syncthreads();
-  const int groups = min(K7_CT, a.co - co0 + 3) / 4;
-  const int tasks = groups * nb * a.to;
-  for (int task = threadIdx.x; task < tasks; task += blockDim.x) {
-    const int o = task % a.to;
-    const int n = (task / a.to) % nb;
-    const int g = task / (a.to * nb);
-    const float* xr = xs + n * rows + o * a.stride;
-    const float4* wr = ws + g;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < a.ci; ++c) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int k = a.k, s = a.stride;
+  const int rows = a.batch * a.to;
+  const int m0 = blockIdx.x * K7F_ROWS;
+  const int n0 = m0 / a.to, o_first = m0 - n0 * a.to;
+  const int co0 = blockIdx.y * NT * 8;
+  const int phases = min(s, k);  // phases some tap reads
+  const int cs = 8 * a.kslice;   // input channels per slice
+  const int xs_floats = cs * a.xrow;
+  const int slices = (a.ci + cs - 1) / cs;
+
+  // slot of (row, tap 0) for this thread's fragment rows g and g + 8 of its
+  // two m16 tiles; rows past the end read the last row's slots
+  int roff[K7F_MT][2];
 #pragma unroll
-      for (int j = 0; j < k; ++j) fma4(acc, xr[c * tp + j], wr[(c * k + j) * (K7_CT / 4)]);
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = min(m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g, rows - 1);
+      const int n = m / a.to;
+      roff[mi][h] = (n - n0) * a.ql + (m - n * a.to) - o_first;
     }
-    const int co = co0 + 4 * g;
-    store4(a.out + ((size_t)(b0 + n) * a.co + co) * a.to + o, a.to, a.co - co, acc);
+
+  // slot u holds position q of sample n0 + nl, (nl, q) = divmod(u + o_first,
+  // ql): the quotient as a product with ceil(2^32 / ql), exact while
+  // (u + o_first) * ql < 2^32
+  const unsigned long long ql_inv = (0x100000000ull + a.ql - 1) / a.ql;
+  const size_t sample = (size_t)a.ci * a.t;
+
+  auto stage = [&](int slice) {
+    const int c0 = slice * cs;
+    // input rows: one (channel, phase) per warp, its slots across lanes;
+    // padding, channels past ci and samples past the batch are zero-filled
+    for (int r = warp; r < cs * phases; r += K7F_WARPS) {
+      const int c = r / phases, ph = r - c * phases;
+      const bool live = c0 + c < a.ci;
+      const float* src = a.x + (size_t)(c0 + c) * a.t + ph - a.lo;
+      float* dst = smem + c * a.xrow + ph * a.slot_len;
+      for (int u = lane; u < a.slot_len; u += 32) {
+        const unsigned v = u + o_first;
+        const int nl = (int)((v * ql_inv) >> 32);
+        const int q = v - nl * a.ql;
+        const int tin = q * s + ph - a.lo;
+        const bool valid = live && n0 + nl < a.batch && tin >= 0 && tin < a.t;
+        cp_async4(dst + u, valid ? src + (n0 + nl) * sample + q * s : a.x, valid);
+      }
+    }
+    // weights: one (channel step, tap) per warp, in fragment order
+    float* ws = smem + xs_floats;
+    for (int cj = warp; cj < a.kslice * k; cj += K7F_WARPS) {
+      const int c8 = cj / k, j = cj - c8 * k;
+      for (int i = lane; i < NT * 64; i += 32) {
+        const int ni = i >> 6, l = (i >> 1) & 31;
+        const int co = co0 + ni * 8 + (l >> 2);
+        const int c = c0 + c8 * 8 + (l & 3) + 4 * (i & 1);
+        const bool valid = co < a.co && c < a.ci;
+        cp_async4(ws + cj * NT * 64 + i, valid ? a.w + ((size_t)co * a.ci + c) * k + j : a.w,
+                  valid);
+      }
+    }
+  };
+
+  float acc[K7F_MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  const float2* wfrag = reinterpret_cast<const float2*>(smem + xs_floats);
+  for (int sl = 0; sl < slices; ++sl) {
+    stage(sl);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int steps = min(a.kslice, (a.ci - sl * cs + 7) / 8);  // the last slice may be short
+    for (int c8 = 0; c8 < steps; ++c8) {
+      const float* xc = smem + (c8 * 8 + tig) * a.xrow;
+      int ph = 0, qo = 0;
+      for (int j = 0; j < k; ++j) {
+        const int toff = ph * a.slot_len + qo;
+        uint32_t ahi[K7F_MT][4], alo[K7F_MT][4];
+#pragma unroll
+        for (int mi = 0; mi < K7F_MT; ++mi) {
+          split_tf32_rn(xc[roff[mi][0] + toff], ahi[mi][0], alo[mi][0]);
+          split_tf32_rn(xc[roff[mi][1] + toff], ahi[mi][1], alo[mi][1]);
+          split_tf32_rn(xc[4 * a.xrow + roff[mi][0] + toff], ahi[mi][2], alo[mi][2]);
+          split_tf32_rn(xc[4 * a.xrow + roff[mi][1] + toff], ahi[mi][3], alo[mi][3]);
+        }
+        uint32_t bhi[NT][2], blo[NT][2];
+        const float2* wb = wfrag + (c8 * k + j) * NT * 32 + lane;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const float2 b = wb[ni * 32];
+          split_tf32_rn(b.x, bhi[ni][0], blo[ni][0]);
+          split_tf32_rn(b.y, bhi[ni][1], blo[ni][1]);
+        }
+        // three passes of independent products, each tile's three from zero
+        float p[K7F_MT][NT][4];
+#pragma unroll
+        for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) mma_tf32_zero(p[mi][ni], alo[mi], bhi[ni]);
+#pragma unroll
+        for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], blo[ni]);
+#pragma unroll
+        for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], bhi[ni]);
+#pragma unroll
+        for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[mi][ni][e];
+        if (++ph == s) {
+          ph = 0;
+          ++qo;
+        }
+      }
+    }
+    __syncthreads();  // the slice is consumed before the next one lands
   }
+
+  // c0, c1 at (row g, channels 2 tig, 2 tig + 1); c2, c3 at row g + 8
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g;
+      if (m >= rows) continue;
+      const int n = m / a.to;
+      float* yr = a.out + (size_t)n * a.co * a.to + (m - n * a.to);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int co = co0 + ni * 8 + 2 * tig;
+        if (co < a.co) yr[(size_t)co * a.to] = acc[mi][ni][2 * h];
+        if (co + 1 < a.co) yr[(size_t)(co + 1) * a.to] = acc[mi][ni][2 * h + 1];
+      }
+    }
 }
 
 // dx. grid (ceil(batch / nb), ceil(ci / 16)).
@@ -243,32 +396,50 @@ __global__ void __launch_bounds__(K7_THREADS) k7_dw_reduce_kernel(const K7Args a
   a.out[i] = s;
 }
 
-template <typename Kernel>
-static int launch(Kernel kernel, dim3 grid, const K7Args* a, void* stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+// Launches Kernel on the stream. Above 48 KB of dynamic shared memory a
+// kernel needs its limit raised first: that is done once per kernel, device
+// and larger size, not on every launch.
+template <void (*Kernel)(K7Args)>
+static int launch(dim3 grid, int threads, const K7Args* a, void* stream) {
+  static int granted[64] = {};  // per device: the bytes this kernel may use
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, K7_THREADS, a->smem_bytes, (cudaStream_t)stream>>>(*a);
+  int& have = granted[dev & 63];
+  if (a->smem_bytes > 48 * 1024 && a->smem_bytes > have) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    have = a->smem_bytes;
+  }
+  Kernel<<<grid, threads, a->smem_bytes, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int k7_fwd(const K7Args* a, void* stream) {
-  const dim3 grid((a->batch + a->nb - 1) / a->nb, (a->co + K7_CT - 1) / K7_CT);
-  switch (a->k) {
-    case 1: return launch(k7_fwd_kernel<1>, grid, a, stream);
-    case 3: return launch(k7_fwd_kernel<3>, grid, a, stream);
-    case 9: return launch(k7_fwd_kernel<9>, grid, a, stream);
-    default: return launch(k7_fwd_kernel<0>, grid, a, stream);
+  const int n8 = (a->co + 7) / 8;
+  const dim3 grid((a->batch * a->to + K7F_ROWS - 1) / K7F_ROWS, (n8 + a->nt - 1) / a->nt);
+  const int threads = K7F_WARPS * 32;
+  switch (a->nt) {
+    case 1: return launch<k7_fwd_kernel<1>>(grid, threads, a, stream);
+    case 2: return launch<k7_fwd_kernel<2>>(grid, threads, a, stream);
+    case 3: return launch<k7_fwd_kernel<3>>(grid, threads, a, stream);
+    case 4: return launch<k7_fwd_kernel<4>>(grid, threads, a, stream);
+    case 5: return launch<k7_fwd_kernel<5>>(grid, threads, a, stream);
+    case 6: return launch<k7_fwd_kernel<6>>(grid, threads, a, stream);
+    case 7: return launch<k7_fwd_kernel<7>>(grid, threads, a, stream);
+    case 8: return launch<k7_fwd_kernel<8>>(grid, threads, a, stream);
+    case 9: return launch<k7_fwd_kernel<9>>(grid, threads, a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int k7_dx(const K7Args* a, void* stream) {
   const dim3 grid((a->batch + a->nb - 1) / a->nb, (a->ci + K7_CT - 1) / K7_CT);
   switch (a->k) {
-    case 1: return launch(k7_dx_kernel<1>, grid, a, stream);
-    case 3: return launch(k7_dx_kernel<3>, grid, a, stream);
-    case 9: return launch(k7_dx_kernel<9>, grid, a, stream);
-    default: return launch(k7_dx_kernel<0>, grid, a, stream);
+    case 1: return launch<k7_dx_kernel<1>>(grid, K7_THREADS, a, stream);
+    case 3: return launch<k7_dx_kernel<3>>(grid, K7_THREADS, a, stream);
+    case 9: return launch<k7_dx_kernel<9>>(grid, K7_THREADS, a, stream);
+    default: return launch<k7_dx_kernel<0>>(grid, K7_THREADS, a, stream);
   }
 }
 
@@ -276,7 +447,7 @@ extern "C" int k7_dx(const K7Args* a, void* stream) {
 extern "C" int k7_dw(const K7Args* a, void* stream) {
   const int tiles = ((a->co + 3) / 4) * ((a->ci * a->k + 3) / 4);
   const dim3 grid(a->nchunks, (tiles + K7_THREADS - 1) / K7_THREADS);
-  const int rc = launch(k7_dw_partial_kernel, grid, a, stream);
+  const int rc = launch<k7_dw_partial_kernel>(grid, K7_THREADS, a, stream);
   if (rc != 0) return rc;
   const int n = a->co * a->ci * a->k;
   k7_dw_reduce_kernel<<<(n + K7_THREADS - 1) / K7_THREADS, K7_THREADS, 0,

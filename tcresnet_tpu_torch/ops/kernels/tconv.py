@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,12 +48,19 @@ fwd_launches = 0
 dx_launches = 0
 dw_launches = 0
 
-# Shared memory a block stages its samples' rows in (floats): 48 KB.
+# Shared memory a dx / dw block stages its samples' rows in (floats): 48 KB.
 _STAGE_FLOATS = 12288
-_CT = 16  # output channels per fwd / dx block (K7_CT in csrc/tconv.cu)
+_CT = 16  # input channels per dx block (K7_CT in csrc/tconv.cu)
 _THREADS = 256
 # dw aims at this many blocks (two per SM of the H100's 132)
 _DW_BLOCKS = 264
+# fwd: output rows (sample, position) per block (K7F_ROWS), n8 tiles of
+# output channels per block at most (its template widths 1-9), k8 steps a
+# slice of input channels aims at, and the shared memory a block may use
+_FWD_ROWS = 128
+_FWD_MAX_NT = 9
+_FWD_SLICE_STEPS = 18
+_SMEM_LIMIT = 232448
 
 
 class _K7Args(ctypes.Structure):
@@ -63,8 +70,27 @@ class _K7Args(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in ("x", "w", "dy", "out", "partial")]
         + [(f, ctypes.c_int) for f in (
             "batch", "ci", "co", "k", "stride", "t", "to", "lo", "nb", "chunk",
-            "nchunks", "smem_bytes")]
+            "nchunks", "smem_bytes", "ql", "slot_len", "xrow", "kslice", "nt")]
     )
+
+
+class FwdPlan(NamedTuple):
+    """How `k7_fwd_kernel` cuts one conv (csrc/tconv.cu says more): n8 tiles
+    of output channels per block, the grid, the most samples a block's 128
+    rows span, slots per sample in a staged row (To plus the halo
+    (k - 1) // stride), slots of one phase's row, floats between two input
+    channels' rows (8 mod 16: bank-conflict-free fragment loads), channel
+    steps of 8 per slice, slices, shared memory bytes."""
+
+    nt: int
+    grid: Tuple[int, int]
+    nb: int
+    ql: int
+    slot_len: int
+    xrow: int
+    kslice: int
+    slices: int
+    smem_bytes: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,6 +190,33 @@ def _args(batch, ci, co, k, stride, t, **ptrs) -> _K7Args:
     return a
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> FwdPlan:
+    """The fwd kernel's cut of a conv, a pure function of the shapes. A
+    block's 128 rows m = n * To + o span at most nb samples; it stages,
+    per input channel and stride phase, the slots its rows read (128 rows
+    plus each sample's halo), for 8 * kslice channels at a time with their
+    weights (all taps, its nt * 8 output channels, as float32 to be split
+    on use)."""
+    to, _, _ = same_padding(t, k, stride)
+    halo = (k - 1) // stride
+    ql = to + halo
+    nb = min(batch, (_FWD_ROWS + to - 2) // to + 1)
+    slot_len = min(_FWD_ROWS + nb * halo, nb * ql)
+    raw = min(stride, k) * slot_len
+    xrow = raw + (8 - raw) % 16
+    gx, n8 = -(-batch * to // _FWD_ROWS), -(-co // 8)
+    nt = min(n8, _FWD_MAX_NT)
+    c8 = -(-ci // 8)
+    for kslice in range(max(1, min(c8, _FWD_SLICE_STEPS // k)), 0, -1):
+        slices = -(-c8 // kslice)
+        smem = 4 * (8 * kslice * xrow + k * kslice * nt * 64)
+        if smem <= _SMEM_LIMIT:
+            return FwdPlan(nt, (gx, -(-n8 // nt)), nb, ql, slot_len, xrow, kslice, slices, smem)
+    raise ValueError(f"k7_fwd: a k={k} stride-{stride} conv over {t} rows stages more than "
+                     f"{_SMEM_LIMIT} bytes of shared memory")
+
+
 def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     global fwd_launches
     (b, ci, t), (co, _, k) = x.shape, w.shape
@@ -171,10 +224,10 @@ def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     y = torch.empty((b, co, to), device=x.device, dtype=torch.float32)
     if b == 0:
         return y
-    tp = (to - 1) * stride + k
-    nb = max(1, min(b, _STAGE_FLOATS // (ci * tp)))
+    p = _fwd_plan(b, ci, co, k, t, stride)
     a = _args(b, ci, co, k, stride, t, x=x.data_ptr(), w=w.data_ptr(), out=y.data_ptr(),
-              nb=nb, smem_bytes=4 * (ci * k * _CT + nb * ci * tp))
+              smem_bytes=p.smem_bytes, ql=p.ql, slot_len=p.slot_len, xrow=p.xrow,
+              kslice=p.kslice, nt=p.nt)
     _build.launch(_library(), "k7_fwd", "k7_error_string", a, x.device)
     fwd_launches += 1
     return y

@@ -286,10 +286,12 @@ def test_trainer_steps_go_through_the_variant_kernels(cuda_device, tmp_path, var
         assert np.isfinite(float(summary["total_loss"]))
 
 
-# (k, stride, Ci, Co, T) of every TCResNet8-1.0 conv, then two of TCResNet14-1.5
+# (k, stride, Ci, Co, T) of every TCResNet8-1.0 conv, then two of TCResNet14-1.5,
+# then an even tap count at stride 3 over 36 channels (not a multiple of 8)
 K7_GEOMETRIES = [(3, 1, 40, 16, 98), (1, 2, 16, 24, 98), (9, 2, 16, 24, 98), (9, 1, 24, 24, 49),
                  (1, 2, 24, 32, 49), (9, 2, 24, 32, 49), (9, 1, 32, 32, 25), (1, 2, 32, 48, 25),
-                 (9, 2, 32, 48, 25), (9, 1, 48, 48, 13), (9, 2, 36, 48, 25), (9, 1, 72, 72, 13)]
+                 (9, 2, 32, 48, 25), (9, 1, 48, 48, 13), (9, 2, 36, 48, 25), (9, 1, 72, 72, 13),
+                 (4, 3, 36, 36, 98)]
 
 
 @pytest.mark.parametrize("k,stride,ci,co,t", K7_GEOMETRIES)
@@ -297,7 +299,7 @@ def test_tconv_kernels_match_plain(cuda_device, k, stride, ci, co, t):
     """K7 fwd, dx and dw against the plain versions at batch 1, 8 and 1536:
     fwd and dx within the CPU test's tolerances (f32 sums in another
     order); dw, up to 150,528 products per entry summed in another order,
-    within 1e-5 of max|dw|; dw gives the same bits twice."""
+    within 1e-5 of max|dw|; fwd and dw give the same bits twice."""
     gen = torch.Generator(device=cuda_device).manual_seed(k * 100 + ci)
     to = -(-t // stride)
     for b in (1, 8, 1536):
@@ -305,12 +307,14 @@ def test_tconv_kernels_match_plain(cuda_device, k, stride, ci, co, t):
         w = torch.randn(co, ci, k, device=cuda_device, generator=gen) * 0.1
         dy = torch.randn(b, co, to, device=cuda_device, generator=gen)
         before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
-        y, dx = k7.tconv_fwd(x, w, stride), k7.tconv_dx(dy, w, t, stride)
+        y, y2 = k7.tconv_fwd(x, w, stride), k7.tconv_fwd(x, w, stride)
+        dx = k7.tconv_dx(dy, w, t, stride)
         dw, dw2 = k7.tconv_dw(x, dy, k, stride), k7.tconv_dw(x, dy, k, stride)
         torch.cuda.synchronize()
         assert (k7.fwd_launches, k7.dx_launches, k7.dw_launches) == (
-            before[0] + 1, before[1] + 1, before[2] + 2)
+            before[0] + 2, before[1] + 1, before[2] + 2)
         torch.testing.assert_close(y, k7.tconv_fwd_reference(x, w, stride), atol=1e-5, rtol=1e-5)
+        assert torch.equal(y, y2)
         torch.testing.assert_close(dx, k7.tconv_dx_reference(dy, w, t, stride),
                                    atol=2e-4, rtol=1e-4)
         want = k7.tconv_dw_reference(x, dy, k, stride)
