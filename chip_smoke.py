@@ -86,19 +86,22 @@ print their lines:
               step); the served request (K2 + K5, and "xla") on the host
               clock
  21. build    mfcc.cu (K2, K8, K9) and frontend.cu (K3 hops, phases,
-              radix4) rebuilt, the ptxas line of every kernel (K9's in its
-              64-row and 112-row products)
+              radix4) rebuilt, the ptxas line of every kernel (K8's in its
+              16-, 64- and 128-row tiles, K9's in its 64-row and 112-row
+              products); K8's kernels must not spill
  22. kernel   K8 (phases) and K9 (radix4) against their plain versions (TF32
               off) at 480/160 MFCC-40, 640/320 MFCC-10 and MFCC-40, MFCC and
               log-mel, batch 1, 8, 1536, atol 1e-4, and with the bf16 DFT at
-              5e-3, two K9 calls equal bit for bit; K3's phases and radix4
+              5e-3, two calls equal bit for bit, K8 of one clip equal to its
+              row of the batch bit for bit; K3's phases and radix4
               entry points against K1-plain
               followed by the variant's plain version, the same draws, at
               the JAX package's tolerance for features of dataset rows
               (DATASET_FEATURE_TOL: atol 2e-4, rtol 1e-5; MFCCs up to ~160),
               the kernel within atol 1e-4 of the same augmented rows in
               float64 (the plain version's distance printed beside), and
-              bit-equal to K8 / K9 over K1; the per-variant launch counters
+              bit-equal to K8 / K9 over K1 (K8 held to float64 there too);
+              the per-variant launch counters
  23. train    the 2D main path: the DSCNNL preset (MFCC-10 at 40/20 ms,
               batch 100, float32, adam) with dft_variant="radix4" and
               frontend_fuse="on", 30 steps, a checkpoint every 10: K3-radix4
@@ -112,9 +115,11 @@ print their lines:
               each through K9 + K5 and K8 + K5, against "xla", "highest"
  24. times    K2, K8, K9, their plain versions and dsp.preprocess on cuBLAS
               (TF32 off, the library time) at batch 1536 for both
-              geometries, K9's bound at the 3xTF32 rate and PR 5's K9
-              times beside (quoted); K9 and the library call at batch 1
-              behind a device sleep; K3 in its variants; ms/step, utt/s and the
+              geometries, eager; K8 and K3-phases behind a device sleep on
+              one clock with the library call as a CUDA graph, at batch 1536
+              (both geometries), K8 and K9 with it at batch 1; K8's and
+              K9's bounds at the 3xTF32 rate and PR 5's K8 and K9 times
+              beside (quoted); K3 in its variants; ms/step, utt/s and the
               device's busy share of the DSCNNL and Res15 train steps at
               their preset batch
 
@@ -179,8 +184,8 @@ SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# K5's and K9's bound rate: the float32-exact tensor-core rate. K5 computes
-# its convs and dense layers, K9 its stage-2 DFT products, as 3xTF32 (three
+# K5's, K8's and K9's bound rate: the float32-exact tensor-core rate. K5
+# computes its convs and dense layers, K8 and K9 their DFT products, as 3xTF32 (three
 # TF32 products per float32 product, at the 495 TFLOP/s TF32 peak), so
 # FP32_FLOPS is no longer the least time the card could take for that work;
 # every other kernel keeps FP32_FLOPS
@@ -198,6 +203,9 @@ PR5_K5_MS = {("TCResNet2D8-1.0", 1): (0.3007, 0.2433), ("TCResNet2D8-1.0", 1024)
 # 1536, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3, 700.00 W;
 # CUDA-event medians): (k9_mfcc, k3_radix4), printed beside this run's times
 PR5_K9_MS = {"640/320 MFCC-10": (6.2600, 6.2280), "480/160 MFCC-40": (4.0636, 3.9814)}
+# K8's earlier design (per-thread FP32 FMA over per-phase frame tiles, one
+# block per utterance) at batch 1536, the same source: (k8_mfcc, k3_phases)
+PR5_K8_MS = {"640/320 MFCC-10": (4.9868, 4.9938), "480/160 MFCC-40": (4.3885, 4.4048)}
 # K7 fwd's earlier design (per-thread FP32 FMA, 4 output channels a thread)
 # over the ten convs of a TCResNet8-1.0 step at batch 1536, behind a device
 # sleep as phase 16 times it (ms; NVIDIA H100 80GB HBM3, 700.00 W): printed
@@ -315,23 +323,28 @@ def mfcc_float64(wavs: torch.Tensor, audio) -> torch.Tensor:
 
 def ptxas_line(name: str) -> str:
     """ptxas's registers and spills of csrc/<name>.cu, each labelled with
-    its kernel's DFT variant where the source has one per variant (K9's
-    with the rows of its product: <MI, WM> is WM * MI * 16 rows)."""
+    its kernel (K7's by name and template arguments; the front ends' by DFT
+    variant, the tensor-core products with their rows: <MI, WM> is WM * MI *
+    16 rows)."""
     from tcresnet_tpu_torch.ops.kernels import _build
 
     log = _build.library_path(name).with_suffix(".log")
-    variants, entry, parts = {"0": "hops: ", "1": "phases: "}, "", []
+    variants = {"k2_kernel": "hops", "k3_kernel": "hops", "k8_kernel": "phases",
+                "k3_phases_kernel": "phases", "k9_kernel": "radix4",
+                "k3_radix4_kernel": "radix4"}
+    entry, parts = "", []
     for line in log.read_text().splitlines() if log.exists() else []:
-        k7 = re.search(r"_Z(\d+)(k7_\w+)", line)
-        if "Compiling entry function" in line and k7:
-            # K7's kernels by name, with their template arguments
-            name = k7.group(2)[:int(k7.group(1))]
-            params = re.findall(r"Li(\d+)E", k7.group(2)[len(name):])
-            entry = f"{name}<{','.join(params)}>: " if params else f"{name}: "
-        elif "Compiling entry function" in line and "ILi" in line:
-            params = [int(p) for p in re.findall(r"Li(\d+)E", line)]
-            entry = (f"radix4 {params[1] * params[0] * 16}-row: " if "radix4" in line
-                     or "k9_kernel" in line else variants.get(str(params[0]), ""))
+        fn = re.search(r"_Z(\d+)(\w+)", line)
+        if "Compiling entry function" in line and fn:
+            kernel = fn.group(2)[:int(fn.group(1))]
+            params = [int(p) for p in re.findall(r"Li(\d+)E", fn.group(2)[len(kernel):])]
+            if kernel.startswith("k7_"):
+                entry = f"{kernel}<{','.join(map(str, params))}>: " if params else f"{kernel}: "
+            elif kernel in variants:
+                rows = f" {params[1] * params[0] * 16}-row" if params else ""
+                entry = f"{variants[kernel]}{rows}: "
+            else:
+                entry = ""
         elif "registers" in line or "spill" in line:
             parts.append(entry + line.split("ptxas info    :")[-1].strip())
     return " ".join(parts) or "cached build"
@@ -1432,21 +1445,27 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
 
 
 def variant_macs(audio, variant: str) -> int:
-    """Multiply-adds one clip needs in a DFT variant: K8's are K2's (the
-    zero rows of W_p need no work); K9's are its factored products over
-    their live columns (M0's and M2's k2 < L/2: L x L each; M1: 2L x 2L;
-    6L^2 per frame: the zeroed columns need no work, nor M0's k2 = L/2,
-    the Nyquist bin, whose mel weight is zero) and the mel's nonzero
-    weights (`mfcc.radix4_kernel_constants`); both with the DCT for MFCC."""
+    """Multiply-adds one clip needs in a DFT variant: K2's the dense front
+    end (`front_end_macs`); K8's the live rows of W_p (the zero rows need no
+    work) against the bins below the Nyquist bin, whose mel weight is zero
+    (window x fft a frame), and the mel's nonzero weights
+    (`mfcc.phases_kernel_constants`); K9's its factored products over their
+    live columns (M0's and M2's k2 < L/2: L x L each; M1: 2L x 2L; 6L^2
+    per frame: the zeroed columns need no work, nor M0's k2 = L/2, the
+    Nyquist bin) and the mel's nonzero weights
+    (`mfcc.radix4_kernel_constants`); both with the DCT for MFCC."""
     from tcresnet_tpu_torch.ops import dsp
     from tcresnet_tpu_torch.ops.kernels import mfcc
 
-    if variant != "radix4":
+    if variant == "hops":
         return front_end_macs(audio)
     g = mfcc.front_end_geometry(audio, audio.desired_samples)
+    dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
+    if variant == "phases":
+        nnz = mfcc.phases_kernel_constants(*dsp.mel_args(audio))[1].size
+        return g.frames * (g.window * g.fft_length + nnz) + dct
     length = g.fft_length // 4
     nnz = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(audio))[2].size
-    dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
     return g.frames * (6 * length * length + nnz) + dct
 
 
@@ -1471,7 +1490,12 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
     k2.build_kernels()
     k3.build_kernels()
     for name in ("mfcc", "frontend"):
-        print(f"[build] {name}.cu for sm_90a, entry points by DFT variant | {ptxas_line(name)}")
+        line = ptxas_line(name)
+        print(f"[build] {name}.cu for sm_90a, entry points by DFT variant | {line}")
+        k8_spills = re.findall(r"phases (\d+)-row: \d+ bytes stack frame, (\d+) bytes spill stores",
+                               line)
+        check(sorted(int(r) for r, _ in k8_spills) == [16, 64, 128]
+              and all(s == "0" for _, s in k8_spills), f"{name}.cu: K8's tiles spill: {k8_spills}")
 
     def counts(module):
         return (module.launches, module.phases_launches, module.radix4_launches)
@@ -1508,14 +1532,12 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                     want = k2.fused_mfcc_reference(wavs, cfg, variant)
                     check(got.shape == want.shape == (batch,) + dsp.feature_shape(cfg)[:2],
                           f"{kname[variant]} {label} {feat}: shape {tuple(got.shape)}")
-                    if variant == "phases":
-                        # the same products as K2's in the same order, W_p's
-                        # zero rows adding exact zeros: bit for bit
-                        hops = k2.fused_mfcc(wavs, dataclasses.replace(cfg, dft_variant="hops"))
-                        check(torch.equal(got, hops), f"K8 {label} {feat}: differs from K2")
-                    else:
-                        check(torch.equal(got, k2.fused_mfcc(wavs, cfg)),
-                              f"K9 {label} {feat} B={batch}: two calls differ")
+                    check(torch.equal(got, k2.fused_mfcc(wavs, cfg)),
+                          f"{kname[variant]} {label} {feat} B={batch}: two calls differ")
+                    if variant == "phases" and batch > 1:
+                        # a row's sum does not depend on the tile it lands in
+                        check(torch.equal(k2.fused_mfcc(wavs[:1], cfg), got[:1]),
+                              f"K8 {label} {feat}: batch 1 differs from row 0 of B={batch}")
                     check(bool(torch.isfinite(got).all()), f"{kname[variant]} {label}: non-finite")
                     err = (got - want).abs().max().item()
                     check(torch.allclose(got, want, atol=tol[0], rtol=tol[1]),
@@ -1524,9 +1546,9 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                         errs[variant] = max(errs[variant], err)
                     line.append(f"B={batch} {err:.2e}")
                 print(f"[kernel] {kname[variant]} ({variant}) {label} {feat} vs plain (TF32 off, "
-                      f"atol {tol[0]}): " + ", ".join(line)
-                      + ("; equal to K2 bit for bit" if variant == "phases" else
-                         "; two calls equal bit for bit"))
+                      f"atol {tol[0]}): " + ", ".join(line) + "; two calls equal bit for bit"
+                      + ("; batch 1 equal to row 0 of batch 8 and 1536 bit for bit"
+                         if variant == "phases" else ""))
 
     gen = torch.Generator(device=dev)
     augment_cfg = get_preset("TCResNet8-1.0").augment
@@ -1561,12 +1583,15 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                                                             n)), f"K3-{variant}: two calls differ")
                 # both sides against the same augmented rows in float64
                 f64 = mfcc_float64(k16.augment_reference(ds.wavs, idx, sc, ds.noise_bank, n), cfg)
-                e64, p64 = ((x.double() - f64).abs().max().item() for x in (got, want))
+                e64, p64, m64 = ((x.double() - f64).abs().max().item() for x in (got, want, two))
                 check(e64 <= FEATURE_ATOL, f"K3-{variant} {label} B={batch}: {e64} from float64")
+                check(m64 <= FEATURE_ATOL,
+                      f"{kname[variant]}(K1) {label} B={batch}: {m64} from float64")
                 k3_errs[variant] = max(k3_errs[variant], err)
                 k3_f64[variant] = (max(k3_f64[variant][0], e64), max(k3_f64[variant][1], p64))
-                line.append(f"B={batch} {err:.2e} (kernel / plain vs float64 {e64:.2e} / "
-                            f"{p64:.2e}, max |MFCC| {f64.abs().max().item():.1f})")
+                line.append(f"B={batch} {err:.2e} (kernel / plain / {kname[variant]}(K1) vs "
+                            f"float64 {e64:.2e} / {p64:.2e} / {m64:.2e}, max |MFCC| "
+                            f"{f64.abs().max().item():.1f})")
             print(f"[kernel] K3-{variant} {label} vs K1-plain -> {kname[variant]}-plain (same "
                   f"draws, atol 2e-4 rtol 1e-5): " + ", ".join(line)
                   + f"; equal to {kname[variant]}(K1) bit for bit, two calls equal")
@@ -1707,10 +1732,17 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                 for label, a in geoms.items()}
     ms, k3_ms = {}, {}
     batch = 1536
-    rate = {"hops": FP32_FLOPS, "phases": FP32_FLOPS, "radix4": TF32X3_FLOPS}
+    rate = {"hops": FP32_FLOPS, "phases": TF32X3_FLOPS, "radix4": TF32X3_FLOPS}
     for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
         wavs = torch.tensor(seeded_wavs(77, batch, n), device=dev)
         library = device_ms(lambda: dsp.preprocess(wavs, xla_hops[label]))
+        # the library call as a CUDA graph, so that a run of calls behind a
+        # device sleep is not paced by the host (as phase 20 replays cuDNN)
+        lib_full, lib_out = graph_of(lambda: dsp.preprocess(wavs, xla_hops[label]))
+        lib_full()
+        torch.cuda.synchronize()
+        check(torch.equal(lib_out, dsp.preprocess(wavs, xla_hops[label])),
+              f"{label}: the library graph differs from the call")
         for variant in ("hops", "phases", "radix4"):
             cfg = dataclasses.replace(geoms[label], dft_variant=variant)
             a, b, c, d = (device_ms(lambda: k2.fused_mfcc(wavs, cfg)),
@@ -1724,31 +1756,46 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
             print(f"[times] {kname[variant]} ({variant}) {label} B={batch}: kernel {a:.4f} / "
                   f"{d:.4f} ms, plain {b:.4f} / {c:.4f} ms, dsp.preprocess on cuBLAS (TF32 off, "
                   f"dense) {library:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
-                  f"{' at 3xTF32' if variant == 'radix4' else ''}, {bnd['bound_ms'] / min(a, d):.1%}"
+                  f"{'' if variant == 'hops' else ' at 3xTF32'}, {bnd['bound_ms'] / min(a, d):.1%}"
                   f" of it) (CUDA events, median of 20; order kernel, plain, plain, kernel)"
                   + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][0]} ms"
                      if variant == "radix4" else "") + f" | {card}")
-        # the served request's front end: K9 and the library call at batch 1
-        # on one clock, behind a device sleep (the library call as a CUDA
-        # graph, as phase 20 replays the cuDNN model)
-        cfg = dataclasses.replace(geoms[label], dft_variant="radix4")
+            if variant == "phases":
+                (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
+                    lambda: k2.fused_mfcc(wavs, cfg), lib_full, lambda: k2.fused_mfcc(wavs, cfg)))
+                check(a_full and c_full and d_full, f"{label} B={batch}: a K8 or library time "
+                      "is host-paced")
+                ms[(variant, label)].update(ms=min(a, d), library_ms=c)
+                print(f"[times] K8 (phases) {label} B={batch}, behind a device sleep: kernel "
+                      f"{a:.4f} / {d:.4f} ms, dsp.preprocess on cuBLAS as a CUDA graph {c:.4f} "
+                      f"ms (device, mean of 20; order kernel, library, kernel); K8 "
+                      f"{c / min(a, d):.2f}x ahead of the library, "
+                      f"{bnd['bound_ms'] / min(a, d):.1%} of its bound; PR 5 (quoted, not this run): {PR5_K8_MS[label][0]} ms"
+                      f" | {card}")
+        # the served request's front end: K9, K8 and the library call at
+        # batch 1 on one clock, behind a device sleep
         one = wavs[:1].contiguous()
-        lib_replay, lib_out = graph_of(lambda: dsp.preprocess(one, xla_hops[label]))
-        lib_replay()
+        lib_one, lib_out = graph_of(lambda: dsp.preprocess(one, xla_hops[label]))
+        lib_one()
         torch.cuda.synchronize()
         check(torch.equal(lib_out, dsp.preprocess(one, xla_hops[label])),
               f"{label}: the library graph differs from the call")
-        (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
-            lambda: k2.fused_mfcc(one, cfg), lib_replay, lambda: k2.fused_mfcc(one, cfg)))
-        check(a_full and c_full and d_full, f"{label} B=1: a K9 or library time is host-paced")
-        bnd = bound(2 * variant_macs(cfg, "radix4"),
-                    4 * (n + np.prod(dsp.feature_shape(cfg)[:2])), TF32X3_FLOPS)
-        ms[("radix4", label)].update(ms_b1=min(a, d), library_ms_b1=c,
-                                     bound_ms_b1=bnd["bound_ms"])
-        print(f"[times] K9 (radix4) {label} B=1: kernel {a:.4f} / {d:.4f} ms, dsp.preprocess on "
-              f"cuBLAS (TF32 off, dense) as a CUDA graph {c:.4f} ms (device, mean of 20 behind a "
-              f"device sleep; order kernel, library, kernel); bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']} at 3xTF32) | {card}")
+        cfg9, cfg8 = (dataclasses.replace(geoms[label], dft_variant=v)
+                      for v in ("radix4", "phases"))
+        (a9, f1), (a8, f2), (c, f3), (d8, f4), (d9, f5) = (queued_ms(fn) for fn in (
+            lambda: k2.fused_mfcc(one, cfg9), lambda: k2.fused_mfcc(one, cfg8), lib_one,
+            lambda: k2.fused_mfcc(one, cfg8), lambda: k2.fused_mfcc(one, cfg9)))
+        check(f1 and f2 and f3 and f4 and f5, f"{label} B=1: a K8, K9 or library time is "
+              "host-paced")
+        for variant, cfg, a, d in (("radix4", cfg9, a9, d9), ("phases", cfg8, a8, d8)):
+            bnd = bound(2 * variant_macs(cfg, variant),
+                        4 * (n + np.prod(dsp.feature_shape(cfg)[:2])), TF32X3_FLOPS)
+            ms[(variant, label)].update(ms_b1=min(a, d), library_ms_b1=c,
+                                        bound_ms_b1=bnd["bound_ms"])
+            print(f"[times] {kname[variant]} ({variant}) {label} B=1: kernel {a:.4f} / {d:.4f} "
+                  f"ms, dsp.preprocess on cuBLAS (TF32 off, dense) as a CUDA graph {c:.4f} ms "
+                  f"(device, mean of 20 behind a device sleep; order K9, K8, library, K8, K9); "
+                  f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']} at 3xTF32) | {card}")
         idx, sc = draw(batch, 77)
         mixed = int((sc.vols != 0).sum())
         for variant in ("hops", "phases", "radix4"):
@@ -1766,9 +1813,22 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
             print(f"[times] K3 ({variant}) {label} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain "
                   f"(K1-plain -> {kname[variant]}-plain) {b:.4f} / {c:.4f} ms; bound "
                   f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
-                  f"{' at 3xTF32' if variant == 'radix4' else ''})"
+                  f"{'' if variant == 'hops' else ' at 3xTF32'})"
                   + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][1]} ms"
                      if variant == "radix4" else "") + f" | {card}")
+            if variant == "phases":
+                (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
+                    lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n),
+                    lib_full,
+                    lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)))
+                check(a_full and c_full and d_full, f"{label} B={batch}: a K3-phases or library "
+                      "time is host-paced")
+                k3_ms[(variant, label)].update(ms=min(a, d), library_ms=c)
+                print(f"[times] K3 (phases) {label} B={batch}, behind a device sleep: kernel "
+                      f"{a:.4f} / {d:.4f} ms, dsp.preprocess on cuBLAS as a CUDA graph (no "
+                      f"augment) {c:.4f} ms (device, mean of 20; order kernel, library, kernel); "
+                      f"{bnd['bound_ms'] / min(a, d):.1%} of its bound; PR 5 (quoted, not this "
+                      f"run): {PR5_K8_MS[label][1]} ms | {card}")
 
     for label, tr, variant in (("DSCNNL B=100 f32 adam, K3-radix4", trainer, "radix4"),
                                ("Res15 B=64 f32 adam, K3-phases", legs["Res15"], "phases")):

@@ -8,16 +8,18 @@
 // k3_phases (the phases branch, K8's stage, frontend.py:164-173) and
 // k3_radix4 (the radix4 branch, K9's stage, frontend.py:175-185). K1's
 // body (augment.cuh) writes the augmented row into shared memory, and the
-// front end (frontend.cuh, also K2's, K8's and K4's; radix4.cuh, K9's)
-// turns it into features. Per 1 s row that reads 32 KB of int16 and a 64
-// KB noise crop and writes 15.7 KB of features, where K1 then K2 also
-// write and read back the 64 KB augmented row.
+// front end (frontend.cuh, also K2's and K4's; dft_tc.cuh, K8's;
+// radix4.cuh, K9's) turns it into features. Per 1 s row that reads 32 KB
+// of int16 and a 64 KB noise crop and writes 15.7 KB of features, where K1
+// then K2 also write and read back the 64 KB augmented row.
 //
 // What bounds it on the H100: the DFT stage, as in mfcc.cu (FP32 FMA issue
-// for hops and phases; the 3xTF32 products and their L2 reads of M0-M2
-// for radix4); the augment phase adds a few microseconds of memory traffic
-// per block. The design is mfcc.cu's (one block per utterance) with the
-// sample load replaced by the augment.
+// for hops; the 3xTF32 products and the L2 reads of their constants for
+// phases and radix4); the augment adds a few microseconds of memory
+// traffic per block. The design is mfcc.cu's (hops and radix4: one block
+// per utterance; phases: a tile of the batch's frames, whose utterances
+// each augment with their own scalars) with the sample load replaced by
+// the augment.
 //
 // Numerics: the augmented samples are bit-exact with K1 (augment.cuh),
 // and the features are computed by the same code as mfcc.cu's, so K3
@@ -29,6 +31,7 @@
 #include <cuda_runtime.h>
 
 #include "augment.cuh"
+#include "dft_tc.cuh"
 #include "frontend.cuh"
 #include "radix4.cuh"
 
@@ -39,7 +42,6 @@ struct K3Args {
   int region_a, smem_bytes;
 };
 
-template <int V>
 __global__ void __launch_bounds__(FE_THREADS, 1) k3_kernel(const K3Args a) {
   extern __shared__ __align__(16) float smem[];
   float* reg_a = smem;
@@ -49,8 +51,26 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k3_kernel(const K3Args a) {
   for (int t = threadIdx.x; t < a.fe.n; t += blockDim.x)
     reg_a[t] = fe_sample(a.fe, aug_sample(r, a.aug.n, t));
   __syncthreads();
-  fe_features_v<V>(a.fe, a.v, reg_a, reg_b);
+  fe_features(a.fe, reg_a, reg_b);
   fe_store(a.fe, reg_b, a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
+}
+
+// phases: each utterance of the tile augmented with its own scalars over
+// the sample span its rows read (K8's layout, dft_tc.cuh), then K8's stage
+template <int MI, int WM, bool SPLIT>
+__global__ void __launch_bounds__(FE_THREADS, 1) k3_phases_kernel(const K3Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.aug.batch, TcCfg<MI, WM>::ROWS);
+  const AugArgs& aug = a.aug;
+  const FeArgs& fe = a.fe;
+  tc_stage(a.fe, a.v, tl, smem, [&aug, &fe](int b) {
+    const AugRow<short> r = aug_row<short>(aug, b, 1.0f / 32768.0f);
+    return [&aug, &fe, r](int t, float* dst) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dst[k] = fe_sample(fe, aug_sample(r, aug.n, t + k));
+    };
+  });
+  tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.aug.out);
 }
 
 // radix4: the augmented samples unrounded (the butterfly rounds after the window)
@@ -64,28 +84,37 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k3_radix4_kernel(const K3Args a
                       a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
 }
 
-static int launch(void (*kernel)(K3Args), const K3Args* args, void* stream) {
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<args->aug.batch, FE_THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int k3_frontend(const K3Args* args, void* stream) {
-  return launch(k3_kernel<FE_HOPS>, args, stream);
+  return fe_launch<K3Args, k3_kernel>(args->aug.batch, args->smem_bytes, *args, stream);
 }
 
+template <int MI, int WM, bool SPLIT = false>
+static int k3_phases_launch(const K3Args* args, void* stream) {
+  constexpr int rows = TcCfg<MI, WM>::ROWS;
+  if (!SPLIT && args->v.splits != 1) return (int)cudaErrorInvalidValue;
+  const int grid = (args->aug.batch * args->fe.frames + rows - 1) / rows * args->v.splits;
+  return fe_launch<K3Args, k3_phases_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args,
+                                                            stream);
+}
+
+// as k8_mfcc: the tile rows of the host's plan
 extern "C" int k3_phases(const K3Args* args, void* stream) {
-  return launch(k3_kernel<FE_PHASES>, args, stream);
+  switch (args->v.rows) {
+    case 128: return k3_phases_launch<8, 1>(args, stream);
+    case 64: return k3_phases_launch<2, 2>(args, stream);
+    case 16: return k3_phases_launch<1, 1, true>(args, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // as k9_mfcc: the 64-row product up to 64 frames, the 112-row one up to 112
 extern "C" int k3_radix4(const K3Args* args, void* stream) {
   if (args->fe.frames > R4_MAX_FRAMES) return (int)cudaErrorInvalidValue;
-  return launch(args->fe.frames <= R4_SMALL_FRAMES ? k3_radix4_kernel<2, 2>
-                                                   : k3_radix4_kernel<7, 1>,
-                args, stream);
+  return args->fe.frames <= R4_SMALL_FRAMES
+             ? fe_launch<K3Args, k3_radix4_kernel<2, 2>>(args->aug.batch, args->smem_bytes,
+                                                         *args, stream)
+             : fe_launch<K3Args, k3_radix4_kernel<7, 1>>(args->aug.batch, args->smem_bytes,
+                                                         *args, stream);
 }
 
 extern "C" int k3_args_size(void) { return (int)sizeof(K3Args); }

@@ -1,31 +1,25 @@
 // The spectral front end shared by the port's CUDA kernels: one
 // utterance's samples in shared memory -> MFCC or log-mel features.
 //
-// One implementation for the hops and phases kernels, as the JAX package
-// has one `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
+// One implementation for the hops kernels, as the JAX package has one
+// `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
 // front-end and inference kernels:
-//   K2/K8    csrc/mfcc.cu     wav -> features (mfcc.py::_kernel, ::_kernel_phases)
-//   K3       csrc/frontend.cu gather + augment -> features (frontend.py::_kernel)
-//   K4       csrc/infer.cu    wav -> features -> convs -> logits (infer.py::_kernel)
-// K9 (mfcc.py::_kernel_radix4, and K3's radix4 entry point) has its own
-// stage and tail in radix4.cuh, on the tensor cores; it shares FeArgs,
-// FeVariant and fe_bf16 with this file.
+//   K2  csrc/mfcc.cu     wav -> features (mfcc.py::_kernel)
+//   K3  csrc/frontend.cu gather + augment -> features (frontend.py::_kernel)
+//   K4  csrc/infer.cu    wav -> features -> convs -> logits (infer.py::_kernel)
+// K8 (mfcc.py::_kernel_phases, and K3's phases entry point) and K9
+// (::_kernel_radix4, K3's radix4 entry point) run on the tensor cores:
+// dft_tc.cuh and radix4.cuh. They share FeArgs, FeVariant, fe_bf16 and
+// fe_launch with this file.
 //
 // A kernel runs, with all threads of the block:
-//   1. a DFT stage into the power (MFCC) or magnitude (log-mel) spectrum
-//      [frames, nbp] in region B, one of
-//        fe_dft_hops    every frame's full-window dot with the windowed DFT
-//                       (K2, K3, K4: reim[f] = frame[f] @ W),
-//        fe_dft_phases  frames grouped by phase f mod P, each group a product
-//                       of a strided view of the utterance (rows of
-//                       rows_p * 128 samples, 640 apart at both reference
-//                       geometries) against that phase's W_p, whose rows
-//                       outside [o_p, o_p + window) are zero (K8);
+//   1. fe_dft_hops: every frame's full-window dot with the windowed DFT,
+//      reim[f] = frame[f] @ W, into the power (MFCC) or magnitude (log-mel)
+//      spectrum [frames, nbp] in region B;
 //   2. fe_tail: mel and log(mel + 1e-6), then the DCT for MFCC.
-// The DFT is the bulk of the work: per 1 s clip 24.2 M multiply-adds
-// (hops) or 28.9 M with W_p's zero rows (phases) at 480/160, 32.2 M or
-// 35.3 M at 640/320. Its bound on the H100 is FP32 FMA issue: these two
-// stages run on the CUDA cores. It is register-blocked: each thread owns 4
+// The DFT is the bulk of the work: per 1 s clip 24.2 M multiply-adds at
+// 480/160, 32.2 M at 640/320. Its bound on the H100 is FP32 FMA issue: this
+// stage runs on the CUDA cores. It is register-blocked: each thread owns 4
 // output columns x RF frames, the columns interleaved (re_k, im_k, re_k+1,
 // im_k+1) so that a thread forms two power bins from its own accumulators.
 //
@@ -49,33 +43,51 @@
 #define FE_THREADS 256
 #define FE_RF 14  // frames per thread in the DFT micro-tile
 #define FE_RM 7   // frames per thread in the mel / DCT micro-tile
-#define FE_LANES 128  // samples per row of the phase plan
-#define FE_MAX_PHASES 8
-
-enum { FE_HOPS = 0, FE_PHASES = 1 };
 
 struct FeArgs {
   const float* dft;  // [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1)
-  const float* mel;  // [num_bins, num_mel]
+  const float* mel;  // [num_bins, num_mel]; K8, K9: the nonzero weights of their mel runs
   const float* dct;  // [num_mel, num_coef]; unused when magnitude
   int n, window, hop, frames, ncg, num_bins, num_mel, num_coef;
   int magnitude, round_bf16;
 };
 
-// The DFT stage of K8 (phases) and K9 (radix4, radix4.cuh); the hops
-// stage needs none.
+// The tensor-core stages' constants: K8 (dft_tc.cuh) and K9 (radix4.cuh);
+// the hops stage needs none.
 struct FeVariant {
-  // phases: W_p [rows[p] * 128, 4 ncg] at w + off[p]; radix4: the live
-  // columns of M0 [L, L], M1 [2L, 2L], M2 [L, L] back to back, row-major,
-  // each as (re, im) pairs
+  // radix4: the live columns of M0 [L, L], M1 [2L, 2L], M2 [L, L] back to
+  // back, row-major, each as (re, im) pairs; phases: FeArgs.dft
   const float* w;
-  const float* win;    // radix4: the window zero-padded to 4L
-  const int* runs;     // radix4: the mel runs [units][num_mel][3] (radix4.cuh)
-  int num_p, s_rows;   // phases: P and the rows of a superblock (lcm(hop, 128) / 128)
-  int length;          // radix4: L
-  int mel_nnz;         // radix4: the mel's nonzero weights (FeArgs.mel)
-  int c[FE_MAX_PHASES], rows[FE_MAX_PHASES], frames[FE_MAX_PHASES], off[FE_MAX_PHASES];
+  const float* win;   // radix4: the window zero-padded to 4L
+  const int* runs;    // the mel runs [units][num_mel][3] (dft_tc.cuh)
+  float* part;        // phases, split tiles: the units' mel contributions
+  int* done;          // phases, split tiles: per tile, its blocks that finished (0 between calls)
+  int length;         // radix4: L
+  int mel_nnz;        // the mel's nonzero weights (FeArgs.mel)
+  int units;          // phases: column units of 128 (fft / 128)
+  int rows;           // phases: rows of a block's tile (the host plan's)
+  int splits;         // phases: blocks a tile's units are split over (the host plan's)
+  int stride, gap;    // phases: the staged samples' chunk stride and piece gap (floats)
 };
+
+// Launches Kernel on `grid` blocks of FE_THREADS. Above 48 KB of dynamic
+// shared memory a kernel needs its limit raised first: that is done once
+// per kernel, device and larger size, not on every launch.
+template <class Args, void (*Kernel)(Args)>
+static int fe_launch(int grid, int smem_bytes, const Args& args, void* stream) {
+  static int granted[64] = {};  // per device: the bytes this kernel may use
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int& have = granted[dev & 63];
+  if (smem_bytes > 48 * 1024 && smem_bytes > have) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    have = smem_bytes;
+  }
+  Kernel<<<grid, FE_THREADS, smem_bytes, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
 
 __device__ __forceinline__ float fe_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -139,7 +151,7 @@ __device__ __forceinline__ void fe_power2(const FeArgs& a, const float (&acc)[4]
   dst[1] = p1;
 }
 
-// ---- 1. DFT stages -> power / magnitude [frames, nbp] in B ----
+// ---- 1. DFT stage -> power / magnitude [frames, nbp] in B ----
 
 __device__ __forceinline__ void fe_dft_hops(const FeArgs& a, const float* reg_a, float* reg_b) {
   const int nbp = 2 * a.ncg;
@@ -157,34 +169,6 @@ __device__ __forceinline__ void fe_dft_hops(const FeArgs& a, const float* reg_a,
     for (int i = 0; i < FE_RF; ++i) {
       const int f = fg * FE_RF + i;
       if (f < a.frames) fe_power2(a, acc[i], reg_b + f * nbp + 2 * cg);
-    }
-  }
-}
-
-// K8: output row q of phase p is frame P q + p; its A row starts at sample
-// (S q + c_p) * 128 and has K = rows_p * 128 columns (16-byte aligned).
-__device__ __forceinline__ void fe_dft_phases(const FeArgs& a, const FeVariant& v,
-                                              const float* reg_a, float* reg_b) {
-  const int nbp = 2 * a.ncg;
-  int ngroups = 0;
-  for (int p = 0; p < v.num_p; ++p) ngroups += (v.frames[p] + FE_RF - 1) / FE_RF;
-  for (int item = threadIdx.x; item < a.ncg * ngroups; item += blockDim.x) {
-    const int cg = item % a.ncg;
-    int g = item / a.ncg;
-    int p = 0;
-    while (g >= (v.frames[p] + FE_RF - 1) / FE_RF) g -= (v.frames[p++] + FE_RF - 1) / FE_RF;
-    const int frames_p = v.frames[p];
-    int base[FE_RF];
-#pragma unroll
-    for (int i = 0; i < FE_RF; ++i)
-      base[i] = (v.s_rows * min(g * FE_RF + i, frames_p - 1) + v.c[p]) * FE_LANES;
-    float acc[FE_RF][4];
-    fe_dft_tile<FE_RF>(reg_a, base, reinterpret_cast<const float4*>(v.w + v.off[p]), a.ncg,
-                       cg, v.rows[p] * FE_LANES, acc);
-#pragma unroll
-    for (int i = 0; i < FE_RF; ++i) {
-      const int q = g * FE_RF + i;
-      if (q < frames_p) fe_power2(a, acc[i], reg_b + (v.num_p * q + p) * nbp + 2 * cg);
     }
   }
 }
@@ -252,16 +236,9 @@ __device__ __forceinline__ void fe_tail(const FeArgs& a, float* reg_a, float* re
   __syncthreads();
 }
 
-// Steps 1-3 with the DFT stage of variant V (K4 runs FE_HOPS, whose stage
-// reads nothing of v).
-template <int V>
-__device__ __forceinline__ void fe_features_v(const FeArgs& a, const FeVariant& v, float* reg_a,
-                                              float* reg_b) {
-  if constexpr (V == FE_HOPS) {
-    fe_dft_hops(a, reg_a, reg_b);
-  } else {
-    fe_dft_phases(a, v, reg_a, reg_b);
-  }
+// Steps 1-3 (K2, K3-hops, K4)
+__device__ __forceinline__ void fe_features(const FeArgs& a, float* reg_a, float* reg_b) {
+  fe_dft_hops(a, reg_a, reg_b);
   __syncthreads();
   fe_tail(a, reg_a, reg_b);
 }

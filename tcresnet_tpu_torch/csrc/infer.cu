@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
   __syncthreads();
 
   // ---- 1-3. front end: features [frames, C] in B ----
-  fe_features_v<FE_HOPS>(a.fe, FeVariant{}, reg_a, reg_b);
+  fe_features(a.fe, reg_a, reg_b);
   const int n_feat = fe_width(a.fe);
 
   // ---- 4. conv stack (residual dataflow by role), buffers in A ----

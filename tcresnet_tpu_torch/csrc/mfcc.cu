@@ -9,29 +9,30 @@
 // feature write; these keep one utterance in shared memory, and only the
 // wav read and the feature write touch device memory.
 //
-// What bounds them on the H100. K2 and K8: FP32 FMA issue in the DFT stage,
-// not memory (per row 64 KB in, 15.7 KB or less out): 24.2 M (K2) and
-// 28.9 M (K8, W_p's zero rows included) multiply-adds per 1 s clip at
-// 480/160, 32.2 M and 35.3 M at 640/320. K9: its stage-2 products, 6 L^2 a
-// frame (9.6 M at 480/160, 19.3 M at 640/320), at the tensor cores'
-// float32-exact (3xTF32) rate, and the L2 reads of M0-M2 (1.5 MB at
-// 640/320) that feed them.
+// What bounds them on the H100. K2: FP32 FMA issue in its DFT stage, not
+// memory (per row 64 KB in, 15.7 KB or less out): 24.2 M multiply-adds per
+// 1 s clip at 480/160, 32.2 M at 640/320. K8 and K9: their products at the
+// tensor cores' float32-exact (3xTF32) rate, K8's window x fft a frame
+// (24.1 M a clip at 480/160, 32.1 M at 640/320), K9's 6 L^2 (9.6 M, 19.3
+// M), and the L2 reads of their constants that feed them.
 //
-// What the design does about it: one block per utterance (the batch is the
-// grid). K2 and K8 run the register-blocked products of frontend.cuh with
-// the DFT constant (~260 KB to 2.6 MB) in global memory, L2-resident; K8
-// differs from K2 only in its A addressing (a strided lane-row view instead
-// of hop-spaced frames), its per-phase constants and their zero rows, so
-// what the phase layout costs on this card is what their times compare. K9
-// (radix4.cuh) makes all frames of the utterance one product on the tensor
-// cores, so each slice of M0-M2 is read from L2 once per utterance, and
-// folds the mel into its column loop so that no power spectrum is stored.
+// What the designs do about it. K2: one block per utterance (the batch is
+// the grid), the register-blocked products of frontend.cuh with the DFT
+// constant (~260 KB to 1 MB) in global memory, L2-resident. K8
+// (dft_tc.cuh): the batch's frames are one row space, a block a tile of
+// 128, 64 or 16 of them (the host's plan, from the batch), read in place
+// from the staged samples against the live DFT rows on the tensor cores.
+// K9 (radix4.cuh): one block per utterance, all its frames one product on
+// the tensor cores, so each slice of M0-M2 is read from L2 once per
+// utterance. K8 and K9 fold the mel into their column loop, so that no
+// power spectrum is stored.
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
 // launch on the given stream and return cudaGetLastError()).
 
 #include <cuda_runtime.h>
 
+#include "dft_tc.cuh"
 #include "frontend.cuh"
 #include "radix4.cuh"
 
@@ -43,7 +44,6 @@ struct K2Args {
   int batch, region_a, smem_bytes;
 };
 
-template <int V>
 __global__ void __launch_bounds__(FE_THREADS, 1) k2_kernel(const K2Args a) {
   extern __shared__ __align__(16) float smem[];
   float* reg_a = smem;
@@ -51,8 +51,30 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k2_kernel(const K2Args a) {
   const float* wav = a.wavs + (size_t)blockIdx.x * a.fe.n;
   for (int i = threadIdx.x; i < a.fe.n; i += blockDim.x) reg_a[i] = fe_sample(a.fe, wav[i]);
   __syncthreads();
-  fe_features_v<V>(a.fe, a.v, reg_a, reg_b);
+  fe_features(a.fe, reg_a, reg_b);
   fe_store(a.fe, reg_b, a.out + (size_t)blockIdx.x * a.fe.frames * fe_width(a.fe));
+}
+
+// K8: the tile's sample span copied with cp.async (16-byte aligned: n,
+// hop and window are multiples of 4), rounded to bf16 in place for
+// dsp_matmul_dtype="bfloat16" (the DFT's A operand, as fe_sample does)
+template <int MI, int WM, bool SPLIT>
+__global__ void __launch_bounds__(FE_THREADS, 1) k8_kernel(const K2Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch, TcCfg<MI, WM>::ROWS);
+  const float* wavs = a.wavs;
+  const int n = a.fe.n;
+  tc_stage(a.fe, a.v, tl, smem, [wavs, n](int b) {
+    const float* wav = wavs + (size_t)b * n;
+    return [wav](int t, float* dst) { cp_async16(dst, wav + t, true); };
+  });
+  if (a.fe.round_bf16) {
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < a.region_a; i += FE_THREADS) smem[i] = fe_bf16(smem[i]);
+  }
+  tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.out);
 }
 
 // K9: the samples unrounded (the butterfly rounds after the window), copied
@@ -60,33 +82,41 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k2_kernel(const K2Args a) {
 template <int MI, int WM>
 __global__ void __launch_bounds__(FE_THREADS, 1) k9_kernel(const K2Args a) {
   extern __shared__ __align__(16) float smem[];
-  r4_copy(smem, a.wavs + (size_t)blockIdx.x * a.fe.n, a.fe.n / 4);
+  tc_copy(smem, a.wavs + (size_t)blockIdx.x * a.fe.n, a.fe.n / 4);
   r4_features<MI, WM>(a.fe, a.v, smem, a.region_a,
                       a.out + (size_t)blockIdx.x * a.fe.frames * fe_width(a.fe));
 }
 
-static int launch(void (*kernel)(K2Args), const K2Args* args, void* stream) {
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<args->batch, FE_THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int k2_mfcc(const K2Args* args, void* stream) {
-  return launch(k2_kernel<FE_HOPS>, args, stream);
+  return fe_launch<K2Args, k2_kernel>(args->batch, args->smem_bytes, *args, stream);
 }
 
+template <int MI, int WM, bool SPLIT = false>
+static int k8_launch(const K2Args* args, void* stream) {
+  constexpr int rows = TcCfg<MI, WM>::ROWS;
+  if (!SPLIT && args->v.splits != 1) return (int)cudaErrorInvalidValue;
+  const int grid = (args->batch * args->fe.frames + rows - 1) / rows * args->v.splits;
+  return fe_launch<K2Args, k8_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args, stream);
+}
+
+// the tile rows of the host's plan: 128 (8 warps over the columns, 8 m16
+// tiles each), 64 (2 x 4 warps, 2 m16 tiles each), 16 (8 warps, 1 m16 tile)
 extern "C" int k8_mfcc(const K2Args* args, void* stream) {
-  return launch(k2_kernel<FE_PHASES>, args, stream);
+  switch (args->v.rows) {
+    case 128: return k8_launch<8, 1>(args, stream);
+    case 64: return k8_launch<2, 2>(args, stream);
+    case 16: return k8_launch<1, 1, true>(args, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // the 64-row product up to 64 frames (640/320: 49), the 112-row one up to
 // 112 (480/160: 98)
 extern "C" int k9_mfcc(const K2Args* args, void* stream) {
   if (args->fe.frames > R4_MAX_FRAMES) return (int)cudaErrorInvalidValue;
-  return launch(args->fe.frames <= R4_SMALL_FRAMES ? k9_kernel<2, 2> : k9_kernel<7, 1>, args,
-                stream);
+  return args->fe.frames <= R4_SMALL_FRAMES
+             ? fe_launch<K2Args, k9_kernel<2, 2>>(args->batch, args->smem_bytes, *args, stream)
+             : fe_launch<K2Args, k9_kernel<7, 1>>(args->batch, args->smem_bytes, *args, stream);
 }
 
 extern "C" int k2_args_size(void) { return (int)sizeof(K2Args); }

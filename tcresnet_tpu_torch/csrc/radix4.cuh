@@ -42,7 +42,8 @@
 //    weights alone. The block keeps them, the window and the samples in
 //    shared memory, copied with cp.async: read from global memory inside
 //    the loop, their dependent loads held each thread for an L2 latency.
-//  - 3xTF32 mma.sync m16n8k8 (async_mma.cuh), both parts of each operand
+//  - 3xTF32 mma.sync m16n8k8 (dft_tc.cuh, shared with K8: the products,
+//    the power tile, the mel fold and the tail), both parts of each operand
 //    rounded to the nearest TF32 value (split_tf32_rn). Per k8 step a
 //    tile's lo*hi, hi*lo, hi*hi are summed from zero on the tensor cores
 //    and added to the unit's sums in float32: the tensor cores' own
@@ -70,26 +71,11 @@
 
 #pragma once
 
-#include "async_mma.cuh"
-#include "frontend.cuh"
+#include "dft_tc.cuh"
 
-#define R4_BK 32                // K rows of a slice
-#define R4_BN 128               // columns of a unit
-#define R4_PAIRS (R4_BN / 2)    // power bins of a unit
-#define R4_STAGES 3             // slices in the ring
-#define R4_SA (R4_BK + 4)       // A row stride: lanes (g, t) read banks 4g + t
-#define R4_SB (R4_BN + 8)       // B row stride: banks 8t + g
-#define R4_SP (R4_PAIRS + 1)    // power tile row stride, odd: the mel's lanes read by frame
+#define R4_SA (TC_BK + 4)       // A row stride: lanes (g, t) read banks 4g + t
 #define R4_SMALL_FRAMES 64      // frames of the 64-row product
 #define R4_MAX_FRAMES 112       // frames of the 112-row product
-
-// 8 warps as WM (frames) x WN (columns), MI m16 x NI n8 tiles each
-template <int MI, int WM>
-struct R4Cfg {
-  static constexpr int WN = 8 / WM;
-  static constexpr int NI = R4_BN / WN / 8;
-  static constexpr int ROWS = WM * MI * 16;
-};
 
 // Where a slice stream stands: unit u (columns n0.. of branch br) and its
 // K rows k0..k0 + 31. Units run branch 0 (L / 128 units of L K rows), 1
@@ -101,14 +87,14 @@ struct R4Slice {
 __device__ __forceinline__ int r4_rows(const R4Slice& c, int len) { return c.br == 1 ? 2 * len : len; }
 
 __device__ __forceinline__ bool r4_last(const R4Slice& c, int len) {
-  return c.k0 + R4_BK == r4_rows(c, len);
+  return c.k0 + TC_BK == r4_rows(c, len);
 }
 
 __device__ __forceinline__ void r4_advance(R4Slice& c, int len) {
-  c.k0 += R4_BK;
+  c.k0 += TC_BK;
   if (c.k0 < r4_rows(c, len)) return;
   c.k0 = 0;
-  c.n0 += R4_BN;
+  c.n0 += TC_BN;
   ++c.u;
   if (c.n0 == r4_rows(c, len)) {
     c.n0 = 0;
@@ -121,16 +107,8 @@ __device__ __forceinline__ void r4_advance(R4Slice& c, int len) {
 __device__ __forceinline__ void r4_load_b(const FeVariant& v, float* ring, int st,
                                           const R4Slice& sl) {
   const int len = v.length;
-  const int ld = sl.br == 1 ? 2 * len : len;
-  const float* w = v.w + (sl.br == 0 ? 0 : (sl.br == 1 ? len * len : 5 * len * len)) +
-                   (size_t)sl.k0 * ld + sl.n0;
-  float* dst = ring + st * R4_BK * R4_SB;
-#pragma unroll
-  for (int r = 0; r < R4_BK * R4_BN / 4 / FE_THREADS; ++r) {
-    const int c = threadIdx.x + r * FE_THREADS;
-    const int row = c / (R4_BN / 4), col = (c % (R4_BN / 4)) * 4;
-    cp_async16(dst + row * R4_SB + col, w + (size_t)row * ld + col, true);
-  }
+  tc_load_b(v.w + (sl.br == 0 ? 0 : (sl.br == 1 ? len * len : 5 * len * len)),
+            sl.br == 1 ? 2 * len : len, ring + st * TC_BK * TC_SB, sl.n0, sl.k0);
 }
 
 // The A slice: the butterfly of every frame (rows past the frames zero) at
@@ -146,9 +124,9 @@ __device__ __forceinline__ float r4_round(float x) { return RND ? fe_bf16(x) : x
 
 template <int ROWS, bool RND>
 struct R4Build {
-  static constexpr int STEP = FE_THREADS / (R4_BK / 4);  // frames a step
+  static constexpr int STEP = FE_THREADS / (TC_BK / 4);  // frames a step
   static constexpr int STEPS = (ROWS + STEP - 1) / STEP;
-  static_assert(STEPS <= R4_BK / 8, "one build step per k8 step of the products");
+  static_assert(STEPS <= TC_BK / 8, "one build step per k8 step of the products");
   const FeArgs& a;
   const float* xs;  // the thread's first sample of frame 0
   float* dst;       // its first A element of frame 0
@@ -158,7 +136,7 @@ struct R4Build {
   __device__ __forceinline__ R4Build(const FeArgs& a_, const FeVariant& v, const float* x,
                                      const float* win, float* abuf, const R4Slice& sl)
       : a(a_), br(sl.br), len(v.length) {
-    const int kk = (threadIdx.x % (R4_BK / 4)) * 4;
+    const int kk = (threadIdx.x % (TC_BK / 4)) * 4;
     const int k = sl.k0 + kk;
     const int l = k < len ? k : k - len;
     below = k < len;
@@ -173,7 +151,7 @@ struct R4Build {
   }
 
   __device__ __forceinline__ void step(int j) {
-    const int f = threadIdx.x / (R4_BK / 4) + j * STEP;
+    const int f = threadIdx.x / (TC_BK / 4) + j * STEP;
     if (j >= STEPS || f >= ROWS) return;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (f < a.frames) {
@@ -210,163 +188,6 @@ struct R4Build {
   }
 };
 
-// acc[mp + i] += p[i] for a group's tile rows (round to nearest)
-template <int MI, int NI>
-__device__ __forceinline__ void r4_add_group(float (&acc)[MI][NI][4], const float (&p)[2][NI][4],
-                                             int mp) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (mp + i < MI) {
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mp + i][ni][e] = __fadd_rn(acc[mp + i][ni][e], p[i][ni][e]);
-      }
-    }
-  }
-}
-
-// One slice on the tensor cores, added to acc. Per k8 step, tile by tile,
-// lo*hi (from zero), + hi*lo, + hi*hi on the tensor cores, then acc +=
-// that sum in a round-to-nearest add (the header says why). The work runs in groups of two m16 tile rows: a group's three products
-// go out in three passes over its tiles (so that consecutive mma.sync are
-// independent), then the sums of the group before are added while they
-// run. between(j) runs after step j's products are issued.
-template <int MI, int WM, class Between>
-__device__ __forceinline__ void r4_mma(const float* abuf, const float* bst, int wm, int wn,
-                                       float (&acc)[MI][R4Cfg<MI, WM>::NI][4],
-                                       Between&& between) {
-  using C = R4Cfg<MI, WM>;
-  constexpr int G = (MI + 1) / 2;  // groups of two tile rows a k8 step
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float p[2][2][C::NI][4];  // the sums of the group in flight and of the one before
-  uint32_t bhi[C::NI][2], blo[C::NI][2];
-#pragma unroll
-  for (int q = 0; q < (R4_BK / 8) * G; ++q) {
-    const int kk = (q / G) * 8, mp = (q % G) * 2;
-    if (q % G == 0) {
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) {
-        const float* bc = bst + (kk + t) * R4_SB + (wn * C::NI + ni) * 8 + g;
-        split_tf32_rn(bc[0], bhi[ni][0], blo[ni][0]);
-        split_tf32_rn(bc[4 * R4_SB], bhi[ni][1], blo[ni][1]);
-      }
-    }
-    uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-    for (int i = 0; i < 2 && mp + i < MI; ++i) {
-      const float* ar = abuf + (wm * MI * 16 + (mp + i) * 16 + g) * R4_SA + kk + t;
-      split_tf32_rn(ar[0], ahi[i][0], alo[i][0]);
-      split_tf32_rn(ar[8 * R4_SA], ahi[i][1], alo[i][1]);
-      split_tf32_rn(ar[4], ahi[i][2], alo[i][2]);
-      split_tf32_rn(ar[8 * R4_SA + 4], ahi[i][3], alo[i][3]);
-    }
-    float (&pq)[2][C::NI][4] = p[q & 1];
-#pragma unroll
-    for (int i = 0; i < 2 && mp + i < MI; ++i) {
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) mma_tf32_zero(pq[i][ni], alo[i], bhi[ni]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2 && mp + i < MI; ++i) {
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) mma_tf32(pq[i][ni], ahi[i], blo[ni]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2 && mp + i < MI; ++i) {
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) mma_tf32(pq[i][ni], ahi[i], bhi[ni]);
-    }
-    if (q % G == G - 1) between(q / G);
-    if (q > 0) r4_add_group<MI, C::NI>(acc, p[(q - 1) & 1], ((q - 1) % G) * 2);
-  }
-  r4_add_group<MI, C::NI>(acc, p[((R4_BK / 8) * G - 1) & 1], (G - 1) * 2);
-}
-
-// a finished unit: acc[mi][ni] holds (re, im) of one bin in elements (0, 1)
-// for row g and (2, 3) for row g + 8; its power (magnitude) to the tile,
-// pair (wn NI + ni) 4 + t, and the accumulators back to zero
-template <int MI, int WM>
-__device__ __forceinline__ void r4_power(const FeArgs& a, float (&acc)[MI][R4Cfg<MI, WM>::NI][4],
-                                         float* ptile, int wm, int wn) {
-  using C = R4Cfg<MI, WM>;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wm * MI * 16 + mi * 16 + g + 8 * h;
-#pragma unroll
-      for (int ni = 0; ni < C::NI; ++ni) {
-        const float re = acc[mi][ni][2 * h], im = acc[mi][ni][2 * h + 1];
-        float p = re * re + im * im;
-        if (a.magnitude) p = sqrtf(p);
-        if (row < a.frames) ptile[row * R4_SP + (wn * C::NI + ni) * 4 + t] = p;
-        acc[mi][ni][2 * h] = acc[mi][ni][2 * h + 1] = 0.f;
-      }
-    }
-  }
-}
-
-// unit u's power tile through the mel: warp w takes bands w, w + 8, ...,
-// lane l frames l, l + 32, ... (R4_MAX_FRAMES <= 128); the band's run
-// (the [first, end) rows of nonzero weight in the unit, and where their
-// weights start in vals: runs [units][num_mel][3]) and weights are the
-// same across the warp. sums is band-major [num_mel][frames]; each sum is
-// owned by one thread.
-__device__ __forceinline__ void r4_mel(const FeArgs& a, const int* runs, const float* vals,
-                                       const float* ptile, float* sums, int u) {
-  const int nm = a.num_mel;
-  const int lane = threadIdx.x & 31;
-  const int* ru = runs + u * nm * 3;
-  for (int m = threadIdx.x >> 5; m < nm; m += FE_THREADS / 32) {
-    const int r0 = ru[3 * m], r1 = ru[3 * m + 1];
-    const float* w = vals + ru[3 * m + 2] - r0;
-    constexpr int FL = (R4_MAX_FRAMES + 31) / 32;  // frames a lane
-    float acc[FL] = {};
-    for (int k = r0; k < r1; ++k) {
-      const float wk = w[k];
-#pragma unroll
-      for (int i = 0; i < FL; ++i) {
-        const int f = lane + 32 * i;
-        if (f < a.frames) acc[i] = fmaf(ptile[f * R4_SP + k], wk, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < FL; ++i) {
-      const int f = lane + 32 * i;
-      if (f < a.frames) sums[m * a.frames + f] += acc[i];
-    }
-  }
-}
-
-// log(mel + 1e-6), then for MFCC the DCT (staged in `scratch`), into out
-// [frames, C]; sums is band-major [num_mel][frames]
-__device__ __forceinline__ void r4_tail(const FeArgs& a, float* sums, float* scratch, float* out) {
-  const int total = a.frames * a.num_mel;
-  for (int i = threadIdx.x; i < total; i += FE_THREADS) {
-    const float lm = logf(sums[i] + 1e-6f);
-    if (a.magnitude) {
-      const int m = i / a.frames;
-      out[(i - m * a.frames) * a.num_mel + m] = lm;
-    } else {
-      sums[i] = lm;
-    }
-  }
-  if (a.magnitude) return;
-  for (int i = threadIdx.x; i < a.num_mel * a.num_coef; i += FE_THREADS) scratch[i] = a.dct[i];
-  __syncthreads();
-  for (int item = threadIdx.x; item < a.frames * a.num_coef; item += FE_THREADS) {
-    const int f = item / a.num_coef, c = item - f * a.num_coef;
-    float acc = 0.f;
-    for (int m = 0; m < a.num_mel; ++m)
-      acc = fmaf(sums[m * a.frames + f], scratch[m * a.num_coef + c], acc);
-    out[item] = acc;
-  }
-}
-
 // The slice stream (RND: the bf16 butterfly). The tables are in shared
 // memory and synchronised; on return the last unit's power tile is written
 // and the ring's copies have landed, not yet synchronised.
@@ -374,17 +195,18 @@ template <int MI, int WM, bool RND>
 __device__ __forceinline__ void r4_run(const FeArgs& a, const FeVariant& v, const float* x,
                                        const float* win, const int* runs, const float* vals,
                                        float* ring, float* abuf, float* ptile, float* sums) {
-  using C = R4Cfg<MI, WM>;
+  using C = TcCfg<MI, WM>;
   const int len = v.length;
-  const int units = 4 * (len / R4_BN);
+  const int units = 4 * (len / TC_BN);
   const int warp = threadIdx.x >> 5;
   const int wm = warp / C::WN, wn = warp % C::WN;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   // three cursors: the products (slice s), the A build (s + 1) and the
   // ring's loads (s + 2)
   R4Slice cur = {0, 0, 0, 0};
   R4Slice load = cur;
 #pragma unroll
-  for (int st = 0; st < R4_STAGES - 1; ++st) {
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
     r4_load_b(v, ring, st, load);
     cp_async_commit();
     r4_advance(load, len);
@@ -406,9 +228,9 @@ __device__ __forceinline__ void r4_run(const FeArgs& a, const FeVariant& v, cons
     }
   }
   for (int s = 0; cur.u < units; ++s) {
-    cp_async_wait<R4_STAGES - 2>();  // slice s of M has landed
+    cp_async_wait<TC_STAGES - 2>();  // slice s of M has landed
     __syncthreads();  // for every thread; A of s is written, stage and buffer of s - 1 free
-    if (load.u < units) r4_load_b(v, ring, (s + R4_STAGES - 1) % R4_STAGES, load);
+    if (load.u < units) r4_load_b(v, ring, (s + TC_STAGES - 1) % TC_STAGES, load);
     cp_async_commit();
     r4_advance(load, len);
     // the products of slice s, with A of slice s + 1 built between their
@@ -416,22 +238,24 @@ __device__ __forceinline__ void r4_run(const FeArgs& a, const FeVariant& v, cons
     // before this barrier; the next write is a unit, >= 4 barriers, later)
     const bool more = next.u < units;
     R4Build<C::ROWS, RND> build(a, v, x, win, abuf + ((s + 1) & 1) * C::ROWS * R4_SA, next);
-    r4_mma<MI, WM>(abuf + (s & 1) * C::ROWS * R4_SA, ring + (s % R4_STAGES) * R4_BK * R4_SB,
-                   wm, wn, acc, [&](int j) {
-                     if (more) build.step(j);
-                   });
-    if (cur.u > 0 && cur.k0 == 0) r4_mel(a, runs, vals, ptile, sums, cur.u - 1);
-    if (r4_last(cur, len)) r4_power<MI, WM>(a, acc, ptile, wm, wn);
+    const float* as = abuf + (s & 1) * C::ROWS * R4_SA + (wm * MI * 16 + g) * R4_SA + t;
+    tc_mma<MI, WM>(
+        [&](int mi, int kk, float (&av)[4]) {
+          const float* ar = as + mi * 16 * R4_SA + kk;
+          av[0] = ar[0];
+          av[1] = ar[8 * R4_SA];
+          av[2] = ar[4];
+          av[3] = ar[8 * R4_SA + 4];
+        },
+        ring + (s % TC_STAGES) * TC_BK * TC_SB, wn, acc, [&](int j) {
+          if (more) build.step(j);
+        });
+    if (cur.u > 0 && cur.k0 == 0) tc_mel(a, runs, vals, ptile, sums, cur.u - 1, a.frames);
+    if (r4_last(cur, len)) tc_power<MI, WM>(a, acc, ptile, wm, wn, a.frames);
     cur = next;
     r4_advance(next, len);
   }
   cp_async_wait<0>();
-}
-
-// 16-byte cp.async copies of n4 float4s (not committed)
-__device__ __forceinline__ void r4_copy(void* dst, const void* src, int n4) {
-  for (int i = threadIdx.x; i < n4; i += FE_THREADS)
-    cp_async16(reinterpret_cast<float4*>(dst) + i, reinterpret_cast<const float4*>(src) + i, true);
 }
 
 // The samples are in smem[0, n), unrounded: the caller has written them or
@@ -440,26 +264,24 @@ __device__ __forceinline__ void r4_copy(void* dst, const void* src, int n4) {
 // a multiple of 4): the window [4L], the mel runs [units][num_mel][3] and
 // weights [v.mel_nnz, padded], the ring, the A double buffer, the power
 // tile and the mel sums.
-__device__ __forceinline__ int r4_up4(int x) { return (x + 3) & ~3; }
-
 template <int MI, int WM>
 __device__ __forceinline__ void r4_features(const FeArgs& a, const FeVariant& v, float* smem,
                                             int region_a, float* out) {
-  using C = R4Cfg<MI, WM>;
+  using C = TcCfg<MI, WM>;
   const int len = v.length;
-  const int units = 4 * (len / R4_BN);
+  const int units = 4 * (len / TC_BN);
   const int nruns = units * a.num_mel * 3;
   const float* x = smem;
   float* win = smem + region_a;
   int* runs = reinterpret_cast<int*>(win + 4 * len);
-  float* vals = reinterpret_cast<float*>(runs) + r4_up4(nruns);
-  float* ring = vals + r4_up4(v.mel_nnz);
-  float* abuf = ring + R4_STAGES * R4_BK * R4_SB;
+  float* vals = reinterpret_cast<float*>(runs) + tc_up4(nruns);
+  float* ring = vals + tc_up4(v.mel_nnz);
+  float* abuf = ring + TC_STAGES * TC_BK * TC_SB;
   float* ptile = abuf + 2 * C::ROWS * R4_SA;
-  float* sums = ptile + a.frames * R4_SP;
-  r4_copy(win, v.win, len);
-  r4_copy(runs, v.runs, nruns / 4);
-  r4_copy(vals, a.mel, r4_up4(v.mel_nnz) / 4);
+  float* sums = ptile + a.frames * TC_SP;
+  tc_copy(win, v.win, len);
+  tc_copy(runs, v.runs, nruns / 4);
+  tc_copy(vals, a.mel, tc_up4(v.mel_nnz) / 4);
   cp_async_commit();
   for (int i = threadIdx.x; i < a.frames * a.num_mel; i += FE_THREADS) sums[i] = 0.f;
   cp_async_wait<0>();
@@ -470,7 +292,7 @@ __device__ __forceinline__ void r4_features(const FeArgs& a, const FeVariant& v,
     r4_run<MI, WM, false>(a, v, x, win, runs, vals, ring, abuf, ptile, sums);
   }
   __syncthreads();
-  r4_mel(a, runs, vals, ptile, sums, units - 1);
+  tc_mel(a, runs, vals, ptile, sums, units - 1, a.frames);
   __syncthreads();
-  r4_tail(a, sums, ring, out);  // the ring is free: the DCT goes there
+  tc_tail(a, sums, ring, out, a.frames);  // the ring is free: the DCT goes there
 }

@@ -4,10 +4,13 @@ decode -> augment -> MFCC or log-mel features [B, frames, C].
 Counterpart of tcresnet_tpu/ops/pallas/frontend.py, all three branches:
 the kernel is `csrc/frontend.cu`, one entry point per DFT variant (hops,
 phases as in K8, radix4 as in K9, resolved by `mfcc.resolve_dft_variant`).
-K1's per-sample body (`augment.cuh`) writes the augmented row into shared
-memory and the variant's stage of the shared front end (`frontend.cuh`)
-turns it into features, so the augmented wave never reaches device
-memory. Its plain version is K1's then the variant's MFCC plain version
+K1's per-sample body (`augment.cuh`) writes the augmented row (phases:
+the sample span of a tile of the batch's frames, each utterance with its
+own draws) into shared memory and the variant's stage (`frontend.cuh`,
+`dft_tc.cuh`, `radix4.cuh`) turns it into features, so the augmented wave
+never reaches device memory. Each launch takes the launch arguments of
+the MFCC kernel of its variant (`mfcc.FrontEnd.launch_args`: K8's tile
+plan for the batch). Its plain version is K1's then the variant's MFCC plain version
 (`frontend_reference`); a wrapper takes it only for CPU tensors.
 
 `launches`, `phases_launches` and `radix4_launches` count launches of the
@@ -102,9 +105,9 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                       dtype=torch.float32)
     if idx.shape[0] == 0:
         return out
-    args = _K3Args(fe.args(), fe.variant_args(),
-                   kernel_args(dataset, idx, scalars, noise_bank, out, n, quantize),
-                   fe.region_a, fe.smem_bytes)
+    v, region_a, smem, _part = fe.launch_args(idx.shape[0])
+    args = _K3Args(fe.args(), v, kernel_args(dataset, idx, scalars, noise_bank, out, n, quantize),
+                   region_a, smem)
     _build.launch(_library(), ENTRIES[variant], "k3_error_string", args, dataset.device)
     globals()[_COUNTERS[variant]] += 1
     return out

@@ -8,14 +8,17 @@ of `csrc/mfcc.cu`:
                 DFT (no hop decomposition on the card, see frontend.cuh)
   "phases"  K8  `_kernel_phases`: frames grouped by phase f mod P, one
                 product per phase of a strided lane-row view of the
-                utterance against W_p (`phase_dft_plan`)
+                utterance against W_p (`phase_dft_plan`); on the card every
+                frame of a tile of the batch's frames is one product over
+                the live rows of W_p, which are the windowed DFT
   "radix4"  K9  `_kernel_radix4`: the radix-4 DIF factored rDFT (window,
                 butterfly, three stage-2 products, branch-permuted power
                 and mel; `dsp.radix4_dft_matrices`), on the tensor cores
 
-Their spectral code is `csrc/frontend.cuh` (hops, phases), shared with K3
-(`frontend.cu`) and K4 (`infer.cu`, always "hops" as in JAX), and
-`csrc/radix4.cuh` (radix4, shared with K3's radix4 entry point); the
+Their spectral code is `csrc/frontend.cuh` (hops, shared with K3's hops
+entry point, `frontend.cu`, and K4, `infer.cu`, always "hops" as in JAX),
+`csrc/dft_tc.cuh` (phases, and the tensor-core pieces K9 shares) and
+`csrc/radix4.cuh` (radix4), each also K3's stage of the variant; the
 source notes say what bounds each on the H100. This module:
 
 - resolves a config's variant as the JAX package does
@@ -26,9 +29,10 @@ source notes say what bounds each on the H100. This module:
 - lays each variant's constants out for the kernels and keeps them on the
   device, once per (audio config, clip length, device, variant)
   (`front_end` -> `FrontEnd`, the ctypes mirrors of `FeArgs` and
-  `FeVariant`; K9's live columns, rows and mel runs:
-  `radix4_kernel_constants`), with each kernel's shared-memory plan
-  (`smem_plan`);
+  `FeVariant`; the mel runs of K8 and K9: `phases_kernel_constants`,
+  `radix4_kernel_constants`, with K9's live columns and rows), with each
+  kernel's shared-memory plan (`smem_plan`) and K8's tiles of the batch's
+  frames (`phases_tile_plan`);
 - holds the plain PyTorch versions (`fused_mfcc_reference`): the port's
   dense front end for "hops", the radix-4 path of `ops/dsp.py` for
   "radix4", and `phases_reim`, the per-phase products of
@@ -61,16 +65,23 @@ phases_launches = 0  # K8
 radix4_launches = 0  # K9
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+SMS = 132  # the H100 SXM's streaming multiprocessors
 LANES = 128  # the TPU lane width the phase plan and the radix-4 rules are stated in
-MAX_PHASES = 8  # FE_MAX_PHASES in csrc/frontend.cuh
-# K9's product (csrc/radix4.cuh): K slices of R4_BK rows of M through a ring
-# of R4_STAGES; units of R4_BN columns, R4_BN / 2 (re, im) pairs; the A
-# slice, M slice and power tile row strides; frames up to 64 take a
+# The tensor-core products of K8 and K9 (csrc/dft_tc.cuh): K slices of TC_BK
+# rows of the DFT constant through a ring of TC_STAGES; units of TC_BN
+# columns, TC_BN / 2 (re, im) pairs; the slice's and the power tile's row
+# strides
+TC_BK, TC_BN, TC_STAGES = 32, 128, 3
+TC_PAIRS = TC_BN // 2
+TC_SB, TC_SP = TC_BN + 8, TC_PAIRS + 1
+# K9 (csrc/radix4.cuh): its A slice's row stride; frames up to 64 take a
 # 64-row product, up to 112 a 112-row one
-R4_BK, R4_BN, R4_STAGES = 32, 128, 3
-R4_PAIRS = R4_BN // 2
-R4_SA, R4_SB, R4_SP = R4_BK + 4, R4_BN + 8, R4_PAIRS + 1
+R4_SA = TC_BK + 4
 R4_PRODUCT_ROWS = (64, 112)
+# K8: the rows of a block's tile in the kernel's instantiations, largest
+# first; chunks of hop staged samples lie hop + K8_PAD floats apart
+K8_TILE_ROWS = (128, 64, 16)
+K8_PAD = 4
 VARIANTS = ("hops", "phases", "radix4")
 ENTRIES = {"hops": "k2_mfcc", "phases": "k8_mfcc", "radix4": "k9_mfcc"}
 _COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
@@ -177,21 +188,17 @@ def resolve_dft_variant(cfg: AudioConfig, n: int) -> str:
 # ---------------------------------------------------------------------------
 
 
-def interleave_reim(m: np.ndarray, num_bins: int, ncg: int) -> np.ndarray:
-    """[rows, 2 * num_bins] (Re | Im) columns -> [rows, 4 * ncg], columns
-    (re_k, im_k, re_k+1, im_k+1) per group of 4, so that a thread forms two
-    power bins from its own accumulators; bins past num_bins are zero."""
-    out = np.zeros((m.shape[0], 2 * ncg, 2), np.float32)
+def interleaved_dft_matrix(window: int, fft_length: int, ncg: int) -> np.ndarray:
+    """[window, 4 * ncg] windowed real-DFT matrix with columns (re_k, im_k,
+    re_k+1, im_k+1) per group of 4, so that a thread of the hops stage forms
+    two power bins from its own accumulators (and K8's units hold (re, im)
+    pairs); bins past the last are zero."""
+    m = dsp.windowed_rdft_matrix(window, fft_length)
+    num_bins = fft_length // 2 + 1
+    out = np.zeros((window, 2 * ncg, 2), np.float32)
     out[:, :num_bins, 0] = m[:, :num_bins]
     out[:, :num_bins, 1] = m[:, num_bins:2 * num_bins]
-    return out.reshape(m.shape[0], 4 * ncg)
-
-
-def interleaved_dft_matrix(window: int, fft_length: int, ncg: int) -> np.ndarray:
-    """[window, 4*ncg] windowed real-DFT matrix with columns
-    (re_k, im_k, re_k+1, im_k+1) per group; bins past the last are zero."""
-    return interleave_reim(dsp.windowed_rdft_matrix(window, fft_length),
-                           fft_length // 2 + 1, ncg)
+    return out.reshape(window, 4 * ncg)
 
 
 class FeArgs(ctypes.Structure):
@@ -206,13 +213,13 @@ class FeArgs(ctypes.Structure):
 
 
 class FeVariant(ctypes.Structure):
-    """Mirror of struct FeVariant in csrc/frontend.cuh: the phases (K8) or
-    radix-4 (K9) DFT stage."""
+    """Mirror of struct FeVariant in csrc/frontend.cuh: the constants of the
+    tensor-core DFT stages, K8 (phases) and K9 (radix4)."""
 
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("w", "win", "runs")]
-        + [(f, ctypes.c_int) for f in ("num_p", "s_rows", "length", "mel_nnz")]
-        + [(f, ctypes.c_int * MAX_PHASES) for f in ("c", "rows", "frames", "off")]
+        [(f, ctypes.c_void_p) for f in ("w", "win", "runs", "part", "done")]
+        + [(f, ctypes.c_int) for f in (
+            "length", "mel_nnz", "units", "rows", "splits", "stride", "gap")]
     )
 
 
@@ -289,22 +296,48 @@ def radix4_kernel_constants(num_mel_bins: int, fft_length: int, sample_rate: int
     if np.delete(mel, rows, axis=0).any():
         raise ValueError(f"a radix-4 power row K9 leaves out has mel weight (fft {fft_length}, "
                          f"upper edge {upper_edge_hertz} Hz)")
-    kmel = mel[rows]
-    units = kmel.shape[0] // R4_PAIRS
-    runs = np.zeros((units, num_mel_bins, 3), np.int32)
+    w.setflags(write=False)
+    return (w, *mel_runs(mel[rows]))
+
+
+def mel_runs(kmel: np.ndarray) -> tuple:
+    """The mel [rows, M] of a kernel's power rows, 64 rows (one unit of
+    TC_BN columns) at a time, as (runs [units, M, 3] int32, vals): per unit
+    and band the [first, end) rows of nonzero weight ((0, 0) if none) and
+    where their weights start in `vals`, the nonzero weights in runs' order
+    (csrc/dft_tc.cuh::tc_mel)."""
+    units = kmel.shape[0] // TC_PAIRS
+    runs = np.zeros((units, kmel.shape[1], 3), np.int32)
     vals, offset = [], 0
     for u in range(units):
-        for m in range(num_mel_bins):
-            col = kmel[u * R4_PAIRS:(u + 1) * R4_PAIRS, m]
+        for m in range(kmel.shape[1]):
+            col = kmel[u * TC_PAIRS:(u + 1) * TC_PAIRS, m]
             nz = np.flatnonzero(col)
             first, end = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
             runs[u, m] = first, end, offset
             vals.append(col[first:end])
             offset += end - first
     vals = np.concatenate(vals).astype(np.float32)
-    for a in (w, runs, vals):
+    for a in (runs, vals):
         a.setflags(write=False)
-    return w, runs, vals
+    return runs, vals
+
+
+@functools.lru_cache(maxsize=None)
+def phases_kernel_constants(num_mel_bins: int, num_bins: int, sample_rate: int,
+                            lower_edge_hertz: float, upper_edge_hertz: float) -> tuple:
+    """K8's mel runs and nonzero weights (`mel_runs`) over its power rows,
+    the first fft / 2 bins: units of 64 bins (`dsp.mel_args` order of
+    arguments). The Nyquist bin, which K8 leaves out, must carry no mel
+    weight (it does not where the upper edge is below the Nyquist
+    frequency); ValueError otherwise."""
+    mel = dsp.linear_to_mel_weight_matrix(num_mel_bins, num_bins, sample_rate,
+                                          lower_edge_hertz, upper_edge_hertz)
+    half = num_bins - 1
+    if mel[half:].any():
+        raise ValueError(f"the Nyquist bin K8 leaves out has mel weight (upper edge "
+                         f"{upper_edge_hertz} Hz)")
+    return mel_runs(mel[:half])
 
 
 def radix4_kernel_rows(fft_length: int) -> np.ndarray:
@@ -316,33 +349,101 @@ def radix4_kernel_rows(fft_length: int) -> np.ndarray:
                            2 * length + np.arange(length // 2)])
 
 
-def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0) -> Optional[Dict[str, int]]:
+def _up4(x: int) -> int:
+    return x + (-x % 4)
+
+
+def k8_layout(g: FrontEndGeometry) -> tuple:
+    """(stride, gap) of K8's staged samples (csrc/dft_tc.cuh): chunks of
+    hop samples `stride` = hop + 4 floats apart (stride / 4 odd: the rows of
+    a fragment read distinct banks), and between the utterances of a tile
+    a `gap` beyond their rows' chunks, the multiple of 32 that holds a
+    frame's window / hop - 1 tail chunks."""
+    stride = g.hop + K8_PAD
+    return stride, -(-(g.window // g.hop - 1) * stride // 32) * 32
+
+
+def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0,
+              rows: int = 0) -> Optional[Dict[str, int]]:
     """The regions of the variant's shared-memory plan, in floats, in their
-    order. hops and phases (frontend.cuh): "a" the samples, later the
-    log-mel; "b" the power spectrum, later the features. radix4
-    (radix4.cuh), each region but the last a multiple of 4 floats: the
-    "samples", the "window" (4L), the mel's "runs" and its `nnz` nonzero
-    weights, "vals" (`radix4_kernel_constants`), the "ring" (R4_STAGES
-    slices of M, [R4_BK, R4_SB]), the "stage" (two A slices, [rows,
-    R4_SA]), the "power" tile of a unit ([frames, R4_SP]) and the "mel"
-    sums ([num_mel, frames]); None where the frames exceed the largest
-    product."""
-    a, b = g.regions()
-    if variant != "radix4":
+    order. hops (frontend.cuh): "a" the samples, later the log-mel; "b" the
+    power spectrum, later the features. radix4 (radix4.cuh) and phases
+    (dft_tc.cuh, for a tile of `rows` rows), each region but the last a
+    multiple of 4 floats: the "samples" (phases: the tile's sample span in
+    `k8_layout`, its rows touching at most 2 + (rows - 2) // frames
+    utterances), radix4's "window" (4L), the mel's "runs" and its `nnz`
+    nonzero weights, "vals" (`radix4_kernel_constants`,
+    `phases_kernel_constants`), the "ring" (TC_STAGES slices of the
+    constant, [TC_BK, TC_SB]), radix4's "stage" (two A slices, [rows,
+    R4_SA]), the "power" tile of a unit ([rows, TC_SP]) and the "mel" sums
+    ([num_mel, rows]); radix4's rows are its product's, and the plan None
+    where the frames exceed the largest product."""
+    if variant == "hops":
+        a, b = g.regions()
         return {"a": a, "b": b}
+    units = g.fft_length // TC_BN
+    if variant == "phases":
+        stride, gap = k8_layout(g)
+        pieces = 2 + (rows - 2) // g.frames
+        return {"samples": (rows + g.window // g.hop - 1) * stride + (pieces - 1) * gap,
+                "runs": _up4(units * g.num_mel * 3), "vals": _up4(nnz),
+                "ring": TC_STAGES * TC_BK * TC_SB, "power": _up4(rows * TC_SP),
+                "mel": rows * g.num_mel}
     rows = radix4_product_rows(g.frames)
     if rows is None:
         return None
     length = g.fft_length // 4
-    up4 = lambda x: x + (-x % 4)  # noqa: E731
-    return {"samples": up4(g.n), "window": 4 * length,
-            "runs": up4(4 * length // R4_BN * g.num_mel * 3), "vals": up4(nnz),
-            "ring": R4_STAGES * R4_BK * R4_SB, "stage": 2 * rows * R4_SA,
-            "power": up4(g.frames * R4_SP), "mel": g.frames * g.num_mel}
+    return {"samples": _up4(g.n), "window": 4 * length,
+            "runs": _up4(units * g.num_mel * 3), "vals": _up4(nnz),
+            "ring": TC_STAGES * TC_BK * TC_SB, "stage": 2 * rows * R4_SA,
+            "power": _up4(g.frames * TC_SP), "mel": g.frames * g.num_mel}
 
 
-def smem_bytes(g: FrontEndGeometry, variant: str, nnz: int = 0) -> int:
-    return 4 * sum(smem_plan(g, variant, nnz).values())
+def smem_bytes(g: FrontEndGeometry, variant: str, nnz: int = 0, rows: int = 0) -> int:
+    return 4 * sum(smem_plan(g, variant, nnz, rows).values())
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasesPlan:
+    """K8's launch for one batch: `tiles` tiles of `rows` consecutive
+    (utterance, frame) rows of the batch x frames row space, each tile's
+    column units split over `splits` blocks (grid tiles x splits); a block
+    stages its rows' samples in `span` floats (`k8_layout`: chunks `stride`
+    apart, utterances a further `gap`)."""
+
+    rows: int
+    tiles: int
+    splits: int
+    stride: int
+    gap: int
+    span: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> int:
+        return self.tiles * self.splits
+
+
+@functools.lru_cache(maxsize=64)
+def phases_tile_plan(batch: int, g: FrontEndGeometry, nnz: int) -> Optional[PhasesPlan]:
+    """K8's tiles for `batch` clips of geometry g (`nnz` nonzero mel
+    weights): the largest of K8_TILE_ROWS whose plan fits a block and whose
+    tiles fill every SM at least once, else the smallest that fits, its
+    column units then split over the fewest blocks (a divisor of the units)
+    that bring the grid to every SM, or over all of them: a small batch
+    spreads its frames and columns over many blocks. None if none fits."""
+    fits = [r for r in K8_TILE_ROWS if smem_bytes(g, "phases", nnz, r) <= SMEM_LIMIT]
+    if not fits:
+        return None
+    total = batch * g.frames
+    rows = next((r for r in fits if -(-total // r) >= SMS), fits[-1])
+    tiles = -(-total // rows)
+    units = g.fft_length // TC_BN
+    splits = 1 if tiles >= SMS else next(
+        (d for d in range(1, units + 1) if units % d == 0 and tiles * d >= SMS), units)
+    plan = smem_plan(g, "phases", nnz, rows)
+    return PhasesPlan(rows, tiles, splits, *k8_layout(g), plan["samples"],
+                      4 * sum(plan.values()))
 
 
 def front_end_supported(cfg: AudioConfig, n: int) -> bool:
@@ -361,28 +462,30 @@ def front_end_supported(cfg: AudioConfig, n: int) -> bool:
 def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
     """The JAX kernel's condition (hop-decomposable geometry: window % hop
     == 0, n % hop == 0, n >= window; MFCC or log-mel) and the kernels': the
-    shared front end's, a phase count that FeVariant holds, for radix4 the
-    frames of one product and no mel weight on a row it leaves out, and a
-    shared-memory plan of the resolved variant that fits one block."""
+    shared front end's; for phases a hop of whole K slices (so a slice lies
+    in one staged chunk) and whole units of bins, for radix4 the frames of
+    one product; for both no mel weight on a row they leave out and the DCT
+    staged in the ring; a shared-memory plan of the resolved variant that
+    fits one block."""
     window, hop = cfg.window_size_samples, cfg.window_stride_samples
     if window % hop or n % hop or not front_end_supported(cfg, n):
         return False
     variant = resolve_dft_variant(cfg, n)
     g = front_end_geometry(cfg, n)
-    if variant == "phases" and phase_dft_plan(
-            window, hop, n, g.fft_length)[0] > MAX_PHASES:
+    if variant == "hops":
+        return smem_bytes(g, variant) <= SMEM_LIMIT
+    if g.num_mel * g.width > TC_STAGES * TC_BK * TC_SB:  # the DCT is staged in the ring
         return False
-    nnz = 0
-    if variant == "radix4":
-        try:
-            nnz = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
-        except ValueError:
-            return False
-        # the DCT is staged in the ring after the products
-        if (smem_plan(g, variant) is None
-                or g.num_mel * g.width > R4_STAGES * R4_BK * R4_SB):
-            return False
-    return smem_bytes(g, variant, nnz) <= SMEM_LIMIT
+    try:
+        if variant == "phases":
+            if hop % TC_BK or g.fft_length % TC_BN:
+                return False
+            nnz = phases_kernel_constants(*dsp.mel_args(cfg))[1].size
+            return phases_tile_plan(1, g, nnz) is not None
+        nnz = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
+    except ValueError:
+        return False
+    return smem_plan(g, variant) is not None and smem_bytes(g, variant, nnz) <= SMEM_LIMIT
 
 
 def auto_takes_kernel(cfg: AudioConfig, device: torch.device, batch: int, n: int) -> bool:
@@ -396,13 +499,16 @@ class FrontEnd:
     device, rounded to bf16 and back for dsp_matmul_dtype="bfloat16":
 
       hops    the interleaved windowed DFT [window, 4 ncg]
-      phases  the P interleaved W_p [rows_p * 128, 4 ncg], back to back
+      phases  the same matrix: the live rows of every W_p; the mel's
+              nonzero weights as `mel` and each unit's runs of them as
+              `runs` (`phases_kernel_constants`)
       radix4  the live columns of M0 | M1 | M2, the zero-padded window
-              [fft], the mel's nonzero weights as `mel` and each unit's
-              runs of them as `runs` (`radix4_kernel_constants`)
+              [fft], the mel's nonzero weights and runs
+              (`radix4_kernel_constants`)
 
-    and the mel matrix and the DCT (None for log-mel). Made once per
-    (config, n, device, variant) by `front_end`; read it, never write it."""
+    and the mel matrix (hops) and the DCT (None for log-mel). Made once per
+    (config, n, device, variant) by `front_end`; read it, never write it.
+    `launch_args(batch)` gives a launch's FeVariant and shared memory."""
 
     def __init__(self, cfg: AudioConfig, n: int, device: torch.device, variant: str = "hops"):
         g = front_end_geometry(cfg, n)
@@ -417,37 +523,36 @@ class FrontEnd:
         self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
         self.dct = None if g.magnitude else dev(
             dsp.dct_ii_matrix(cfg.num_mel_bins, cfg.num_mfccs))
-        nnz = 0
-        if variant == "radix4":
-            w, runs, vals = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))
-            nnz = vals.size
-        self.region_a = next(iter(smem_plan(g, variant, nnz).values()))
-        self.smem_bytes = smem_bytes(g, variant, nnz)
-        self._variant = FeVariant()
+        self.nnz = 0
+        self._variant = v = FeVariant()
         self.dft = self.win = self.runs = None
-        if variant == "hops":
+        if variant in ("hops", "phases"):
             self.dft = dev(interleaved_dft_matrix(g.window, g.fft_length, g.ncg), rounded=True)
-        elif variant == "phases":
-            num_p, s_rows, _, _, phases = phase_dft_plan(g.window, g.hop, n, g.fft_length)
-            ws = [interleave_reim(w, g.num_bins, g.ncg) for *_, w in phases]
-            self.dft = dev(np.concatenate([w.ravel() for w in ws]), rounded=True)
-            v = self._variant
-            v.num_p, v.s_rows = num_p, s_rows
-            off = 0
-            for p, ((c, rows_p, frames_p, _), w) in enumerate(zip(phases, ws)):
-                v.c[p], v.rows[p], v.frames[p], v.off[p] = c, rows_p, frames_p, off
-                off += w.size
+        if variant == "phases":
+            runs, vals = phases_kernel_constants(*dsp.mel_args(cfg))
+            v.units = g.fft_length // TC_BN
+            v.stride, v.gap = k8_layout(g)
+            # split tiles' counters (fewer than SMS tiles: the plan's rule),
+            # 0 between calls; calls on one stream at a time
+            self.done = torch.zeros(SMS, dtype=torch.int32, device=self.device)
+            v.done = self.done.data_ptr()
         elif variant == "radix4":
+            w, runs, vals = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))
             self.dft = dev(w, rounded=True)
             self.win = dev(dsp.radix4_window(g.window, g.fft_length))
+            v.length = g.fft_length // 4
+        elif variant != "hops":
+            raise ValueError(f"unknown DFT variant {variant!r}")
+        if variant != "hops":
+            self.nnz = v.mel_nnz = vals.size
             self.mel = dev(np.pad(vals, (0, -vals.size % 4)))  # copied as float4s
             self.runs = torch.tensor(runs, device=self.device)
-            self._variant.length, self._variant.mel_nnz = g.fft_length // 4, nnz
-            self._variant.runs = self.runs.data_ptr()
-        else:
-            raise ValueError(f"unknown DFT variant {variant!r}")
-        self._variant.w = self.dft.data_ptr()
-        self._variant.win = 0 if self.win is None else self.win.data_ptr()
+            v.runs = self.runs.data_ptr()
+        if variant != "phases":  # K8's depend on the batch: launch_args
+            self.region_a = next(iter(smem_plan(g, variant, self.nnz).values()))
+            self.smem_bytes = smem_bytes(g, variant, self.nnz)
+        v.w = self.dft.data_ptr()
+        v.win = 0 if self.win is None else self.win.data_ptr()
 
     def args(self) -> FeArgs:
         """The FeArgs of this front end; for radix4 the power rows are the
@@ -466,6 +571,25 @@ class FrontEnd:
 
     def variant_args(self) -> FeVariant:
         return self._variant
+
+    def launch_args(self, batch: int) -> tuple:
+        """(FeVariant, samples region in floats, shared-memory bytes,
+        workspace) of a launch over `batch` clips: K8's from its tile plan
+        for the batch (`phases_tile_plan`), with split tiles' workspace for
+        their mel contributions (keep it until the launch is enqueued), the
+        others' fixed and no workspace."""
+        if self.variant != "phases":
+            return self._variant, self.region_a, self.smem_bytes, None
+        g = self.geom
+        plan = phases_tile_plan(batch, g, self.nnz)
+        v = FeVariant.from_buffer_copy(self._variant)
+        v.rows, v.splits = plan.rows, plan.splits
+        part = None
+        if plan.splits > 1:
+            part = torch.empty(plan.tiles * v.units * g.num_mel * plan.rows,
+                               dtype=torch.float32, device=self.device)
+            v.part = part.data_ptr()
+        return v, plan.span, plan.smem_bytes, part
 
 
 @functools.lru_cache(maxsize=None)
@@ -569,8 +693,9 @@ def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
     if not wavs.is_contiguous():
         raise ValueError("wavs must be contiguous")
-    if variant == "radix4" and wavs.data_ptr() % 16:
-        raise ValueError("K9 copies wavs in 16-byte chunks: wavs must be 16-byte aligned")
+    if variant != "hops" and wavs.data_ptr() % 16:
+        raise ValueError(f"{ENTRIES[variant]} copies wavs in 16-byte chunks: wavs must be "
+                         "16-byte aligned")
     if not fused_mfcc_available(cfg, n):
         raise ValueError(
             f"no front-end kernel serves this geometry ({cfg.preprocess_method}, n {n}, "
@@ -582,8 +707,8 @@ def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
                       dtype=torch.float32)
     if wavs.shape[0] == 0:
         return out
-    args = _K2Args(fe.args(), fe.variant_args(), wavs.data_ptr(), out.data_ptr(),
-                   wavs.shape[0], fe.region_a, fe.smem_bytes)
+    v, region_a, smem, _part = fe.launch_args(wavs.shape[0])
+    args = _K2Args(fe.args(), v, wavs.data_ptr(), out.data_ptr(), wavs.shape[0], region_a, smem)
     _build.launch(_library(), ENTRIES[variant], "k2_error_string", args, wavs.device)
     globals()[_COUNTERS[variant]] += 1
     return out

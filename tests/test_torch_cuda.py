@@ -244,6 +244,20 @@ def test_k8_k9_match_plain(cuda_device, variant, geometry, method, matmul):
     torch.testing.assert_close(feats[..., 0], got, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_k8_batch_one_equals_its_row_of_a_batch(cuda_device, geometry):
+    """K8 of one clip equals that clip's row of a batch of 1536 bit for
+    bit: a row's sum does not depend on the tile it lands in (16-row tiles
+    at batch 1, 128 or 64 rows at 1536, any row of a tile); two calls give
+    the same bits."""
+    cfg = dataclasses.replace(GEOMETRIES[geometry], dft_variant="phases")
+    wavs = _wavs(1536, 16000, cuda_device, seed=6)
+    got = k2.fused_mfcc(wavs, cfg)
+    assert torch.equal(got, k2.fused_mfcc(wavs, cfg))
+    for i in (0, 1, 97, 777, 1535):
+        assert torch.equal(k2.fused_mfcc(wavs[i:i + 1], cfg), got[i:i + 1])
+
+
 @pytest.mark.parametrize("variant", ["phases", "radix4"])
 def test_k3_variants_equal_their_mfcc_of_k1(cuda_device, variant):
     """K3's phases and radix4 entry points equal K8(K1(x)) / K9(K1(x)) bit

@@ -182,15 +182,32 @@ def test_resolve_dft_variant_equals_jax():
 
 @pytest.mark.parametrize("window_ms,hop_ms,rows", [(30.0, 10.0, 112), (40.0, 20.0, 64)])
 def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
-    """The plans of the three variants at 1 s: K2 and K8 share one; K9 keeps
-    the samples (64,000 B), the window and the mel's runs and nonzero
-    weights, and no power spectrum: a ring of three [32, 136] slices of M,
-    two A slices of its product's rows, a [frames, 65] power tile and the
-    [frames, num_mel] mel sums, within a Hopper block."""
+    """The plans of the three variants at 1 s: K2's samples and spectrum;
+    K8's for a tile of the batch's frames: its sample span, the mel's runs
+    and nonzero weights, the ring of three [32, 136] slices of the DFT, a
+    [rows, 65] power tile and [rows, num_mel] mel sums; K9 keeps the samples
+    (64,000 B), the window and the mel's runs and nonzero weights, and no
+    power spectrum: the ring, two A slices of its product's rows, a
+    [frames, 65] power tile and the [frames, num_mel] mel sums; each within
+    a Hopper block."""
     cfg = AudioConfig(window_size_ms=window_ms, window_stride_ms=hop_ms)
     g = mfcc.front_end_geometry(cfg, 16000)
     length = g.fft_length // 4
-    assert mfcc.smem_plan(g, "phases") == mfcc.smem_plan(g, "hops")
+    assert mfcc.smem_plan(g, "hops") == {"a": 16000, "b": g.frames * 2 * g.ncg}
+    runs, vals = mfcc.phases_kernel_constants(*dsp.mel_args(cfg))
+    stride, gap = g.hop + 4, 352  # 352: the multiple of 32 that holds 2 (1) chunks of 164 (324)
+    wh = g.window // g.hop
+    for tile in mfcc.K8_TILE_ROWS:
+        pieces = 2 + (tile - 2) // g.frames  # utterances a tile's rows can touch
+        phases = mfcc.smem_plan(g, "phases", vals.size, tile)
+        assert phases == {"samples": (tile + wh - 1) * stride + (pieces - 1) * gap,
+                          "runs": runs.size + (-runs.size % 4),
+                          "vals": vals.size + (-vals.size % 4), "ring": 3 * 32 * 136,
+                          "power": tile * 65, "mel": tile * g.num_mel}
+        assert all(x % 4 == 0 for x in phases.values())
+        # the 128-row tile does not fit at 640/320: its span is 171 KB
+        fits = mfcc.smem_bytes(g, "phases", vals.size, tile) <= mfcc.SMEM_LIMIT
+        assert fits == (tile < 128 or g.hop == 160)
     nnz = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
     plan = mfcc.smem_plan(g, "radix4", nnz)
     assert mfcc.radix4_product_rows(g.frames) == rows
@@ -209,15 +226,28 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     long_cfg = dataclasses.replace(cfg, dft_variant="radix4")
     assert mfcc.resolve_dft_variant(long_cfg, long.n) == "radix4"
     assert not mfcc.fused_mfcc_available(long_cfg, long.n)
-    # the phase plan's rows are 640 samples apart and its W_p carry the DFT
-    # rows at o_p; the interleave keeps (re_k, im_k) next to each other
+    # K8's constant is the live rows of every W_p (the rows at o_p), with
+    # the interleave keeping (re_k, im_k) next to each other; its mel is the
+    # runs of nonzero weights over the first fft / 2 bins, 64 a unit
     fe = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="phases"), 16000, "cpu", "phases")
     v = fe.variant_args()
-    assert v.s_rows * 128 == 640 and v.num_p == 640 // cfg.window_stride_samples
-    w0 = fe.dft[:v.rows[0] * 128 * 4 * g.ncg].reshape(v.rows[0] * 128, 4 * g.ncg).numpy()
-    std = mfcc.phase_dft_plan(g.window, g.hop, 16000, g.fft_length)[4][0][3]
-    np.testing.assert_array_equal(w0[:, 0::4], std[:, 0:g.num_bins:2])
-    np.testing.assert_array_equal(w0[:, 1::4], std[:, g.num_bins::2])
+    assert (v.units, v.stride, v.gap, v.mel_nnz) == (g.fft_length // 128, stride, gap, vals.size)
+    w = fe.dft.reshape(g.window, 4 * g.ncg).numpy()
+    for p, (c, _, _, std) in enumerate(
+            mfcc.phase_dft_plan(g.window, g.hop, 16000, g.fft_length)[4]):
+        o = g.hop * p - 128 * c
+        np.testing.assert_array_equal(w[:, 0::4], std[o:o + g.window, 0:g.num_bins:2])
+        np.testing.assert_array_equal(w[:, 1::4], std[o:o + g.window, g.num_bins::2])
+    assert tuple(fe.runs.shape) == (g.fft_length // 128, cfg.num_mel_bins, 3)
+    plan = mfcc.phases_tile_plan(1536, g, vals.size)
+    v, span, smem, part = fe.launch_args(1536)
+    assert (v.rows, v.splits, span, smem, part) == (plan.rows, 1, plan.span, plan.smem_bytes, None)
+    assert plan.rows == (128 if g.hop == 160 else 64)
+    # batch 1: 16-row tiles, each unit a block; the units' mel contributions
+    # in a workspace the tile's last block adds up
+    v, _, _, part = fe.launch_args(1)
+    assert (v.rows, v.splits) == (16, g.fft_length // 128)
+    assert part.numel() == -(-g.frames // 16) * v.units * g.num_mel * 16
     r4 = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="radix4"), 16000, "cpu", "radix4")
     assert r4.args().num_bins == 2 * r4.args().ncg == 2 * length
     assert r4.region_a == 16000 and r4.smem_bytes == mfcc.smem_bytes(g, "radix4", nnz)
