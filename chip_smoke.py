@@ -33,7 +33,8 @@ print their lines:
               against K1-plain -> K2-plain with the same draws, atol 1e-4
  10. train    the main path: Trainer at batch 1536, bf16, one leg with
               frontend_fuse="on" (K3) and one "off" (K1 + K2); launch
-              counts equal the step counts, the loss falls, the
+              counts equal the step counts, no batch leaves the kernels
+              (mfcc.plain_routes stays 0), the loss falls, the
               train-stream eval and the audio summary (K6) run; a float32
               batch-100 preset leg; resume from a checkpoint is exact
  11. times    each new kernel against its plain version at batch 1536;
@@ -72,8 +73,8 @@ print their lines:
               tcresnet_tpu_torch/testdata/infer2d_golden.npz
  19. serve    the 2D main path: build_inference_fn(backend="auto") for
               Res15, DSCNNL and KWSfpool3, 20 single requests each through
-              K2 + K5 (launches counted) and one batch of 64 on the plain
-              path, against backend="xla", precision="highest"
+              K2 + K5 (launches counted, plain_routes 0) and one batch of 64
+              on the plain path, against backend="xla", precision="highest"
  20. times    TCResNet2D8-1.0, Res15, DSCNNL, KWSfpool3 at batch 1 and 1024:
               K5, its plain version and the model on cuDNN (TF32 off, as a
               CUDA graph) over the same features on one clock, CUDA events
@@ -85,23 +86,30 @@ print their lines:
               step for Res15 and KWSfpool3 (the program cut after each
               step); the served request (K2 + K5, and "xla") on the host
               clock
- 21. build    mfcc.cu (K2, K8, K9) and frontend.cu (K3 hops, phases,
-              radix4) rebuilt, the ptxas line of every kernel (K8's in its
-              16-, 64- and 128-row tiles, K9's in its 64-row and 112-row
-              products); K8's kernels must not spill
- 22. kernel   K8 (phases) and K9 (radix4) against their plain versions (TF32
-              off) at 480/160 MFCC-40, 640/320 MFCC-10 and MFCC-40, MFCC and
+ 21. build    mfcc.cu (K2 and K8 one entry point, K9) and frontend.cu (K3
+              hops and phases one entry point, radix4) rebuilt, the ptxas line of every kernel (K2's and
+              K8's shared stage, "hops+phases", in its 16-, 64- and
+              128-row tiles, K9's in its 64-row and 112-row products); the
+              hops and K8 tiles must not spill, nor K9's 112-row product
+              more than before (K9_SPILL_BYTES)
+ 22. kernel   K2 (hops), K8 (phases) and K9 (radix4) against their plain
+              versions (TF32 off) at 480/160 MFCC-40, 640/320 MFCC-10 and
+              MFCC-40, and K2 at 400/200 and 320/160 MFCC-40, MFCC and
               log-mel, batch 1, 8, 1536, atol 1e-4, and with the bf16 DFT at
-              5e-3, two calls equal bit for bit, K8 of one clip equal to its
-              row of the batch bit for bit; K3's phases and radix4
-              entry points against K1-plain
+              5e-3, two calls equal bit for bit, K2 and K8 of one clip equal
+              to its row of the batch bit for bit, K2 equal to K8; K3 in
+              the hops (also at 400/200 and 320/160), phases and radix4
+              variants against K1-plain
               followed by the variant's plain version, the same draws, at
               the JAX package's tolerance for features of dataset rows
               (DATASET_FEATURE_TOL: atol 2e-4, rtol 1e-5; MFCCs up to ~160),
               the kernel within atol 1e-4 of the same augmented rows in
               float64 (the plain version's distance printed beside), and
-              bit-equal to K8 / K9 over K1 (K8 held to float64 there too);
-              the per-variant launch counters
+              bit-equal to K2 / K8 / K9 over K1 (held to float64 there
+              too); the per-variant launch counters; dsp_backend="pallas"
+              at 400/160, not hop-decomposable (the JAX package's fallback
+              too): the plain feature within 1e-5, no launch,
+              mfcc.plain_routes up by one
  23. train    the 2D main path: the DSCNNL preset (MFCC-10 at 40/20 ms,
               batch 100, float32, adam) with dft_variant="radix4" and
               frontend_fuse="on", 30 steps, a checkpoint every 10: K3-radix4
@@ -112,16 +120,23 @@ print their lines:
               TCResNet2D8-1.0 (mom), KWSfpool3 (adam, dropout), DSCNNS with
               rmsprop; build_inference_fn(backend="auto") for the trained
               DSCNNL (radix4) and Res15 (phases) serves 20 single requests
-              each through K9 + K5 and K8 + K5, against "xla", "highest"
+              each through K9 + K5 and K8 + K5, against "xla", "highest";
+              plain_routes stays 0
  24. times    K2, K8, K9, their plain versions and dsp.preprocess on cuBLAS
               (TF32 off, the library time) at batch 1536 for both
               geometries, eager; K8 and K3-phases behind a device sleep on
               one clock with the library call as a CUDA graph, at batch 1536
-              (both geometries), K8 and K9 with it at batch 1; K8's and
+              (both geometries; frontend_times.hops_times, as phase 25), K8 and K9 with it at batch 1; K8's and
               K9's bounds at the 3xTF32 rate and PR 5's K8 and K9 times
               beside (quoted); K3 in its variants; ms/step, utt/s and the
               device's busy share of the DSCNNL and Res15 train steps at
               their preset batch
+ 25. times    K2 and K3-hops at batch 1536 and K2 at batch 1, at 480/160,
+              640/320 and 400/200, behind a device sleep on one clock with
+              dsp.preprocess on cuBLAS as a CUDA graph
+              (tcresnet_tpu_torch/tools/frontend_times.py), their bounds at
+              the 3xTF32 rate, the FP32 design's times beside (quoted,
+              FP32_HOPS_MS); the summary's K2 and K3 times
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
@@ -147,6 +162,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from tcresnet_tpu_torch.tools.frontend_times import graph_of, hops_times, queued_ms  # noqa: E402
 
 # logits / softmax tolerances of the JAX package's kernel test
 # (tests/test_pallas_infer.py): kernel and plain version differ by
@@ -204,13 +221,25 @@ PR5_K5_MS = {("TCResNet2D8-1.0", 1): (0.3007, 0.2433), ("TCResNet2D8-1.0", 1024)
 # CUDA-event medians): (k9_mfcc, k3_radix4), printed beside this run's times
 PR5_K9_MS = {"640/320 MFCC-10": (6.2600, 6.2280), "480/160 MFCC-40": (4.0636, 3.9814)}
 # K8's earlier design (per-thread FP32 FMA over per-phase frame tiles, one
-# block per utterance) at batch 1536, the same source: (k8_mfcc, k3_phases)
+# block per utterance) at batch 1536, the same source: (K8, K3-phases)
 PR5_K8_MS = {"640/320 MFCC-10": (4.9868, 4.9938), "480/160 MFCC-40": (4.3885, 4.4048)}
 # K7 fwd's earlier design (per-thread FP32 FMA, 4 output channels a thread)
 # over the ten convs of a TCResNet8-1.0 step at batch 1536, behind a device
 # sleep as phase 16 times it (ms; NVIDIA H100 80GB HBM3, 700.00 W): printed
 # beside this run's time, never in the kernels summary
 FP32_K7_FWD_MS = 0.6834
+# K2's and K3-hops' earlier design (per-thread FP32 FMA, one block per
+# utterance), timed by tcresnet_tpu_torch/tools/frontend_times.py on a
+# checkout of that design (ms; NVIDIA H100 80GB HBM3, 700.00 W; behind a
+# device sleep, the lesser of two readings; PERF.md): (k2_mfcc,
+# k3_frontend) at batch 1536 and k2_mfcc at batch 1, printed beside this
+# run's times, never in the kernels summary
+FP32_HOPS_MS = {"480/160": (3.2100, 3.2153, 0.2538), "640/320": (4.4008, 4.3727, 0.3503),
+                "400/200": (2.5914, 2.5948, 0.2029), "320/160": (2.7965, 2.7985, 0.2194)}
+# the spill stores ptxas reports for K9's 112-row product (mfcc.cu,
+# frontend.cu) since it shares dft_tc.cuh's tc_mma: phase 21 fails if they
+# grow
+K9_SPILL_BYTES = {"mfcc": 52, "frontend": 12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -241,36 +270,6 @@ def front_end_macs(audio) -> int:
     return g.frames * (g.window * 2 * g.num_bins + g.num_bins * g.num_mel) + dct
 
 
-def queued_ms(fn, runs: int = 20) -> tuple:
-    """(device ms per call of fn(), whether the queue stayed full): CUDA
-    events around `runs` calls that the host enqueues behind a device-side
-    sleep, so the events time the device work and not the host's enqueue
-    (at batch 1 the host is the slower). The queue stayed full when the
-    host finished enqueueing before the sleep ended; a call that waits for
-    the device on the host drains it, and the time is then host-paced."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    host_s = time.perf_counter() - t0  # the enqueue alone
-    torch.cuda.synchronize()
-    ev_sleep, ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    ev_sleep.record()
-    # ~2 GHz SM clock; four times the first enqueue, and at least 5 ms, so
-    # that the host's own noise does not outlast it
-    torch.cuda._sleep(int(2e9 * max(4 * host_s, 5e-3)))
-    ev0.record()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    ev1.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / runs, enqueue_ms < ev_sleep.elapsed_time(ev0)
-
-
 def enqueue_us(fn, runs: int = 50) -> float:
     """Median host µs of enqueueing fn(), each run after a synchronize, so
     the launch queue is empty and nothing waits on the device."""
@@ -282,23 +281,6 @@ def enqueue_us(fn, runs: int = 50) -> float:
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return float(np.median(times[3:])) * 1e6
-
-
-def graph_of(fn):
-    """fn() captured as a CUDA graph: (replay, its output). One launch per
-    replay, so a run of replays behind a device sleep never fills the
-    launch queue (a 2D model's eager call is ~100 launches, and 10 of them
-    behind a sleep block the host until the sleep ends)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph.replay, out
 
 
 def mfcc_float64(wavs: torch.Tensor, audio) -> torch.Tensor:
@@ -329,9 +311,8 @@ def ptxas_line(name: str) -> str:
     from tcresnet_tpu_torch.ops.kernels import _build
 
     log = _build.library_path(name).with_suffix(".log")
-    variants = {"k2_kernel": "hops", "k3_kernel": "hops", "k8_kernel": "phases",
-                "k3_phases_kernel": "phases", "k9_kernel": "radix4",
-                "k3_radix4_kernel": "radix4"}
+    variants = {"frames_kernel": "hops+phases", "k3_frames_kernel": "hops+phases",
+                "k9_kernel": "radix4", "k3_radix4_kernel": "radix4"}
     entry, parts = "", []
     for line in log.read_text().splitlines() if log.exists() else []:
         fn = re.search(r"_Z(\d+)(\w+)", line)
@@ -522,7 +503,12 @@ def main() -> int:
     train_kernels, ds = training_phases(dev, card)
     tconv_kernels = tconv_phases(dev, card, ds)
     infer2d_kernels = infer2d_phases(dev, card)
-    variant_kernels = dft_variant_phases(dev, card, ds)
+    variant_kernels, hops_checks = dft_variant_phases(dev, card, ds)
+    hops = hops_phase(dev, card, ds)
+    for e in train_kernels:  # phases 22 and 25 for K2 and K3-hops
+        if e["name"] in hops:
+            err = max(e["max_abs_err"], hops_checks[e["name"]].pop("max_abs_err"))
+            e.update(hops[e["name"]], max_abs_err=err, **hops_checks[e["name"]])
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -714,7 +700,7 @@ def training_phases(dev: torch.device, card: str):
         return smoke_train_cfg(flagship, batch, fuse, dtype, **kw)
 
     steps = 30
-    k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = 0
+    k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = k2.plain_routes = 0
     legs = {}
     for fuse in ("on", "off"):
         before = (k16.k1_launches, k2.launches, k3.launches, k16.k6_launches)
@@ -743,6 +729,7 @@ def training_phases(dev: torch.device, card: str):
               + f"; train-stream acc {evals[-1]['train_stream/accuracy']:.3f}")
     main_launches = {"k1": k16.k1_launches, "k2": k2.launches, "k3": k3.launches,
                      "k6": k16.k6_launches}
+    check(k2.plain_routes == 0, f"train: {k2.plain_routes} batches left the front-end kernels")
 
     preset = flagship.replace(train=dataclasses.replace(flagship.train, max_step=10**9))
     trainer = Trainer(preset, ds, workdir=f"{workdir}/preset", steps_per_call=5)
@@ -828,17 +815,20 @@ def training_phases(dev: torch.device, card: str):
 
     # bounds at batch 1536: K1 reads the int16 rows and, for the rows this
     # draw mixes, a noise window, and writes f32; K6 reads f32 instead; K2
-    # and K3 are the front end's multiply-adds (K3 also reads int16 rows)
+    # and K3 are the front end's live multiply-adds at the 3xTF32 rate (K3
+    # also reads int16 rows)
     kb = 1536  # phase 11's batch, and `sc` its draw
     mixed = int((sc.vols != 0).sum())
     wav_out, feats_out = 4 * kb * n, 4 * kb * 98 * dsp.feature_width(flagship.audio)
-    fe_flops = 2 * kb * front_end_macs(flagship.audio)
+    fe_flops = 2 * kb * variant_macs(flagship.audio, "hops")
     bounds = {"k1": bound(0, 2 * kb * n + 4 * mixed * n + wav_out),
               "k6": bound(0, 4 * kb * n + 4 * mixed * n + wav_out),
-              "k2": bound(fe_flops, wav_out + feats_out),
-              "k3": bound(fe_flops, 2 * kb * n + 4 * mixed * n + feats_out)}
+              "k2": bound(fe_flops, 4 * kb * n + feats_out, TF32X3_FLOPS),
+              "k3": bound(fe_flops, 2 * kb * n + 4 * mixed * n + feats_out, TF32X3_FLOPS)}
     # one PyTorch call computing the front end: dsp.preprocess on cuBLAS
-    # (K2's plain version is that call; K3's is K1's plain version before it)
+    # (K2's plain version is that call; K3's is K1's plain version before
+    # it); phase 25 puts K2's and K3's times and the library call's on one
+    # clock in their place
     library = {"k1": None, "k6": None, "k2": ms["k2"][1], "k3": ms["k2"][1]}
 
     def entry(name, source, replaces, err, key):
@@ -1297,15 +1287,16 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
     requests = {p: [wavs_for(c, 1100 + i, 1) for i in range(20)] + [wavs_for(c, 2100, 64)]
                 for p, (c, _, _) in served.items()}
     torch.cuda.synchronize()
-    k5.launches = k2.launches = 0
+    k5.launches = k2.launches = k2.plain_routes = 0
     t0 = time.perf_counter()
     answers = {p: [auto(x) for x in requests[p]] for p, (_, auto, _) in served.items()}
     torch.cuda.synchronize()
     serve_ms = (time.perf_counter() - t0) * 1e3
     main_launches, k2_main = k5.launches, k2.launches
     n_single = 20 * len(served)
-    check(main_launches == k2_main == n_single,
-          f"serve 2D: K5 {main_launches} / K2 {k2_main} launches for {n_single} single requests")
+    check(main_launches == k2_main == n_single and k2.plain_routes == 0,
+          f"serve 2D: K5 {main_launches} / K2 {k2_main} launches for {n_single} single requests, "
+          f"{k2.plain_routes} plain routes")
     serve_err = {}
     for preset, (cfg, _, ref) in served.items():
         worst = 0.0
@@ -1445,24 +1436,22 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
 
 
 def variant_macs(audio, variant: str) -> int:
-    """Multiply-adds one clip needs in a DFT variant: K2's the dense front
-    end (`front_end_macs`); K8's the live rows of W_p (the zero rows need no
-    work) against the bins below the Nyquist bin, whose mel weight is zero
-    (window x fft a frame), and the mel's nonzero weights
-    (`mfcc.phases_kernel_constants`); K9's its factored products over their
-    live columns (M0's and M2's k2 < L/2: L x L each; M1: 2L x 2L; 6L^2
-    per frame: the zeroed columns need no work, nor M0's k2 = L/2, the
-    Nyquist bin) and the mel's nonzero weights
-    (`mfcc.radix4_kernel_constants`); both with the DCT for MFCC."""
+    """Multiply-adds one clip needs in a DFT variant: K2's and K8's every
+    frame's window against the bins below the Nyquist bin, whose mel weight
+    is zero (window x fft a frame: the live rows of W_p; the zero rows, and
+    the stage's rows past the hop in each chunk, need no work), and the
+    mel's nonzero weights (`mfcc.tc_mel_constants`); K9's its factored products over their live
+    columns (M0's and M2's k2 < L/2: L x L each; M1: 2L x 2L; 6L^2 per
+    frame: the zeroed columns need no work, nor M0's k2 = L/2, the Nyquist
+    bin) and the mel's nonzero weights (`mfcc.radix4_kernel_constants`);
+    all with the DCT for MFCC."""
     from tcresnet_tpu_torch.ops import dsp
     from tcresnet_tpu_torch.ops.kernels import mfcc
 
-    if variant == "hops":
-        return front_end_macs(audio)
     g = mfcc.front_end_geometry(audio, audio.desired_samples)
     dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
-    if variant == "phases":
-        nnz = mfcc.phases_kernel_constants(*dsp.mel_args(audio))[1].size
+    if variant in ("hops", "phases"):
+        nnz = mfcc.tc_mel_constants(*dsp.mel_args(audio))[1].size
         return g.frames * (g.window * g.fft_length + nnz) + dct
     length = g.fft_length // 4
     nnz = mfcc.radix4_kernel_constants(*dsp.radix4_mel_args(audio))[2].size
@@ -1492,10 +1481,15 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
     for name in ("mfcc", "frontend"):
         line = ptxas_line(name)
         print(f"[build] {name}.cu for sm_90a, entry points by DFT variant | {line}")
-        k8_spills = re.findall(r"phases (\d+)-row: \d+ bytes stack frame, (\d+) bytes spill stores",
-                               line)
-        check(sorted(int(r) for r, _ in k8_spills) == [16, 64, 128]
-              and all(s == "0" for _, s in k8_spills), f"{name}.cu: K8's tiles spill: {k8_spills}")
+        spills = re.findall(r"(hops\+phases|radix4) (\d+)-row: \d+ bytes stack frame, (\d+) "
+                            r"bytes spill stores", line)
+        tiles = [(int(r), int(b)) for v, r, b in spills if v == "hops+phases"]
+        check(sorted(r for r, _ in tiles) == [16, 64, 128] and all(b == 0 for _, b in tiles),
+              f"{name}.cu: the hops / K8 tiles spill: {tiles}")
+        k9 = [int(b) for v, r, b in spills if v == "radix4" and r == "112"]
+        check(len(k9) == 1 and k9[0] <= K9_SPILL_BYTES[name],
+              f"{name}.cu: K9's 112-row product spills {k9} bytes, more than "
+              f"{K9_SPILL_BYTES[name]}")
 
     def counts(module):
         return (module.launches, module.phases_launches, module.radix4_launches)
@@ -1507,12 +1501,18 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
 
     # ---- 22. K8 and K9 against their plain versions ----
     n = 16000
-    geoms = {"480/160 MFCC-40": get_preset("TCResNet8-1.0").audio,
+    flagship_audio = get_preset("TCResNet8-1.0").audio
+    geoms = {"480/160 MFCC-40": flagship_audio,
              "640/320 MFCC-10": get_preset("DSCNNL").audio,
-             "640/320 MFCC-40": get_preset("KWSfpool3").audio}
-    errs = {"phases": 0.0, "radix4": 0.0}
+             "640/320 MFCC-40": get_preset("KWSfpool3").audio,
+             # K2 alone: a hop and a window that are no multiples of 32
+             # (chunks of 224 samples, the constant's rows past 200 zero)
+             "400/200 MFCC-40": dataclasses.replace(flagship_audio, window_size_ms=25.0,
+                                                    window_stride_ms=12.5),
+             "320/160 MFCC-40": dataclasses.replace(flagship_audio, window_size_ms=20.0)}
+    errs = {"hops": 0.0, "phases": 0.0, "radix4": 0.0}
     for label, audio in geoms.items():
-        for variant in ("phases", "radix4"):
+        for variant in ("hops",) if label[:3] in ("400", "320") else ("hops", "phases", "radix4"):
             base = dataclasses.replace(audio, dft_variant=variant)
             for feat, cfg, tol in (
                     ("mfcc", base, (FEATURE_ATOL, 0.0)),
@@ -1534,10 +1534,15 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                           f"{kname[variant]} {label} {feat}: shape {tuple(got.shape)}")
                     check(torch.equal(got, k2.fused_mfcc(wavs, cfg)),
                           f"{kname[variant]} {label} {feat} B={batch}: two calls differ")
-                    if variant == "phases" and batch > 1:
+                    if variant != "radix4" and batch > 1:
                         # a row's sum does not depend on the tile it lands in
                         check(torch.equal(k2.fused_mfcc(wavs[:1], cfg), got[:1]),
-                              f"K8 {label} {feat}: batch 1 differs from row 0 of B={batch}")
+                              f"{kname[variant]} {label} {feat}: batch 1 differs from row 0 of "
+                              f"B={batch}")
+                    if variant == "hops" and label[:3] not in ("400", "320"):
+                        # K2 and K8 are one stage
+                        check(torch.equal(got, k2.fused_mfcc(wavs, dataclasses.replace(
+                            cfg, dft_variant="phases"))), f"K2 {label} {feat}: differs from K8")
                     check(bool(torch.isfinite(got).all()), f"{kname[variant]} {label}: non-finite")
                     err = (got - want).abs().max().item()
                     check(torch.allclose(got, want, atol=tol[0], rtol=tol[1]),
@@ -1548,7 +1553,9 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                 print(f"[kernel] {kname[variant]} ({variant}) {label} {feat} vs plain (TF32 off, "
                       f"atol {tol[0]}): " + ", ".join(line) + "; two calls equal bit for bit"
                       + ("; batch 1 equal to row 0 of batch 8 and 1536 bit for bit"
-                         if variant == "phases" else ""))
+                         if variant != "radix4" else "")
+                      + ("; equal to K8 bit for bit"
+                         if variant == "hops" and label[:3] not in ("400", "320") else ""))
 
     gen = torch.Generator(device=dev)
     augment_cfg = get_preset("TCResNet8-1.0").augment
@@ -1558,10 +1565,12 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
         idx, _, silent = DeviceDataset.sample_indices(ds.arrays, gen, batch)
         return idx, aug.draw_scalars(gen, silent, augment_cfg, ds.noise_bank, n, True)
 
-    k3_errs = {"phases": 0.0, "radix4": 0.0}
-    k3_f64 = {"phases": (0.0, 0.0), "radix4": (0.0, 0.0)}
-    for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
-        for variant in ("phases", "radix4"):
+    k3_errs = {"hops": 0.0, "phases": 0.0, "radix4": 0.0}
+    k3_f64 = {"hops": (0.0, 0.0), "phases": (0.0, 0.0), "radix4": (0.0, 0.0)}
+    for label in geoms:
+        if label == "640/320 MFCC-40":
+            continue
+        for variant in ("hops",) if label[:3] in ("400", "320") else ("hops", "phases", "radix4"):
             cfg = dataclasses.replace(geoms[label], dft_variant=variant)
             line = []
             for batch in (1, 8, 1536):
@@ -1596,6 +1605,26 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                   f"draws, atol 2e-4 rtol 1e-5): " + ", ".join(line)
                   + f"; equal to {kname[variant]}(K1) bit for bit, two calls equal")
 
+    # a geometry that is not hop-decomposable (a 25 ms window at a 10 ms
+    # hop: 400 % 160 != 0) through dsp_backend="pallas": the plain feature,
+    # as in JAX, and no launch
+    wavs = torch.tensor(seeded_wavs(4100, 8, n), device=dev)
+    line = []
+    for method in ("mfcc", "log_mel_spectrogram"):
+        cfg = dataclasses.replace(flagship_audio, window_size_ms=25.0, preprocess_method=method,
+                                  dsp_backend="pallas")
+        before = counts(k2), k2.plain_routes
+        got = dsp.preprocess(wavs, cfg)
+        torch.cuda.synchronize()
+        check(counts(k2) == before[0] and k2.plain_routes == before[1] + 1,
+              f"400/160 {method}: launches {counts(k2)} (before {before[0]}), plain routes "
+              f"{k2.plain_routes - before[1]}")
+        err = (got - dsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="xla"))).abs().max()
+        check(err.item() <= 1e-5, f"400/160 {method}: {err.item()} from the plain feature")
+        line.append(f"{method} {err.item():.1e}")
+    print("[kernel] dsp_backend=pallas at 400/160 (not hop-decomposable): the plain feature, no "
+          "launch, plain_routes +1; max |err| vs dsp_backend=xla " + ", ".join(line))
+
     # ---- 23. train the 2D families: the main path ----
     workdir = tempfile.mkdtemp(prefix="chip_smoke_2d_")
 
@@ -1613,7 +1642,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
 
     for module in (k2, k3):
         module.launches = module.phases_launches = module.radix4_launches = 0
-    k5.launches = 0
+    k5.launches = k2.plain_routes = 0
     path_launches = {}
     cudnn_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # exact resume
@@ -1725,24 +1754,24 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
           f"{serve_ms:.1f} ms, K8 {delta[1]} / K9 {delta[2]} / K5 {k5.launches - before_k5} "
           "launches; max softmax err vs xla/highest "
           + ", ".join(f"{k} {e:.2e}" for k, e in serve_err.items()))
-    print(f"[train] phase 23 launches: " + ", ".join(f"{k} {v}" for k, v in path_launches.items()))
+    check(k2.plain_routes == 0, f"phase 23: {k2.plain_routes} batches left the front-end kernels")
+    print(f"[train] phase 23 launches: " + ", ".join(f"{k} {v}" for k, v in path_launches.items())
+          + "; plain routes 0")
 
     # ---- 24. times ----
     xla_hops = {label: dataclasses.replace(a, dsp_backend="xla", dft_variant="hops")
                 for label, a in geoms.items()}
     ms, k3_ms = {}, {}
     batch = 1536
-    rate = {"hops": FP32_FLOPS, "phases": TF32X3_FLOPS, "radix4": TF32X3_FLOPS}
+    rate = {"hops": TF32X3_FLOPS, "phases": TF32X3_FLOPS, "radix4": TF32X3_FLOPS}
+    # K8 and K3-phases behind a device sleep, on one clock with the library
+    # call as a CUDA graph (as phase 25 times K2 and K3-hops)
+    queued = hops_times(dev, ("480/160", "640/320"), (batch,), ds, variant="phases")
     for label in ("480/160 MFCC-40", "640/320 MFCC-10"):
         wavs = torch.tensor(seeded_wavs(77, batch, n), device=dev)
         library = device_ms(lambda: dsp.preprocess(wavs, xla_hops[label]))
-        # the library call as a CUDA graph, so that a run of calls behind a
-        # device sleep is not paced by the host (as phase 20 replays cuDNN)
-        lib_full, lib_out = graph_of(lambda: dsp.preprocess(wavs, xla_hops[label]))
-        lib_full()
-        torch.cuda.synchronize()
-        check(torch.equal(lib_out, dsp.preprocess(wavs, xla_hops[label])),
-              f"{label}: the library graph differs from the call")
+        q = queued[(label[:7], batch)]
+        check(q["queue_full"], f"{label} B={batch}: a K8, K3-phases or library time is host-paced")
         for variant in ("hops", "phases", "radix4"):
             cfg = dataclasses.replace(geoms[label], dft_variant=variant)
             a, b, c, d = (device_ms(lambda: k2.fused_mfcc(wavs, cfg)),
@@ -1756,21 +1785,18 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
             print(f"[times] {kname[variant]} ({variant}) {label} B={batch}: kernel {a:.4f} / "
                   f"{d:.4f} ms, plain {b:.4f} / {c:.4f} ms, dsp.preprocess on cuBLAS (TF32 off, "
                   f"dense) {library:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
-                  f"{'' if variant == 'hops' else ' at 3xTF32'}, {bnd['bound_ms'] / min(a, d):.1%}"
+                  f" at 3xTF32, {bnd['bound_ms'] / min(a, d):.1%}"
                   f" of it) (CUDA events, median of 20; order kernel, plain, plain, kernel)"
                   + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][0]} ms"
                      if variant == "radix4" else "") + f" | {card}")
             if variant == "phases":
-                (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
-                    lambda: k2.fused_mfcc(wavs, cfg), lib_full, lambda: k2.fused_mfcc(wavs, cfg)))
-                check(a_full and c_full and d_full, f"{label} B={batch}: a K8 or library time "
-                      "is host-paced")
+                (a, d), c = q["k2"], q["library"]
                 ms[(variant, label)].update(ms=min(a, d), library_ms=c)
                 print(f"[times] K8 (phases) {label} B={batch}, behind a device sleep: kernel "
                       f"{a:.4f} / {d:.4f} ms, dsp.preprocess on cuBLAS as a CUDA graph {c:.4f} "
-                      f"ms (device, mean of 20; order kernel, library, kernel); K8 "
-                      f"{c / min(a, d):.2f}x ahead of the library, "
-                      f"{bnd['bound_ms'] / min(a, d):.1%} of its bound; PR 5 (quoted, not this run): {PR5_K8_MS[label][0]} ms"
+                      f"ms (device, mean of 20; order kernel, library, kernel); the library "
+                      f"takes {c / min(a, d):.2f}x K8's time, {bnd['bound_ms'] / min(a, d):.1%} "
+                      f"of its bound; PR 5 (quoted, not this run): {PR5_K8_MS[label][0]} ms"
                       f" | {card}")
         # the served request's front end: K9, K8 and the library call at
         # batch 1 on one clock, behind a device sleep
@@ -1812,23 +1838,19 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                                            **bnd)
             print(f"[times] K3 ({variant}) {label} B={batch}: kernel {a:.4f} / {d:.4f} ms, plain "
                   f"(K1-plain -> {kname[variant]}-plain) {b:.4f} / {c:.4f} ms; bound "
-                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
-                  f"{'' if variant == 'hops' else ' at 3xTF32'})"
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']} at 3xTF32)"
                   + (f"; PR 5 (quoted, not this run): {PR5_K9_MS[label][1]} ms"
                      if variant == "radix4" else "") + f" | {card}")
             if variant == "phases":
-                (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
-                    lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n),
-                    lib_full,
-                    lambda: k3.frontend_features(ds.wavs, idx, sc, ds.noise_bank, cfg, n)))
-                check(a_full and c_full and d_full, f"{label} B={batch}: a K3-phases or library "
-                      "time is host-paced")
+                # the same draw as `sc` (seed 77), so the bound above holds
+                check(q["k3_mixed"] == mixed, f"{label}: K3-phases timed another draw")
+                (a, d), c = q["k3"], q["library"]
                 k3_ms[(variant, label)].update(ms=min(a, d), library_ms=c)
                 print(f"[times] K3 (phases) {label} B={batch}, behind a device sleep: kernel "
                       f"{a:.4f} / {d:.4f} ms, dsp.preprocess on cuBLAS as a CUDA graph (no "
-                      f"augment) {c:.4f} ms (device, mean of 20; order kernel, library, kernel); "
-                      f"{bnd['bound_ms'] / min(a, d):.1%} of its bound; PR 5 (quoted, not this "
-                      f"run): {PR5_K8_MS[label][1]} ms | {card}")
+                      f"augment) {c:.4f} ms (device, mean of 20; order K8, library, K8, "
+                      f"K3-phases, K3-phases); {bnd['bound_ms'] / min(a, d):.1%} of its bound; "
+                      f"PR 5 (quoted, not this run): {PR5_K8_MS[label][1]} ms | {card}")
 
     for label, tr, variant in (("DSCNNL B=100 f32 adam, K3-radix4", trainer, "radix4"),
                                ("Res15 B=64 f32 adam, K3-phases", legs["Res15"], "phases")):
@@ -1875,7 +1897,64 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                  "tcresnet_tpu/ops/pallas/frontend.py:175", "radix4", k3_errs["radix4"], k3_ms,
                  "640/320 MFCC-10"), "float64_err": dict(zip(("kernel", "plain"),
                                                              k3_f64["radix4"]))},
-    ]
+    ], {"k2_mfcc": {"max_abs_err": errs["hops"]},
+        "k3_frontend": {"max_abs_err": k3_errs["hops"],
+                        "float64_err": dict(zip(("kernel", "plain"), k3_f64["hops"]))}}
+
+
+def hops_phase(dev: torch.device, card: str, ds) -> dict:
+    """Phase 25: K2 and K3-hops (the hops front ends, on K8's tensor-core
+    stage) behind a device sleep, each on one clock with the library call
+    as a CUDA graph (tcresnet_tpu_torch/tools/frontend_times.py), the FP32
+    design's times quoted beside; {kernel name: its summary fields}."""
+    from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.tools.frontend_times import geometry_cfg
+
+    # ---- 25. times of the hops front ends ----
+    n = 16000
+    labels = ("480/160", "640/320", "400/200")
+    times = hops_times(dev, labels, (1536, 1), ds)
+    k2_t, k3_t = {}, {}
+    for label in labels:
+        cfg = geometry_cfg(label)
+        feats = int(np.prod(dsp.feature_shape(cfg)[:2]))
+        macs = variant_macs(cfg, "hops")
+        k2_fp32, k3_fp32, b1_fp32 = FP32_HOPS_MS[label]
+        for batch in (1536, 1):
+            t = times[(label, batch)]
+            check(t["queue_full"], f"K2 / K3-hops {label} B={batch}: a reading is host-paced")
+            a, d = t["k2"]
+            bnd = bound(2 * batch * macs, 4 * batch * (n + feats), TF32X3_FLOPS)
+            k2_t[(label, batch)] = dict(ms=min(a, d), library_ms=t["library"], **bnd)
+            print(f"[times] K2 (hops) {label} B={batch}, behind a device sleep: kernel {a:.4f} / "
+                  f"{d:.4f} ms, dsp.preprocess on cuBLAS (TF32 off, dense) as a CUDA graph "
+                  f"{t['library']:.4f} ms (device, mean of 20; order kernel, library, kernel); "
+                  f"the library takes {t['library'] / min(a, d):.2f}x K2's time; bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']} at 3xTF32, "
+                  f"{bnd['bound_ms'] / min(a, d):.1%} of it); the FP32 design (quoted, not this "
+                  f"run): {k2_fp32 if batch > 1 else b1_fp32} ms | {card}")
+            if "k3" in t:
+                a, d = t["k3"]
+                bnd = bound(2 * batch * macs,
+                            2 * batch * n + 4 * t["k3_mixed"] * n + 4 * batch * feats,
+                            TF32X3_FLOPS)
+                k3_t[label] = dict(ms=min(a, d), library_ms=t["library"], **bnd)
+                print(f"[times] K3-hops {label} B={batch}, behind a device sleep: kernel {a:.4f} "
+                      f"/ {d:.4f} ms (the library graph above, no augment, "
+                      f"{t['library']:.4f} ms); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+                      f" at 3xTF32, {bnd['bound_ms'] / min(a, d):.1%} of it); the FP32 design "
+                      f"(quoted, not this run): {k3_fp32} ms | {card}")
+    main, others = "480/160", ("640/320", "400/200")
+    return {
+        "k2_mfcc": {**k2_t[(main, 1536)], "timed": f"{main} MFCC-40, batch 1536, behind a "
+                    "device sleep", "ms_b1": k2_t[(main, 1)]["ms"],
+                    "library_ms_b1": k2_t[(main, 1)]["library_ms"],
+                    "bound_ms_b1": k2_t[(main, 1)]["bound_ms"],
+                    "other_geometry": {f"{g} B={b}": k2_t[(g, b)]
+                                       for g in others for b in (1536, 1)}},
+        "k3_frontend": {**k3_t[main], "timed": f"{main} MFCC-40, batch 1536, behind a device "
+                        "sleep", "other_geometry": {g: k3_t[g] for g in others}},
+    }
 
 
 if __name__ == "__main__":

@@ -1,48 +1,72 @@
-// The port's DFT front ends on the tensor cores, and K8's stage on them.
+// The port's DFT front ends on the tensor cores: K2 and K8 share a stage
+// here, and K9 (radix4.cuh) its pieces.
 //
-// Shared by K9 (radix4.cuh) and K8 (below): an [rows, K] A times column
-// units of 128 DFT columns, streamed as [32, 128] K slices through a
-// three-stage cp.async ring, in 3xTF32 mma.sync (tc_mma); a finished
-// unit's power (magnitude for log-mel) to a [rows, 65] tile (tc_power);
-// the mel folded in unit by unit through runs of nonzero weights (tc_mel),
-// so that no power spectrum is stored; log(mel + 1e-6) and, for MFCC, the
-// DCT (tc_tail). A unit is 64 (re, im) pairs of bins, interleaved.
+// Shared by K9 (radix4.cuh) and the frames' stage (below): an [rows, K] A
+// times column units of 128 DFT columns, streamed as [32, 128] K slices
+// through a three-stage cp.async ring, in 3xTF32 mma.sync (tc_mma); a
+// finished unit's power (magnitude for log-mel) to a [rows, 65] tile
+// (tc_power); the mel folded in unit by unit through runs of nonzero
+// weights (tc_mel), so that no power spectrum is stored; log(mel + 1e-6)
+// and, for MFCC, the DCT (tc_tail). A unit is 64 (re, im) pairs of bins,
+// interleaved.
 //
-// K8, the phase-grouped DFT. Replaces tcresnet_tpu/ops/pallas/mfcc.py::
-// _kernel_phases (entry point k8_mfcc, mfcc.cu) and the phases branch of
-// tcresnet_tpu/ops/pallas/frontend.py (k3_phases, frontend.cu). The TPU
-// kernel groups frames by phase f mod P so that each group is one product
-// of a strided lane-row view against W_p, whose rows outside [o_p, o_p +
-// window) are zero. Every W_p[o_p : o_p + window] is the windowed DFT, and
-// the A row of every frame starts at the frame's own first sample, so the
-// phase-grouped DFT is frame[f] @ W for every frame, W's zero rows adding
-// exact zeros (tests/test_torch_k8_tc.py checks this at every geometry the
-// plan covers). On Hopper nothing ties a product tile to a phase:
+// The frames' stage: every frame's full-window product with the windowed
+// DFT, frame[f] @ W, for every frame of the batch. It is K2 and K8 at once:
+//  - K2, the hops DFT. Replaces tcresnet_tpu/ops/pallas/mfcc.py::_kernel
+//    (entry point k2_mfcc, mfcc.cu) and the hops branch of
+//    tcresnet_tpu/ops/pallas/frontend.py::_kernel (k3_frontend,
+//    frontend.cu). The TPU kernel sums hop-row products of [hop, k 2K]
+//    pieces of W; summed over the hops, that is frame @ W.
+//  - K8, the phase-grouped DFT. Replaces ::_kernel_phases and the phases
+//    branch of frontend.py, through the same entry points (the host
+//    counts their launches by variant). The TPU kernel groups
+//    frames by phase f mod P so that each group is one product of a
+//    strided lane-row view against W_p, whose rows outside [o_p, o_p +
+//    window) are zero. Every W_p[o_p : o_p + window] is the windowed DFT,
+//    and the A row of every frame starts at the frame's own first sample,
+//    so the phase-grouped DFT is frame @ W too, W's zero rows adding exact
+//    zeros (tests/test_torch_k8_tc.py checks this at every geometry the
+//    plan covers).
+// On Hopper nothing ties a product tile to a hop or a phase:
 //
 //  - Rows: (utterance, frame) flattened into batch x frames rows; a block
-//    takes ROWS consecutive rows (128, 64 or 16: the host plan,
-//    ops/kernels/mfcc.py::phases_tile_plan, takes the largest whose tiles
-//    fill every SM at least once) and reads the DFT constant from L2 once
-//    for all of them. A small batch's 16-row tiles split their column
-//    units over blocks as well (tc_frames_features), so that batch 1 runs
-//    on 28 (480/160) or 32 (640/320) blocks, not 7 or 4.
+//    takes v.rows consecutive rows (128, 64, or 16 and fewer: the host
+//    plan, ops/kernels/mfcc.py::tc_tile_plan, takes the largest whose
+//    tiles fill every SM at least once) and reads the DFT constant from L2
+//    once for all of them. A small batch's tiles of 16 rows or fewer split
+//    their column units over blocks as well (tc_frames_features), so that
+//    batch 1 runs on 28 (480/160), 32 (640/320) or 20 (400/200) blocks.
 //  - A is read in place from the staged samples; nothing is rebuilt. A
 //    tile's rows touch a few utterances ("pieces"); each piece's samples
-//    [hop fa, hop fb + window) are staged in chunks of hop samples, chunk
-//    c of the tile at c * stride floats (stride = hop + 4), the pieces a
-//    further gap (a multiple of 32) apart beyond the chunks of their
-//    frames' tails. Local row lr of piece i starts at lr stride + i gap,
-//    and its sample k at + k + 4 (k / hop). With hop a multiple of 32, a K
-//    slice lies in one chunk; with stride / 4 odd, the eight rows of a
-//    fragment read eight distinct 4-bank groups (no bank conflicts).
-//  - B: the windowed DFT [window, 4 ncg] with its (re_k, im_k) columns
-//    interleaved (the hops kernels' constant), its first fft / 2 bins: the
-//    Nyquist bin carries no mel weight (the host checks) and is skipped.
+//    from hop fa on are staged in chunks, chunk c of the tile at c * stride
+//    floats, the pieces a further gap (a multiple of 32) apart beyond the
+//    chunks of their frames' tails. A chunk holds hs = hop rounded up to
+//    32 samples, from hop (fa + c) on (zeros past the clip's end), and
+//    stride = hs + 4: the eight rows of a fragment read eight distinct
+//    4-bank groups. Local row lr of piece i starts at lr stride + i gap.
+//  - K: a frame spans window / hop chunks; K runs over them, hs rows a
+//    chunk (Kp = window / hop * hs), and the constant's rows past the hop
+//    in each chunk are zero. So a K slice never straddles two chunks and
+//    reads at + k0 + 4 (k0 / hs), with the fragment's offsets immediate,
+//    as where hs = hop (every hop a multiple of 32: 480/160, 640/320, K8's
+//    every geometry). Where the hop is not (400/200: hop 200, hs 224, Kp
+//    448 for a 400 window) the zero rows cost 12% more products; the
+//    alternatives cost more: a per-slice table of chunk offsets, read for
+//    every A load, ran K8's 128-row tile 3.1% slower on the H100, and
+//    frames stored contiguously put all eight rows of a fragment in one
+//    bank where the hop is a multiple of 32. The samples a chunk holds
+//    past its hop are finite (the next chunk's, or zeros: 3xTF32 of a NaN
+//    times an exact zero would be NaN).
+//  - B: the windowed DFT [Kp, 128 units] in that row order with its (re_k,
+//    im_k) columns interleaved, its first 64 units bins: up to fft / 2,
+//    the Nyquist bin carrying no mel weight (the host checks); columns
+//    past the bins of a short fft are zero.
 //
-// What bounds K8 on the H100: its products, window x fft multiply-adds a
-// frame (245,760 at 480/160, 655,360 at 640/320) at the tensor cores'
-// float32-exact rate (3xTF32), and the L2 reads of the DFT constant (0.98 /
-// 2.6 MB a block) that feed them: the tile's rows set how often it is read.
+// What bounds the stage on the H100: its products, window x fft
+// multiply-adds a frame (245,760 at 480/160, 655,360 at 640/320, 204,800
+// at 400/200) at the tensor cores' float32-exact rate (3xTF32), and the L2
+// reads of the DFT constant (0.98 / 2.6 MB a block) that feed them: the
+// tile's rows set how often it is read.
 //
 // Numerics (K9's, K5's and K7's): both parts of each operand rounded to the
 // nearest TF32 value (split_tf32_rn); per k8 step a tile's lo*hi, hi*lo,
@@ -50,9 +74,11 @@
 // sums in float32 (the tensor cores' own accumulation rounds toward zero:
 // chained, it drifts past the float64 gate on loud dataset rows). An
 // element's sum depends only on its row's A, its column and the fixed k
-// order, never on the tile or the batch: K8 of one utterance equals its
-// row of any batch bit for bit, and k3_phases equals k8_mfcc(K1(x)). With
-// dsp_matmul_dtype="bfloat16" A and B are bf16 values, exact in TF32:
+// order, never on the tile, the batch or the staged layout: the stage of
+// one utterance equals its row of any batch bit for bit, K2 equals K8
+// where both serve a geometry, and k3_frontend equals k2_mfcc(K1(x)) in
+// either variant. The zero rows' steps add exact zeros.
+// With dsp_matmul_dtype="bfloat16" A and B are bf16 values, exact in TF32:
 // their lo parts are zero, and the same three products give the exact
 // bf16 products summed in float32 (one would do; the code path is shared).
 
@@ -68,6 +94,7 @@
 #define TC_SB (TC_BN + 8)     // B row stride: lanes (g, t) read banks 8t + g
 #define TC_SP (TC_PAIRS + 1)  // power tile row stride, odd: the mel's lanes read by row
 #define TC_MAX_ROWS 128       // rows of the largest product
+#define TC_PAD 4              // floats between staged chunks (stride = hs + TC_PAD)
 
 // 8 warps as WM (rows) x WN (columns), MI m16 x NI n8 tiles each
 template <int MI, int WM>
@@ -228,8 +255,10 @@ __device__ __forceinline__ void tc_mel(const FeArgs& a, const int* runs, const f
   }
 }
 
-// log(mel + 1e-6), then for MFCC the DCT (staged in `scratch`), into out
-// [rows, C]; sums is band-major [num_mel][rows]
+// log(mel + 1e-6), then for MFCC the DCT (staged in `scratch`, the ring;
+// with GLOBAL, where it does not fit there, read from global memory: the
+// same bits), into out [rows, C]; sums is band-major [num_mel][rows]
+template <bool GLOBAL = false>
 __device__ __forceinline__ void tc_tail(const FeArgs& a, float* sums, float* scratch, float* out,
                                         int rows) {
   const int total = rows * a.num_mel;
@@ -243,31 +272,48 @@ __device__ __forceinline__ void tc_tail(const FeArgs& a, float* sums, float* scr
     }
   }
   if (a.magnitude) return;
-  for (int i = threadIdx.x; i < a.num_mel * a.num_coef; i += FE_THREADS) scratch[i] = a.dct[i];
+  const float* dct = GLOBAL ? a.dct : scratch;
+  if (!GLOBAL) {
+    for (int i = threadIdx.x; i < a.num_mel * a.num_coef; i += FE_THREADS) scratch[i] = a.dct[i];
+  }
   __syncthreads();
   for (int item = threadIdx.x; item < rows * a.num_coef; item += FE_THREADS) {
     const int f = item / a.num_coef, c = item - f * a.num_coef;
     float acc = 0.f;
     for (int m = 0; m < a.num_mel; ++m)
-      acc = fmaf(sums[m * rows + f], scratch[m * a.num_coef + c], acc);
+      acc = fmaf(sums[m * rows + f], dct[m * a.num_coef + c], acc);
     out[item] = acc;
   }
 }
 
-// ---- K8: the frames' DFT as one product over the live DFT rows ----
+// ---- K2 and K8: the frames' DFT as one product over the live DFT rows ----
 
 // A block's rows [r0, r0 + nrows) of the batch x frames row space (tile
-// `tile`); row r0 is frame f0 of utterance b0. The block takes the tile's
-// column units [u0, u1): all of them, or with SPLIT its share of v.splits
-// (the split bookkeeping only where it is compiled in: the large tiles'
-// products use every register).
+// `tile` of v.rows rows); row r0 is frame f0 of utterance b0. The block
+// takes the tile's column units [u0, u1): all of them, or with SPLIT its
+// share of v.splits (the split bookkeeping only where it is compiled in:
+// the large tiles' products use every register).
 struct TcTile {
   int tile, r0, nrows, b0, f0, u0, u1;
 };
 
+// The product a tile of v.rows rows (the host plan's) runs on: 128 (8
+// warps over the columns, 8 m16 tiles each), 64 (2 x 4 warps, 2 m16 tiles
+// each), or, for 16 rows or fewer, 16 (8 warps, 1 m16 tile; the only one
+// with the split bookkeeping); 0 for any other count
+static inline int tc_product(int rows) {
+  return rows == 128 || rows == 64 ? rows : (rows >= 1 && rows <= 16 ? 16 : 0);
+}
+
+// A launch's blocks: the batch's frames in tiles of v.rows, each tile's
+// units over v.splits blocks
+static inline int tc_grid(const FeArgs& a, const FeVariant& v, int batch) {
+  return (batch * a.frames + v.rows - 1) / v.rows * v.splits;
+}
+
 template <bool SPLIT>
-__device__ __forceinline__ TcTile tc_tile(const FeArgs& a, const FeVariant& v, int batch,
-                                          int rows) {
+__device__ __forceinline__ TcTile tc_tile(const FeArgs& a, const FeVariant& v, int batch) {
+  const int rows = v.rows;
   TcTile tl;
   tl.tile = SPLIT ? blockIdx.x / v.splits : blockIdx.x;
   const int per = SPLIT ? v.units / v.splits : v.units;
@@ -282,12 +328,13 @@ __device__ __forceinline__ TcTile tc_tile(const FeArgs& a, const FeVariant& v, i
 
 // Stages the tile's samples (the header's layout): for each piece,
 // piece(b) gives put(t, dst), which writes (or issues the copies of)
-// samples t .. t + 3 of utterance b to dst. Copies are not committed.
+// samples t .. t + 3 of utterance b to dst; past the clip's end zeros are
+// written instead. Copies are not committed.
 template <class Piece>
 __device__ __forceinline__ void tc_stage(const FeArgs& a, const FeVariant& v, const TcTile& tl,
                                          float* x, Piece&& piece) {
-  const int wh = a.window / a.hop;  // chunks a frame spans
-  const int q = a.hop / 4;          // float4s a chunk
+  const int wh = a.window / a.hop;         // chunks a frame spans
+  const int q = (v.stride - TC_PAD) / 4;  // float4s a chunk
   const int last = tl.r0 + tl.nrows - 1;
   const int b1 = last / a.frames;
   for (int b = tl.b0; b <= b1; ++b) {
@@ -299,7 +346,13 @@ __device__ __forceinline__ void tc_stage(const FeArgs& a, const FeVariant& v, co
     const int n4 = (fb - fa + wh) * q;
     for (int e = threadIdx.x; e < n4; e += FE_THREADS) {
       const int c = e / q, j = e - c * q;
-      put(a.hop * (fa + c) + 4 * j, dst + c * v.stride + 4 * j);
+      const int t = a.hop * (fa + c) + 4 * j;
+      float* d = dst + c * v.stride + 4 * j;
+      if (t < a.n) {
+        put(t, d);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
 }
@@ -316,20 +369,22 @@ __device__ __forceinline__ void tc_load_b(const float* w, int ld, float* dst, in
   }
 }
 
-// The product of the tile's units [u0, u1), unit by unit over K slices of
-// the window, each unit's power tile through mel(u) after the next
-// barrier. x holds the staged samples (landed or in committed-or-pending
-// cp.async groups), the tables are in shared memory; on return the last
-// unit's power tile is written, not yet synchronised.
+// The product of the tile's units [u0, u1), unit by unit over the Kp / 32
+// K slices, each unit's power tile through mel(u) after the next barrier.
+// x holds the staged samples (landed or in committed-or-pending cp.async
+// groups), the tables are in shared memory; on return the last unit's
+// power tile is written, not yet synchronised.
 template <int MI, int WM, class Mel>
 __device__ __forceinline__ void tc_frames_run(const FeArgs& a, const FeVariant& v, const TcTile& tl,
                                               const float* x, float* ring, float* ptile,
                                               Mel&& mel) {
   using C = TcCfg<MI, WM>;
-  const int slices = a.window / TC_BK;  // K slices of a unit
+  const int hs = v.stride - TC_PAD;            // K rows a chunk
+  const int kp = a.window / a.hop * hs;        // K rows of a unit
+  const int slices = kp / TC_BK;               // K slices of a unit
   const int total = (tl.u1 - tl.u0) * slices;
   const int n0 = tl.u0 * TC_BN;
-  const int ld = 4 * a.ncg;
+  const int ld = TC_BN * v.units;
   const int warp = threadIdx.x >> 5;
   const int wm = warp / C::WN, wn = warp % C::WN;
   // where the thread's fragment rows g and g + 8 of tile mi read sample 0
@@ -374,7 +429,7 @@ __device__ __forceinline__ void tc_frames_run(const FeArgs& a, const FeVariant& 
                               n0 + ls / slices * TC_BN, ls % slices * TC_BK);
     cp_async_commit();
     const int u = s / slices, k0 = (s - u * slices) * TC_BK;
-    const float* xs = x + k0 + 4 * (k0 / a.hop);  // the slice lies in one chunk
+    const float* xs = x + k0 + TC_PAD * (k0 / hs);  // the slice lies in one chunk
     tc_mma<MI, WM>(
         [&](int mi, int kk, float (&av)[4]) {
           const float* r0 = xs + (base[mi] & 0xffffu) + kk;
@@ -388,7 +443,7 @@ __device__ __forceinline__ void tc_frames_run(const FeArgs& a, const FeVariant& 
     // the previous unit's power tile through the mel (written before this
     // slice's barrier; the next write is a unit, >= 2 barriers, later)
     if (u > 0 && k0 == 0) mel(tl.u0 + u - 1);
-    if (k0 + TC_BK == a.window) tc_power<MI, WM>(a, acc, ptile, wm, wn, tl.nrows);
+    if (k0 + TC_BK == kp) tc_power<MI, WM>(a, acc, ptile, wm, wn, tl.nrows);
   }
   cp_async_wait<0>();
 }
@@ -397,36 +452,36 @@ __device__ __forceinline__ void tc_frames_run(const FeArgs& a, const FeVariant& 
 // the samples in smem[0, region_a) (written, or their cp.async copies
 // issued and not committed). Shared memory after them (floats, each region
 // a multiple of 4; ops/kernels/mfcc.py::smem_plan mirrors it): the mel runs
-// [units][num_mel][3], its nonzero weights [v.mel_nnz], the ring, the power
-// tile [ROWS][65] and the mel sums [num_mel][ROWS]; the DCT reuses the ring.
+// [units][num_mel][3], its nonzero weights [v.mel_nnz], the ring, the
+// power tile [rows][65] and the mel sums [num_mel][rows] (rows = v.rows);
+// the DCT reuses the ring.
 //
 // Split tiles (SPLIT and v.splits > 1, a small batch: the host's plan, on
-// its smallest tile): each block
-// writes its units' mel contributions to v.part [tiles][units][num_mel]
-// [ROWS], not summed, and the tile's last block to finish (a counter per
-// tile in v.done, which it sets back to 0) adds them in unit order, as an
-// unsplit tile adds them to its sums, then runs the tail: the same bits.
+// a tile of 16 rows or fewer): each block writes its units' mel
+// contributions to v.part [tiles][units][num_mel][rows], not summed, and
+// the tile's last block to finish (a counter per tile in v.done, which it
+// sets back to 0) adds them in unit order, as an unsplit tile adds them to
+// its sums, then runs the tail: the same bits.
 template <int MI, int WM, bool SPLIT>
 __device__ __forceinline__ void tc_frames_features(const FeArgs& a, const FeVariant& v,
                                                    const TcTile& tl, float* smem, int region_a,
                                                    float* out) {
-  using C = TcCfg<MI, WM>;
   const int nruns = v.units * a.num_mel * 3;
   int* runs = reinterpret_cast<int*>(smem + region_a);
   float* vals = reinterpret_cast<float*>(runs) + tc_up4(nruns);
   float* ring = vals + tc_up4(v.mel_nnz);
   float* ptile = ring + TC_STAGES * TC_BK * TC_SB;
-  float* sums = ptile + tc_up4(C::ROWS * TC_SP);
+  float* sums = ptile + tc_up4(v.rows * TC_SP);
   for (int i = threadIdx.x; i < nruns; i += FE_THREADS) cp_async4(runs + i, v.runs + i, true);
   tc_copy(vals, a.mel, tc_up4(v.mel_nnz) / 4);
   cp_async_commit();
   const int nsum = a.num_mel * tl.nrows;
   for (int i = threadIdx.x; i < nsum; i += FE_THREADS) sums[i] = 0.f;
   const bool split = SPLIT && v.splits > 1;
-  float* part = split ? v.part + (size_t)tl.tile * v.units * a.num_mel * C::ROWS : sums;
+  float* part = split ? v.part + (size_t)tl.tile * v.units * a.num_mel * v.rows : sums;
   auto mel = [&](int u) {
     if (split) {
-      tc_mel<true>(a, runs, vals, ptile, part + u * a.num_mel * C::ROWS, u, tl.nrows);
+      tc_mel<true>(a, runs, vals, ptile, part + u * a.num_mel * v.rows, u, tl.nrows);
     } else {
       tc_mel(a, runs, vals, ptile, sums, u, tl.nrows);
     }
@@ -444,11 +499,16 @@ __device__ __forceinline__ void tc_frames_features(const FeArgs& a, const FeVari
     __threadfence();  // the other blocks' contributions, after their counts
     for (int i = threadIdx.x; i < nsum; i += FE_THREADS) {
       float s = 0.f;
-      for (int u = 0; u < v.units; ++u) s += __ldcg(part + u * a.num_mel * C::ROWS + i);
+      for (int u = 0; u < v.units; ++u) s += __ldcg(part + u * a.num_mel * v.rows + i);
       sums[i] = s;
     }
     if (threadIdx.x == 0) v.done[tl.tile] = 0;
   }
   __syncthreads();
-  tc_tail(a, sums, ring, out + (size_t)tl.r0 * fe_width(a), tl.nrows);  // the ring is free
+  out += (size_t)tl.r0 * fe_width(a);
+  if (a.num_mel * a.num_coef <= TC_STAGES * TC_BK * TC_SB) {
+    tc_tail(a, sums, ring, out, tl.nrows);  // the ring is free
+  } else {
+    tc_tail<true>(a, sums, ring, out, tl.nrows);
+  }
 }

@@ -4,22 +4,21 @@
 // device memory.
 //
 // Replaces the TPU kernel tcresnet_tpu/ops/pallas/frontend.py::_kernel, in
-// its three DFT branches (one entry point each): k3_frontend (hops),
-// k3_phases (the phases branch, K8's stage, frontend.py:164-173) and
+// its three DFT branches: k3_frontend (the hops branch, and the phases
+// branch, frontend.py:164-173: K2's and K8's stage, dft_tc.cuh; the host
+// counts launches by variant), and
 // k3_radix4 (the radix4 branch, K9's stage, frontend.py:175-185). K1's
-// body (augment.cuh) writes the augmented row into shared memory, and the
-// front end (frontend.cuh, also K2's and K4's; dft_tc.cuh, K8's;
-// radix4.cuh, K9's) turns it into features. Per 1 s row that reads 32 KB
-// of int16 and a 64 KB noise crop and writes 15.7 KB of features, where K1
+// body (augment.cuh) writes the augmented samples into shared memory, and
+// the stage turns them into features. Per 1 s row that reads 32 KB of
+// int16 and a 64 KB noise crop and writes 15.7 KB of features, where K1
 // then K2 also write and read back the 64 KB augmented row.
 //
-// What bounds it on the H100: the DFT stage, as in mfcc.cu (FP32 FMA issue
-// for hops; the 3xTF32 products and the L2 reads of their constants for
-// phases and radix4); the augment adds a few microseconds of memory
-// traffic per block. The design is mfcc.cu's (hops and radix4: one block
-// per utterance; phases: a tile of the batch's frames, whose utterances
-// each augment with their own scalars) with the sample load replaced by
-// the augment.
+// What bounds it on the H100: the DFT stage, as in mfcc.cu (the 3xTF32
+// products and the L2 reads of their constants); the augment adds a few
+// microseconds of memory traffic per block. The design is mfcc.cu's (hops
+// and phases: a tile of the batch's frames, whose utterances each augment
+// with their own scalars; radix4: one block per utterance) with the sample
+// load replaced by the augment.
 //
 // Numerics: the augmented samples are bit-exact with K1 (augment.cuh),
 // and the features are computed by the same code as mfcc.cu's, so K3
@@ -37,30 +36,18 @@
 
 struct K3Args {
   FeArgs fe;
-  FeVariant v;  // phases / radix4 only
+  FeVariant v;
   AugArgs aug;  // aug.out is the feature output [batch, frames, C]
   int region_a, smem_bytes;
 };
 
-__global__ void __launch_bounds__(FE_THREADS, 1) k3_kernel(const K3Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* reg_a = smem;
-  float* reg_b = smem + a.region_a;
-  const int b = blockIdx.x;
-  const AugRow<short> r = aug_row<short>(a.aug, b, 1.0f / 32768.0f);
-  for (int t = threadIdx.x; t < a.fe.n; t += blockDim.x)
-    reg_a[t] = fe_sample(a.fe, aug_sample(r, a.aug.n, t));
-  __syncthreads();
-  fe_features(a.fe, reg_a, reg_b);
-  fe_store(a.fe, reg_b, a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
-}
-
-// phases: each utterance of the tile augmented with its own scalars over
-// the sample span its rows read (K8's layout, dft_tc.cuh), then K8's stage
+// hops and phases: each utterance of the tile augmented with its own
+// scalars over the sample span its rows read (the stage's layout,
+// dft_tc.cuh), then K2's and K8's stage
 template <int MI, int WM, bool SPLIT>
-__global__ void __launch_bounds__(FE_THREADS, 1) k3_phases_kernel(const K3Args a) {
+__global__ void __launch_bounds__(FE_THREADS, 1) k3_frames_kernel(const K3Args a) {
   extern __shared__ __align__(16) float smem[];
-  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.aug.batch, TcCfg<MI, WM>::ROWS);
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.aug.batch);
   const AugArgs& aug = a.aug;
   const FeArgs& fe = a.fe;
   tc_stage(a.fe, a.v, tl, smem, [&aug, &fe](int b) {
@@ -84,27 +71,27 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k3_radix4_kernel(const K3Args a
                       a.aug.out + (size_t)b * a.fe.frames * fe_width(a.fe));
 }
 
-extern "C" int k3_frontend(const K3Args* args, void* stream) {
-  return fe_launch<K3Args, k3_kernel>(args->aug.batch, args->smem_bytes, *args, stream);
-}
-
 template <int MI, int WM, bool SPLIT = false>
-static int k3_phases_launch(const K3Args* args, void* stream) {
-  constexpr int rows = TcCfg<MI, WM>::ROWS;
+static int k3_frames_launch(const K3Args* args, void* stream) {
   if (!SPLIT && args->v.splits != 1) return (int)cudaErrorInvalidValue;
-  const int grid = (args->aug.batch * args->fe.frames + rows - 1) / rows * args->v.splits;
-  return fe_launch<K3Args, k3_phases_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args,
+  const int grid = tc_grid(args->fe, args->v, args->aug.batch);
+  return fe_launch<K3Args, k3_frames_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args,
                                                             stream);
 }
 
-// as k8_mfcc: the tile rows of the host's plan
-extern "C" int k3_phases(const K3Args* args, void* stream) {
-  switch (args->v.rows) {
-    case 128: return k3_phases_launch<8, 1>(args, stream);
-    case 64: return k3_phases_launch<2, 2>(args, stream);
-    case 16: return k3_phases_launch<1, 1, true>(args, stream);
+// as mfcc.cu's frames_stage: the tile rows of the host's plan
+static int k3_frames_stage(const K3Args* args, void* stream) {
+  switch (tc_product(args->v.rows)) {
+    case 128: return k3_frames_launch<8, 1>(args, stream);
+    case 64: return k3_frames_launch<2, 2>(args, stream);
+    case 16: return k3_frames_launch<1, 1, true>(args, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// hops and phases: the same stage
+extern "C" int k3_frontend(const K3Args* args, void* stream) {
+  return k3_frames_stage(args, stream);
 }
 
 // as k9_mfcc: the 64-row product up to 64 frames, the 112-row one up to 112

@@ -1,18 +1,15 @@
-// The spectral front end shared by the port's CUDA kernels: one
-// utterance's samples in shared memory -> MFCC or log-mel features.
+// The front ends' shared pieces (FeArgs, FeVariant, fe_launch, fe_bf16,
+// fe_sample), and K4's spectral front end: one utterance's samples in
+// shared memory -> MFCC or log-mel features, on the CUDA cores.
 //
-// One implementation for the hops kernels, as the JAX package has one
-// `mfcc_plan` (tcresnet_tpu/ops/pallas/mfcc.py) for its fused MFCC,
-// front-end and inference kernels:
-//   K2  csrc/mfcc.cu     wav -> features (mfcc.py::_kernel)
-//   K3  csrc/frontend.cu gather + augment -> features (frontend.py::_kernel)
 //   K4  csrc/infer.cu    wav -> features -> convs -> logits (infer.py::_kernel)
-// K8 (mfcc.py::_kernel_phases, and K3's phases entry point) and K9
-// (::_kernel_radix4, K3's radix4 entry point) run on the tensor cores:
-// dft_tc.cuh and radix4.cuh. They share FeArgs, FeVariant, fe_bf16 and
-// fe_launch with this file.
 //
-// A kernel runs, with all threads of the block:
+// runs the stage below (fe_features). The other front ends run on the
+// tensor cores: K2 (mfcc.py::_kernel, k2_mfcc) and K3's hops entry point,
+// K8 (::_kernel_phases) and K3's phases entry point in dft_tc.cuh, K9
+// (::_kernel_radix4) and K3's radix4 entry point in radix4.cuh.
+//
+// K4 runs, with all threads of the block:
 //   1. fe_dft_hops: every frame's full-window dot with the windowed DFT,
 //      reim[f] = frame[f] @ W, into the power (MFCC) or magnitude (log-mel)
 //      spectrum [frames, nbp] in region B;
@@ -45,29 +42,31 @@
 #define FE_RM 7   // frames per thread in the mel / DCT micro-tile
 
 struct FeArgs {
-  const float* dft;  // [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1)
-  const float* mel;  // [num_bins, num_mel]; K8, K9: the nonzero weights of their mel runs
+  // K4: [window, 4 * ncg], columns (re_k, im_k, re_k+1, im_k+1); K2, K8:
+  // [window rounded up to 32, 128 units], zero rows and columns past it
+  const float* dft;
+  const float* mel;  // [num_bins, num_mel]; K2, K8, K9: the nonzero weights of their mel runs
   const float* dct;  // [num_mel, num_coef]; unused when magnitude
   int n, window, hop, frames, ncg, num_bins, num_mel, num_coef;
   int magnitude, round_bf16;
 };
 
-// The tensor-core stages' constants: K8 (dft_tc.cuh) and K9 (radix4.cuh);
-// the hops stage needs none.
+// The tensor-core stages' constants: K2 and K8 (the frames' stage,
+// dft_tc.cuh) and K9 (radix4.cuh); K4's stage needs none.
 struct FeVariant {
   // radix4: the live columns of M0 [L, L], M1 [2L, 2L], M2 [L, L] back to
-  // back, row-major, each as (re, im) pairs; phases: FeArgs.dft
+  // back, row-major, each as (re, im) pairs; frames: FeArgs.dft
   const float* w;
   const float* win;   // radix4: the window zero-padded to 4L
   const int* runs;    // the mel runs [units][num_mel][3] (dft_tc.cuh)
-  float* part;        // phases, split tiles: the units' mel contributions
-  int* done;          // phases, split tiles: per tile, its blocks that finished (0 between calls)
+  float* part;        // frames, split tiles: the units' mel contributions
+  int* done;          // frames, split tiles: per tile, its blocks that finished (0 between calls)
   int length;         // radix4: L
   int mel_nnz;        // the mel's nonzero weights (FeArgs.mel)
-  int units;          // phases: column units of 128 (fft / 128)
-  int rows;           // phases: rows of a block's tile (the host plan's)
-  int splits;         // phases: blocks a tile's units are split over (the host plan's)
-  int stride, gap;    // phases: the staged samples' chunk stride and piece gap (floats)
+  int units;          // frames: column units of 128 (fft / 128, at least 1)
+  int rows;           // frames: rows of a block's tile (the host plan's)
+  int splits;         // frames: blocks a tile's units are split over (the host plan's)
+  int stride, gap;    // frames: the staged samples' chunk stride and piece gap (floats)
 };
 
 // Launches Kernel on `grid` blocks of FE_THREADS. Above 48 KB of dynamic
@@ -236,15 +235,9 @@ __device__ __forceinline__ void fe_tail(const FeArgs& a, float* reg_a, float* re
   __syncthreads();
 }
 
-// Steps 1-3 (K2, K3-hops, K4)
+// Steps 1-3 (K4)
 __device__ __forceinline__ void fe_features(const FeArgs& a, float* reg_a, float* reg_b) {
   fe_dft_hops(a, reg_a, reg_b);
   __syncthreads();
   fe_tail(a, reg_a, reg_b);
-}
-
-// Features [frames, C] from region B to out (row-major, C contiguous).
-__device__ __forceinline__ void fe_store(const FeArgs& a, const float* reg_b, float* out) {
-  const int total = a.frames * fe_width(a);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) out[i] = reg_b[i];
 }

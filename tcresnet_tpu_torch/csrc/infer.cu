@@ -25,8 +25,8 @@
 //    DFT constant stays in global memory, where it is L2-resident, and the
 //    DFT runs directly on frames (frame[f] @ W[window, 2K]) - the same
 //    math as the hop decomposition without a shifted-add buffer.
-//  - Steps 1 and 2 are frontend.cuh, shared with K2 (mfcc.cu) and K3
-//    (frontend.cu), so the three kernels compute the same features.
+//  - Steps 1 and 2 are frontend.cuh's FP32 stage (K2 and K3, which
+//    compute the same features, run on the tensor cores: dft_tc.cuh).
 //  - The DFT is register-blocked: each thread owns 4 output columns x 14
 //    frames (56 accumulators). Columns are interleaved (re_k, im_k,
 //    re_k+1, im_k+1), so a thread turns its own accumulators into two
@@ -177,13 +177,9 @@ __global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
   }
 }
 
+// the shared-memory limit raised once per device and larger size (fe_launch)
 extern "C" int k4_infer(const K4Args* args, void* stream) {
-  // per launch: the attribute is per device, and the call is cheap
-  const cudaError_t e = cudaFuncSetAttribute(
-      k4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  k4_kernel<<<args->batch, K4_THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return fe_launch<K4Args, k4_kernel>(args->batch, args->smem_bytes, *args, stream);
 }
 
 extern "C" int k4_args_size(void) { return (int)sizeof(K4Args); }

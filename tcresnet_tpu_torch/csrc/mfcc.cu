@@ -1,31 +1,29 @@
 // Fused MFCC / log-mel front end: wav [B, n] -> features [B, frames, C],
-// in each of the JAX kernel's three DFT variants (one entry point each):
+// in each of the JAX kernel's three DFT variants:
 //
-//   k2_mfcc  K2, replaces tcresnet_tpu/ops/pallas/mfcc.py::_kernel (hops)
-//   k8_mfcc  K8, replaces ::_kernel_phases (phase-grouped DFT)
+//   k2_mfcc  K2, replaces tcresnet_tpu/ops/pallas/mfcc.py::_kernel (hops),
+//            and K8, replaces ::_kernel_phases (phase-grouped DFT)
 //   k9_mfcc  K9, replaces ::_kernel_radix4 (radix-4 DIF factored rDFT)
 //
 // The TPU kernels keep one utterance tile in VMEM from the wav read to the
-// feature write; these keep one utterance in shared memory, and only the
+// feature write; these keep their samples in shared memory, and only the
 // wav read and the feature write touch device memory.
 //
-// What bounds them on the H100. K2: FP32 FMA issue in its DFT stage, not
-// memory (per row 64 KB in, 15.7 KB or less out): 24.2 M multiply-adds per
-// 1 s clip at 480/160, 32.2 M at 640/320. K8 and K9: their products at the
-// tensor cores' float32-exact (3xTF32) rate, K8's window x fft a frame
-// (24.1 M a clip at 480/160, 32.1 M at 640/320), K9's 6 L^2 (9.6 M, 19.3
-// M), and the L2 reads of their constants that feed them.
+// What bounds them on the H100: their products at the tensor cores'
+// float32-exact (3xTF32) rate, K2's and K8's window x fft a frame (24.1 M
+// a 1 s clip at 480/160, 32.1 M at 640/320), K9's 6 L^2 (9.6 M, 19.3 M),
+// and the L2 reads of their constants that feed them; not memory (per row
+// 64 KB in, 15.7 KB or less out).
 //
-// What the designs do about it. K2: one block per utterance (the batch is
-// the grid), the register-blocked products of frontend.cuh with the DFT
-// constant (~260 KB to 1 MB) in global memory, L2-resident. K8
-// (dft_tc.cuh): the batch's frames are one row space, a block a tile of
-// 128, 64 or 16 of them (the host's plan, from the batch), read in place
-// from the staged samples against the live DFT rows on the tensor cores.
-// K9 (radix4.cuh): one block per utterance, all its frames one product on
-// the tensor cores, so each slice of M0-M2 is read from L2 once per
-// utterance. K8 and K9 fold the mel into their column loop, so that no
-// power spectrum is stored.
+// What the designs do about it. K2 and K8 are one stage (dft_tc.cuh):
+// every frame's product with the windowed DFT, the batch's frames one row
+// space, a block a tile of 128, 64, or 16 and fewer of them (the host's
+// plan, from the batch), read in place from the staged samples on the
+// tensor cores; they share one kernel, frames_kernel, and one entry
+// point (the host counts launches by variant). K9 (radix4.cuh): one
+// block per utterance, all its frames one product on the tensor cores, so
+// each slice of M0-M2 is read from L2 once per utterance. All fold the mel
+// into their column loop, so that no power spectrum is stored.
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
 // launch on the given stream and return cudaGetLastError()).
@@ -38,30 +36,19 @@
 
 struct K2Args {
   FeArgs fe;
-  FeVariant v;        // K8 / K9 only
+  FeVariant v;
   const float* wavs;  // [batch, n]
   float* out;         // [batch, frames, C]
   int batch, region_a, smem_bytes;
 };
 
-__global__ void __launch_bounds__(FE_THREADS, 1) k2_kernel(const K2Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* reg_a = smem;
-  float* reg_b = smem + a.region_a;
-  const float* wav = a.wavs + (size_t)blockIdx.x * a.fe.n;
-  for (int i = threadIdx.x; i < a.fe.n; i += blockDim.x) reg_a[i] = fe_sample(a.fe, wav[i]);
-  __syncthreads();
-  fe_features(a.fe, reg_a, reg_b);
-  fe_store(a.fe, reg_b, a.out + (size_t)blockIdx.x * a.fe.frames * fe_width(a.fe));
-}
-
-// K8: the tile's sample span copied with cp.async (16-byte aligned: n,
-// hop and window are multiples of 4), rounded to bf16 in place for
+// K2 and K8: the tile's sample span copied with cp.async (16-byte aligned:
+// n and hop are multiples of 4), rounded to bf16 in place for
 // dsp_matmul_dtype="bfloat16" (the DFT's A operand, as fe_sample does)
 template <int MI, int WM, bool SPLIT>
-__global__ void __launch_bounds__(FE_THREADS, 1) k8_kernel(const K2Args a) {
+__global__ void __launch_bounds__(FE_THREADS, 1) frames_kernel(const K2Args a) {
   extern __shared__ __align__(16) float smem[];
-  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch, TcCfg<MI, WM>::ROWS);
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch);
   const float* wavs = a.wavs;
   const int n = a.fe.n;
   tc_stage(a.fe, a.v, tl, smem, [wavs, n](int b) {
@@ -87,28 +74,25 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k9_kernel(const K2Args a) {
                       a.out + (size_t)blockIdx.x * a.fe.frames * fe_width(a.fe));
 }
 
-extern "C" int k2_mfcc(const K2Args* args, void* stream) {
-  return fe_launch<K2Args, k2_kernel>(args->batch, args->smem_bytes, *args, stream);
-}
-
 template <int MI, int WM, bool SPLIT = false>
-static int k8_launch(const K2Args* args, void* stream) {
-  constexpr int rows = TcCfg<MI, WM>::ROWS;
+static int frames_launch(const K2Args* args, void* stream) {
   if (!SPLIT && args->v.splits != 1) return (int)cudaErrorInvalidValue;
-  const int grid = (args->batch * args->fe.frames + rows - 1) / rows * args->v.splits;
-  return fe_launch<K2Args, k8_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args, stream);
+  const int grid = tc_grid(args->fe, args->v, args->batch);
+  return fe_launch<K2Args, frames_kernel<MI, WM, SPLIT>>(grid, args->smem_bytes, *args, stream);
 }
 
-// the tile rows of the host's plan: 128 (8 warps over the columns, 8 m16
-// tiles each), 64 (2 x 4 warps, 2 m16 tiles each), 16 (8 warps, 1 m16 tile)
-extern "C" int k8_mfcc(const K2Args* args, void* stream) {
-  switch (args->v.rows) {
-    case 128: return k8_launch<8, 1>(args, stream);
-    case 64: return k8_launch<2, 2>(args, stream);
-    case 16: return k8_launch<1, 1, true>(args, stream);
+// the tile rows of the host's plan (tc_product)
+static int frames_stage(const K2Args* args, void* stream) {
+  switch (tc_product(args->v.rows)) {
+    case 128: return frames_launch<8, 1>(args, stream);
+    case 64: return frames_launch<2, 2>(args, stream);
+    case 16: return frames_launch<1, 1, true>(args, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// K2 and K8: the same stage
+extern "C" int k2_mfcc(const K2Args* args, void* stream) { return frames_stage(args, stream); }
 
 // the 64-row product up to 64 frames (640/320: 49), the 112-row one up to
 // 112 (480/160: 98)

@@ -419,8 +419,10 @@ def preprocess(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
 
     dsp_backend "pallas" runs a [B, N] batch through the fused kernel of
     the DFT variant (K2, K8 or K9; its plain version for a CPU tensor; a
-    CUDA geometry the kernel does not serve raises); "xla" runs the plain
-    per-op path; "auto" picks (`resolve_dsp_backend`)."""
+    CUDA geometry that is not hop-decomposable takes the plain path, as in
+    JAX, and one JAX's kernel takes but no kernel here serves raises:
+    `ops.kernels.mfcc.fused_mfcc_route`); "xla" runs the plain per-op path;
+    "auto" picks (`resolve_dsp_backend`)."""
     if cfg.preprocess_method in ("mfcc", "log_mel_spectrogram"):
         backend = resolve_dsp_backend(cfg, audio)
         if backend == "pallas" and audio.dim() == 2:

@@ -2,19 +2,20 @@
 decode -> augment -> MFCC or log-mel features [B, frames, C].
 
 Counterpart of tcresnet_tpu/ops/pallas/frontend.py, all three branches:
-the kernel is `csrc/frontend.cu`, one entry point per DFT variant (hops,
-phases as in K8, radix4 as in K9, resolved by `mfcc.resolve_dft_variant`).
-K1's per-sample body (`augment.cuh`) writes the augmented row (phases:
-the sample span of a tile of the batch's frames, each utterance with its
-own draws) into shared memory and the variant's stage (`frontend.cuh`,
-`dft_tc.cuh`, `radix4.cuh`) turns it into features, so the augmented wave
-never reaches device memory. Each launch takes the launch arguments of
-the MFCC kernel of its variant (`mfcc.FrontEnd.launch_args`: K8's tile
-plan for the batch). Its plain version is K1's then the variant's MFCC plain version
+the kernel is `csrc/frontend.cu`, in the DFT variant that
+`mfcc.resolve_dft_variant` gives (hops and phases, one entry point, as in
+K2 and K8; radix4 as in K9). K1's per-sample body (`augment.cuh`) writes
+the augmented samples (hops and phases: the sample span of a tile of the
+batch's frames, each utterance with its own draws; radix4: the row) into
+shared memory and the variant's stage (`dft_tc.cuh`, `radix4.cuh`) turns
+them into features, so the augmented wave never reaches device memory.
+Each launch takes the launch arguments of the MFCC kernel of its variant
+(`mfcc.FrontEnd.launch_args`: K2's and K8's tile plan for the batch).
+Its plain version is K1's then the variant's MFCC plain version
 (`frontend_reference`); a wrapper takes it only for CPU tensors.
 
-`launches`, `phases_launches` and `radix4_launches` count launches of the
-hops, phases and radix4 entry points and nothing else.
+`launches`, `phases_launches` and `radix4_launches` count launches by the
+resolved variant (hops, phases, radix4) and nothing else.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ launches = 0  # hops
 phases_launches = 0
 radix4_launches = 0
 
-ENTRIES = {"hops": "k3_frontend", "phases": "k3_phases", "radix4": "k3_radix4"}
+ENTRIES = {"hops": "k3_frontend", "phases": "k3_frontend", "radix4": "k3_radix4"}
 _COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
 
 
@@ -54,7 +55,7 @@ class _K3Args(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return _build.bind("frontend", _K3Args, list(ENTRIES.values()), "k3_args_size",
+    return _build.bind("frontend", _K3Args, sorted(set(ENTRIES.values())), "k3_args_size",
                        "k3_error_string")
 
 

@@ -51,7 +51,7 @@ _ROLES = {"conv0": 0, "down": 1, "block0": 2, "block1": 3}
 
 @dataclasses.dataclass(frozen=True)
 class _Geometry:
-    fe: mfcc.FrontEndGeometry  # the shared front end's (csrc/frontend.cuh)
+    fe: mfcc.FrontEndGeometry  # K4's FP32 front end's (csrc/frontend.cuh)
     act_max: int  # largest conv activation, T * C floats
     region_a: int
     smem_bytes: int
@@ -210,7 +210,7 @@ class FusedInfer:
         def dev(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32), device=self.device)
 
-        self.fe = mfcc.front_end(audio_cfg, geom.fe.n, self.device)
+        self.fe = mfcc.front_end(audio_cfg, geom.fe.n, self.device, "fp32")
         self.magnitude = geom.fe.magnitude
         self.matmul_dtype = self.fe.matmul_dtype
         self.dft, self.mel, self.dct = self.fe.dft, self.fe.mel, self.fe.dct

@@ -1,25 +1,28 @@
 """Fused MFCC / log-mel front end: wav [B, n] -> features [B, frames, C].
 
 Counterpart of tcresnet_tpu/ops/pallas/mfcc.py, whose `dft_variant` picks
-the DFT decomposition of one kernel; here each variant is an entry point
-of `csrc/mfcc.cu`:
+the DFT decomposition of one kernel; here each variant is a kernel of
+`csrc/mfcc.cu`:
 
-  "hops"    K2  `_kernel`: every frame's full-window dot with the windowed
-                DFT (no hop decomposition on the card, see frontend.cuh)
+  "hops"    K2  `_kernel`: the hop-decomposed DFT, [hop, k 2K] pieces of
+                the windowed DFT summed over a frame's hops; on the card
+                every frame's full-window product with the windowed DFT
   "phases"  K8  `_kernel_phases`: frames grouped by phase f mod P, one
                 product per phase of a strided lane-row view of the
                 utterance against W_p (`phase_dft_plan`); on the card every
-                frame of a tile of the batch's frames is one product over
-                the live rows of W_p, which are the windowed DFT
+                frame's product over the live rows of W_p, which are the
+                windowed DFT: K2's product
   "radix4"  K9  `_kernel_radix4`: the radix-4 DIF factored rDFT (window,
                 butterfly, three stage-2 products, branch-permuted power
                 and mel; `dsp.radix4_dft_matrices`), on the tensor cores
 
-Their spectral code is `csrc/frontend.cuh` (hops, shared with K3's hops
-entry point, `frontend.cu`, and K4, `infer.cu`, always "hops" as in JAX),
-`csrc/dft_tc.cuh` (phases, and the tensor-core pieces K9 shares) and
-`csrc/radix4.cuh` (radix4), each also K3's stage of the variant; the
-source notes say what bounds each on the H100. This module:
+K2 and K8 run one stage on the tensor cores, `csrc/dft_tc.cuh` (every
+frame of a tile of the batch's frames one 3xTF32 product, the
+tensor-core pieces K9 shares), through one entry point and one
+`FrontEnd`; K9 `csrc/radix4.cuh`, each also K3's stage
+of the variant; K4 (`infer.cu`, always "hops" as in JAX) keeps the FP32
+stage of `csrc/frontend.cuh`. The source notes say what bounds each on the
+H100. This module:
 
 - resolves a config's variant as the JAX package does
   (`resolve_dft_variant`, with its fallback to "hops" where a geometry
@@ -29,19 +32,23 @@ source notes say what bounds each on the H100. This module:
 - lays each variant's constants out for the kernels and keeps them on the
   device, once per (audio config, clip length, device, variant)
   (`front_end` -> `FrontEnd`, the ctypes mirrors of `FeArgs` and
-  `FeVariant`; the mel runs of K8 and K9: `phases_kernel_constants`,
-  `radix4_kernel_constants`, with K9's live columns and rows), with each
-  kernel's shared-memory plan (`smem_plan`) and K8's tiles of the batch's
-  frames (`phases_tile_plan`);
+  `FeVariant`; the tensor-core DFT constant `tc_dft_matrix`; the mel runs:
+  `tc_mel_constants`, `radix4_kernel_constants`, with K9's live columns
+  and rows; K4's FP32 constants as the "fp32" front end), with each
+  kernel's shared-memory plan (`smem_plan`) and K2's and K8's tiles of the
+  batch's frames (`tc_tile_plan`, the staged samples' `tc_layout`);
 - holds the plain PyTorch versions (`fused_mfcc_reference`): the port's
   dense front end for "hops", the radix-4 path of `ops/dsp.py` for
   "radix4", and `phases_reim`, the per-phase products of
   `mfcc_tail_phases`, for "phases";
-- dispatches (`fused_mfcc`): a CPU tensor goes to the plain version, a
-  CUDA tensor to the variant's kernel, anything else raises.
+- dispatches (`fused_mfcc`, by `fused_mfcc_route`): a CPU tensor goes to
+  the plain version, a CUDA tensor to the variant's kernel, or where the
+  geometry cannot be split into hops to the plain feature of the same
+  method, as the JAX package falls back; anything else raises.
 
-`launches`, `phases_launches` and `radix4_launches` count launches of K2,
-K8 and K9 and nothing else.
+`launches`, `phases_launches` and `radix4_launches` count launches by the
+resolved variant (K2, K8, K9) and nothing else; `plain_routes` counts CUDA
+batches sent to the plain feature.
 """
 
 from __future__ import annotations
@@ -63,12 +70,13 @@ from tcresnet_tpu_torch.ops.kernels import _build
 launches = 0  # K2, "hops"
 phases_launches = 0  # K8
 radix4_launches = 0  # K9
+plain_routes = 0  # CUDA batches the JAX package too sends to the plain feature
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 SMS = 132  # the H100 SXM's streaming multiprocessors
 LANES = 128  # the TPU lane width the phase plan and the radix-4 rules are stated in
-# The tensor-core products of K8 and K9 (csrc/dft_tc.cuh): K slices of TC_BK
-# rows of the DFT constant through a ring of TC_STAGES; units of TC_BN
+# The tensor-core products of K2, K8 and K9 (csrc/dft_tc.cuh): K slices of
+# TC_BK rows of the DFT constant through a ring of TC_STAGES; units of TC_BN
 # columns, TC_BN / 2 (re, im) pairs; the slice's and the power tile's row
 # strides
 TC_BK, TC_BN, TC_STAGES = 32, 128, 3
@@ -78,12 +86,14 @@ TC_SB, TC_SP = TC_BN + 8, TC_PAIRS + 1
 # 64-row product, up to 112 a 112-row one
 R4_SA = TC_BK + 4
 R4_PRODUCT_ROWS = (64, 112)
-# K8: the rows of a block's tile in the kernel's instantiations, largest
-# first; chunks of hop staged samples lie hop + K8_PAD floats apart
-K8_TILE_ROWS = (128, 64, 16)
-K8_PAD = 4
+# K2 and K8: the rows a block's tile may have, largest first (128 and 64
+# each a product of their own; 16 and fewer the 16-row product, the only
+# one whose column units split over blocks: dft_tc.cuh::tc_product)
+TC_TILE_ROWS = (128, 64, 16, 8, 4, 2, 1)
+TC_SPLIT_ROWS = 16
+TC_PAD = 4  # floats between K2's and K8's staged chunks
 VARIANTS = ("hops", "phases", "radix4")
-ENTRIES = {"hops": "k2_mfcc", "phases": "k8_mfcc", "radix4": "k9_mfcc"}
+ENTRIES = {"hops": "k2_mfcc", "phases": "k2_mfcc", "radix4": "k9_mfcc"}  # K8 runs K2's stage
 _COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
 
 # "auto" (dsp_backend, frontend_fuse) takes the front-end kernels from this
@@ -190,15 +200,49 @@ def resolve_dft_variant(cfg: AudioConfig, n: int) -> str:
 
 def interleaved_dft_matrix(window: int, fft_length: int, ncg: int) -> np.ndarray:
     """[window, 4 * ncg] windowed real-DFT matrix with columns (re_k, im_k,
-    re_k+1, im_k+1) per group of 4, so that a thread of the hops stage forms
-    two power bins from its own accumulators (and K8's units hold (re, im)
-    pairs); bins past the last are zero."""
+    re_k+1, im_k+1) per group of 4, so that a thread of K4's FP32 stage
+    forms two power bins from its own accumulators; bins past the last are
+    zero."""
     m = dsp.windowed_rdft_matrix(window, fft_length)
     num_bins = fft_length // 2 + 1
     out = np.zeros((window, 2 * ncg, 2), np.float32)
     out[:, :num_bins, 0] = m[:, :num_bins]
     out[:, :num_bins, 1] = m[:, num_bins:2 * num_bins]
     return out.reshape(window, 4 * ncg)
+
+
+def tc_dft_matrix(window: int, hop: int, fft_length: int) -> np.ndarray:
+    """K2's and K8's constant (csrc/dft_tc.cuh): [Kp, 128 units] in the
+    staged chunks' K order (`tc_kp`): the window's rows a chunk of hop at a
+    time, each chunk's `tc_chunk(hop)` rows ending in zero rows; units
+    `tc_units`: the first 64 units bins' (re_k, im_k) columns interleaved,
+    a unit's 64 pairs (up to fft / 2; the Nyquist bin is left out), columns
+    past the bins zero."""
+    m = dsp.windowed_rdft_matrix(window, fft_length)  # [window, (re | im) of each bin]
+    half, hs = fft_length // 2, tc_chunk(hop)
+    out = np.zeros((window // hop, hs, TC_BN * tc_units(fft_length)), np.float32)
+    out[:, :hop, 0:2 * half:2] = m[:, :half].reshape(window // hop, hop, half)
+    out[:, :hop, 1:2 * half:2] = m[:, half + 1:2 * half + 1].reshape(window // hop, hop, half)
+    return out.reshape(window // hop * hs, -1)
+
+
+def tc_chunk(hop: int) -> int:
+    """Samples a staged chunk of K2's and K8's holds, and K rows it spans:
+    the hop in whole K slices."""
+    return -(-hop // TC_BK) * TC_BK
+
+
+def tc_kp(window: int, hop: int) -> int:
+    """K rows of K2's and K8's product: the window's window / hop chunks of
+    `tc_chunk(hop)` rows (the window itself where the hop is a multiple of
+    32)."""
+    return window // hop * tc_chunk(hop)
+
+
+def tc_units(fft_length: int) -> int:
+    """Column units of K2's and K8's product: the fft / 2 bins below the
+    Nyquist bin, 64 a unit, at least one."""
+    return max(1, fft_length // TC_BN)
 
 
 class FeArgs(ctypes.Structure):
@@ -214,7 +258,7 @@ class FeArgs(ctypes.Structure):
 
 class FeVariant(ctypes.Structure):
     """Mirror of struct FeVariant in csrc/frontend.cuh: the constants of the
-    tensor-core DFT stages, K8 (phases) and K9 (radix4)."""
+    tensor-core DFT stages, K2 and K8 (hops, phases) and K9 (radix4)."""
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("w", "win", "runs", "part", "done")]
@@ -240,8 +284,9 @@ class FrontEndGeometry:
         return 2 * (self.num_bins - 1)
 
     def regions(self, region_a_floats: int = 0) -> tuple:
-        """(region A floats, region B floats) of frontend.cuh's shared-memory
-        plan; A at least `region_a_floats`, B 16-byte aligned."""
+        """(region A floats, region B floats) of K4's FP32 front end's
+        shared-memory plan (frontend.cuh); A at least `region_a_floats`, B
+        16-byte aligned."""
         a = max(self.n, self.frames * self.num_mel, region_a_floats)
         return a + (-a % 4), self.frames * 2 * self.ncg
 
@@ -324,20 +369,23 @@ def mel_runs(kmel: np.ndarray) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def phases_kernel_constants(num_mel_bins: int, num_bins: int, sample_rate: int,
-                            lower_edge_hertz: float, upper_edge_hertz: float) -> tuple:
-    """K8's mel runs and nonzero weights (`mel_runs`) over its power rows,
-    the first fft / 2 bins: units of 64 bins (`dsp.mel_args` order of
-    arguments). The Nyquist bin, which K8 leaves out, must carry no mel
-    weight (it does not where the upper edge is below the Nyquist
-    frequency); ValueError otherwise."""
+def tc_mel_constants(num_mel_bins: int, num_bins: int, sample_rate: int,
+                     lower_edge_hertz: float, upper_edge_hertz: float) -> tuple:
+    """K2's and K8's mel runs and nonzero weights (`mel_runs`) over their
+    power rows, the first fft / 2 bins in units of 64 (`tc_units`; rows past
+    the bins carry no weight), in `dsp.mel_args` order of arguments. The
+    Nyquist bin, which they leave out, must carry no mel weight (it does
+    not where the upper edge is at most the Nyquist frequency); ValueError
+    otherwise."""
     mel = dsp.linear_to_mel_weight_matrix(num_mel_bins, num_bins, sample_rate,
                                           lower_edge_hertz, upper_edge_hertz)
     half = num_bins - 1
     if mel[half:].any():
-        raise ValueError(f"the Nyquist bin K8 leaves out has mel weight (upper edge "
+        raise ValueError(f"the Nyquist bin K2 and K8 leave out has mel weight (upper edge "
                          f"{upper_edge_hertz} Hz)")
-    return mel_runs(mel[:half])
+    kmel = np.zeros((TC_PAIRS * tc_units(2 * half), num_mel_bins), np.float32)
+    kmel[:half] = mel[:half]
+    return mel_runs(kmel)
 
 
 def radix4_kernel_rows(fft_length: int) -> np.ndarray:
@@ -353,42 +401,39 @@ def _up4(x: int) -> int:
     return x + (-x % 4)
 
 
-def k8_layout(g: FrontEndGeometry) -> tuple:
-    """(stride, gap) of K8's staged samples (csrc/dft_tc.cuh): chunks of
-    hop samples `stride` = hop + 4 floats apart (stride / 4 odd: the rows of
-    a fragment read distinct banks), and between the utterances of a tile
-    a `gap` beyond their rows' chunks, the multiple of 32 that holds a
-    frame's window / hop - 1 tail chunks."""
-    stride = g.hop + K8_PAD
+def tc_layout(g: FrontEndGeometry) -> tuple:
+    """(stride, gap) of K2's and K8's staged samples (csrc/dft_tc.cuh):
+    chunks of `tc_chunk(hop)` samples, one every hop, `stride` = that + 4
+    floats apart (stride / 4 odd: the rows of a fragment read distinct
+    banks), and between the utterances of a tile a `gap` beyond their rows'
+    chunks, the multiple of 32 that holds a frame's window / hop - 1 tail
+    chunks."""
+    stride = tc_chunk(g.hop) + TC_PAD
     return stride, -(-(g.window // g.hop - 1) * stride // 32) * 32
 
 
 def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0,
               rows: int = 0) -> Optional[Dict[str, int]]:
     """The regions of the variant's shared-memory plan, in floats, in their
-    order. hops (frontend.cuh): "a" the samples, later the log-mel; "b" the
-    power spectrum, later the features. radix4 (radix4.cuh) and phases
-    (dft_tc.cuh, for a tile of `rows` rows), each region but the last a
-    multiple of 4 floats: the "samples" (phases: the tile's sample span in
-    `k8_layout`, its rows touching at most 2 + (rows - 2) // frames
-    utterances), radix4's "window" (4L), the mel's "runs" and its `nnz`
-    nonzero weights, "vals" (`radix4_kernel_constants`,
-    `phases_kernel_constants`), the "ring" (TC_STAGES slices of the
+    order, each but the last a multiple of 4 floats. hops and phases (one
+    stage, dft_tc.cuh, for a tile of `rows` rows) and radix4 (radix4.cuh):
+    the "samples" (hops and phases: the tile's sample span in `tc_layout`,
+    its rows touching at most 2 + (rows - 2) // frames utterances),
+    radix4's "window" (4L), the mel's "runs" and its `nnz` nonzero weights,
+    "vals" (`tc_mel_constants`,
+    `radix4_kernel_constants`), the "ring" (TC_STAGES slices of the
     constant, [TC_BK, TC_SB]), radix4's "stage" (two A slices, [rows,
     R4_SA]), the "power" tile of a unit ([rows, TC_SP]) and the "mel" sums
     ([num_mel, rows]); radix4's rows are its product's, and the plan None
     where the frames exceed the largest product."""
-    if variant == "hops":
-        a, b = g.regions()
-        return {"a": a, "b": b}
-    units = g.fft_length // TC_BN
-    if variant == "phases":
-        stride, gap = k8_layout(g)
+    if variant in ("hops", "phases"):
+        stride, gap = tc_layout(g)
         pieces = 2 + (rows - 2) // g.frames
         return {"samples": (rows + g.window // g.hop - 1) * stride + (pieces - 1) * gap,
-                "runs": _up4(units * g.num_mel * 3), "vals": _up4(nnz),
+                "runs": _up4(tc_units(g.fft_length) * g.num_mel * 3), "vals": _up4(nnz),
                 "ring": TC_STAGES * TC_BK * TC_SB, "power": _up4(rows * TC_SP),
                 "mel": rows * g.num_mel}
+    units = g.fft_length // TC_BN
     rows = radix4_product_rows(g.frames)
     if rows is None:
         return None
@@ -404,12 +449,12 @@ def smem_bytes(g: FrontEndGeometry, variant: str, nnz: int = 0, rows: int = 0) -
 
 
 @dataclasses.dataclass(frozen=True)
-class PhasesPlan:
-    """K8's launch for one batch: `tiles` tiles of `rows` consecutive
-    (utterance, frame) rows of the batch x frames row space, each tile's
-    column units split over `splits` blocks (grid tiles x splits); a block
-    stages its rows' samples in `span` floats (`k8_layout`: chunks `stride`
-    apart, utterances a further `gap`)."""
+class TcPlan:
+    """K2's and K8's launch for one batch: `tiles` tiles of `rows`
+    consecutive (utterance, frame) rows of the batch x frames row space,
+    each tile's column units split over `splits` blocks (grid tiles x
+    splits); a block stages its rows' samples in `span` floats
+    (`tc_layout`: chunks `stride` apart, utterances a further `gap`)."""
 
     rows: int
     tiles: int
@@ -425,31 +470,33 @@ class PhasesPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def phases_tile_plan(batch: int, g: FrontEndGeometry, nnz: int) -> Optional[PhasesPlan]:
-    """K8's tiles for `batch` clips of geometry g (`nnz` nonzero mel
-    weights): the largest of K8_TILE_ROWS whose plan fits a block and whose
-    tiles fill every SM at least once, else the smallest that fits, its
-    column units then split over the fewest blocks (a divisor of the units)
-    that bring the grid to every SM, or over all of them: a small batch
-    spreads its frames and columns over many blocks. None if none fits."""
-    fits = [r for r in K8_TILE_ROWS if smem_bytes(g, "phases", nnz, r) <= SMEM_LIMIT]
-    if not fits:
-        return None
+def tc_tile_plan(batch: int, g: FrontEndGeometry, nnz: int) -> Optional[TcPlan]:
+    """K2's and K8's tiles for `batch` clips of geometry g (`nnz` nonzero
+    mel weights): the largest of TC_TILE_ROWS whose plan fits a block and
+    whose tiles fill every SM at least once, else the largest of at most
+    TC_SPLIT_ROWS rows that fits (16 unless a long window's span does not
+    fit), its column units then split over the fewest blocks (a divisor of
+    the units) that bring the grid to every SM, or over all of them: a
+    small batch spreads its frames and columns over many blocks. None if
+    no tile fits."""
     total = batch * g.frames
-    rows = next((r for r in fits if -(-total // r) >= SMS), fits[-1])
+    rows = next((r for r in TC_TILE_ROWS
+                 if smem_bytes(g, "hops", nnz, r) <= SMEM_LIMIT
+                 and (-(-total // r) >= SMS or r <= TC_SPLIT_ROWS)), None)
+    if rows is None:
+        return None
     tiles = -(-total // rows)
-    units = g.fft_length // TC_BN
+    units = tc_units(g.fft_length)
     splits = 1 if tiles >= SMS else next(
         (d for d in range(1, units + 1) if units % d == 0 and tiles * d >= SMS), units)
-    plan = smem_plan(g, "phases", nnz, rows)
-    return PhasesPlan(rows, tiles, splits, *k8_layout(g), plan["samples"],
-                      4 * sum(plan.values()))
+    plan = smem_plan(g, "hops", nnz, rows)
+    return TcPlan(rows, tiles, splits, *tc_layout(g), plan["samples"], 4 * sum(plan.values()))
 
 
 def front_end_supported(cfg: AudioConfig, n: int) -> bool:
-    """frontend.cuh's conditions: MFCC or log-mel; frames read as 16-byte
-    rows (hop and window multiples of 4); the features fit over the power
-    spectrum in place (C <= 2 * ncg)."""
+    """The front-end kernels' common conditions: MFCC or log-mel; samples
+    read as 16-byte rows (hop and window multiples of 4); the features fit
+    over the power spectrum in place (C <= 2 * ncg: K4's FP32 stage)."""
     if cfg.preprocess_method not in ("mfcc", "log_mel_spectrogram"):
         return False
     window, hop = cfg.window_size_samples, cfg.window_stride_samples
@@ -459,33 +506,67 @@ def front_end_supported(cfg: AudioConfig, n: int) -> bool:
     return g.width <= 2 * g.ncg
 
 
-def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
-    """The JAX kernel's condition (hop-decomposable geometry: window % hop
-    == 0, n % hop == 0, n >= window; MFCC or log-mel) and the kernels': the
-    shared front end's; for phases a hop of whole K slices (so a slice lies
-    in one staged chunk) and whole units of bins, for radix4 the frames of
-    one product; for both no mel weight on a row they leave out and the DCT
-    staged in the ring; a shared-memory plan of the resolved variant that
-    fits one block."""
+def hop_decomposable(cfg: AudioConfig, n: int) -> bool:
+    """The JAX kernel's own condition (tcresnet_tpu/ops/pallas/mfcc.py
+    `fused_mfcc_available`): MFCC or log-mel, window % hop == 0, n % hop
+    == 0 and n >= window. Where it fails, the JAX package returns the
+    plain feature."""
     window, hop = cfg.window_size_samples, cfg.window_stride_samples
-    if window % hop or n % hop or not front_end_supported(cfg, n):
+    return (cfg.preprocess_method in ("mfcc", "log_mel_spectrogram")
+            and window % hop == 0 and n % hop == 0 and n >= window)
+
+
+def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
+    """The JAX kernel's condition (`hop_decomposable`) and the kernels':
+    the common ones (`front_end_supported`); no mel weight on a row they
+    leave out; for hops and phases a tile that fits a block
+    (`tc_tile_plan`), for radix4 the frames of one product, the DCT staged
+    in its ring and its plan within a block."""
+    if not hop_decomposable(cfg, n) or not front_end_supported(cfg, n):
         return False
     variant = resolve_dft_variant(cfg, n)
     g = front_end_geometry(cfg, n)
-    if variant == "hops":
-        return smem_bytes(g, variant) <= SMEM_LIMIT
-    if g.num_mel * g.width > TC_STAGES * TC_BK * TC_SB:  # the DCT is staged in the ring
-        return False
     try:
-        if variant == "phases":
-            if hop % TC_BK or g.fft_length % TC_BN:
-                return False
-            nnz = phases_kernel_constants(*dsp.mel_args(cfg))[1].size
-            return phases_tile_plan(1, g, nnz) is not None
+        if variant != "radix4":
+            nnz = tc_mel_constants(*dsp.mel_args(cfg))[1].size
+            return tc_tile_plan(1, g, nnz) is not None
         nnz = radix4_kernel_constants(*dsp.radix4_mel_args(cfg))[2].size
     except ValueError:
         return False
-    return smem_plan(g, variant) is not None and smem_bytes(g, variant, nnz) <= SMEM_LIMIT
+    return (g.num_mel * g.width <= TC_STAGES * TC_BK * TC_SB  # K9 stages the DCT in the ring
+            and smem_plan(g, variant) is not None and smem_bytes(g, variant, nnz) <= SMEM_LIMIT)
+
+
+def fused_mfcc_route(cfg: AudioConfig, n: int, device_type: str) -> str:
+    """Where `fused_mfcc` sends a [B, n] batch on a device of `device_type`:
+    "reference" for a CPU tensor (the resolved variant's plain version);
+    for a CUDA tensor "plain" where the JAX package falls back too (not
+    `hop_decomposable`: `plain_feature`, counted in `plain_routes`), else
+    "kernel". A CUDA geometry the JAX kernel takes but no kernel here
+    serves (`fused_mfcc_available`; e.g. a radix4 clip of more frames than
+    K9's largest product) raises ValueError, as any other device type
+    does: it is never sent to the plain feature."""
+    if device_type == "cpu":
+        return "reference"
+    if device_type != "cuda":
+        raise ValueError(f"no front-end kernel for device type {device_type!r}")
+    if not hop_decomposable(cfg, n):
+        return "plain"
+    if not fused_mfcc_available(cfg, n):
+        raise ValueError(
+            f"no front-end kernel serves this geometry ({cfg.preprocess_method}, window "
+            f"{cfg.window_size_samples}, hop {cfg.window_stride_samples}, n {n}, DFT variant "
+            f"{resolve_dft_variant(cfg, n)})")
+    return "kernel"
+
+
+def plain_feature(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """The plain feature of cfg's method, [B, frames, C]: what the JAX
+    package's `fused_mfcc` returns for a geometry no kernel serves
+    (tcresnet_tpu/ops/pallas/mfcc.py:692-698)."""
+    if cfg.preprocess_method == "log_mel_spectrogram":
+        return dsp.log_mel_spectrogram(wavs, cfg, magnitude_squared=False)
+    return dsp.mfcc(wavs, cfg)
 
 
 def auto_takes_kernel(cfg: AudioConfig, device: torch.device, batch: int, n: int) -> bool:
@@ -495,20 +576,23 @@ def auto_takes_kernel(cfg: AudioConfig, device: torch.device, batch: int, n: int
 
 
 class FrontEnd:
-    """frontend.cuh's constants for one geometry and DFT variant, on one
-    device, rounded to bf16 and back for dsp_matmul_dtype="bfloat16":
+    """A front-end kernel's constants for one geometry and DFT variant, on
+    one device, the DFT rounded to bf16 and back for
+    dsp_matmul_dtype="bfloat16":
 
-      hops    the interleaved windowed DFT [window, 4 ncg]
-      phases  the same matrix: the live rows of every W_p; the mel's
-              nonzero weights as `mel` and each unit's runs of them as
-              `runs` (`phases_kernel_constants`)
+      hops,   the stage K2 and K8 share (dft_tc.cuh): the windowed DFT
+      phases  [Kp, 128 units] (`tc_dft_matrix`; for phases the live rows of
+              every W_p); the mel's nonzero weights as `mel` and each
+              unit's runs of them as `runs` (`tc_mel_constants`)
       radix4  the live columns of M0 | M1 | M2, the zero-padded window
               [fft], the mel's nonzero weights and runs
               (`radix4_kernel_constants`)
+      fp32    K4's FP32 stage (frontend.cuh): the interleaved windowed DFT
+              [window, 4 ncg] and the mel matrix
 
-    and the mel matrix (hops) and the DCT (None for log-mel). Made once per
-    (config, n, device, variant) by `front_end`; read it, never write it.
-    `launch_args(batch)` gives a launch's FeVariant and shared memory."""
+    and the DCT (None for log-mel). Made once per geometry, device and
+    variant by `front_end`; read it, never write it. `launch_args(batch)`
+    gives a launch's FeVariant and shared memory."""
 
     def __init__(self, cfg: AudioConfig, n: int, device: torch.device, variant: str = "hops"):
         g = front_end_geometry(cfg, n)
@@ -520,18 +604,20 @@ class FrontEnd:
             t = torch.tensor(np.ascontiguousarray(a, np.float32), device=self.device)
             return dsp.round_operand(t, self.matmul_dtype) if rounded else t
 
-        self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
         self.dct = None if g.magnitude else dev(
             dsp.dct_ii_matrix(cfg.num_mel_bins, cfg.num_mfccs))
         self.nnz = 0
         self._variant = v = FeVariant()
-        self.dft = self.win = self.runs = None
-        if variant in ("hops", "phases"):
+        self.win = self.runs = None
+        if variant == "fp32":
             self.dft = dev(interleaved_dft_matrix(g.window, g.fft_length, g.ncg), rounded=True)
-        if variant == "phases":
-            runs, vals = phases_kernel_constants(*dsp.mel_args(cfg))
-            v.units = g.fft_length // TC_BN
-            v.stride, v.gap = k8_layout(g)
+            self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
+            return
+        if variant in ("hops", "phases"):
+            runs, vals = tc_mel_constants(*dsp.mel_args(cfg))
+            self.dft = dev(tc_dft_matrix(g.window, g.hop, g.fft_length), rounded=True)
+            v.units = tc_units(g.fft_length)
+            v.stride, v.gap = tc_layout(g)
             # split tiles' counters (fewer than SMS tiles: the plan's rule),
             # 0 between calls; calls on one stream at a time
             self.done = torch.zeros(SMS, dtype=torch.int32, device=self.device)
@@ -541,16 +627,14 @@ class FrontEnd:
             self.dft = dev(w, rounded=True)
             self.win = dev(dsp.radix4_window(g.window, g.fft_length))
             v.length = g.fft_length // 4
-        elif variant != "hops":
+            plan = smem_plan(g, variant, vals.size)
+            self.region_a, self.smem_bytes = plan["samples"], 4 * sum(plan.values())
+        else:
             raise ValueError(f"unknown DFT variant {variant!r}")
-        if variant != "hops":
-            self.nnz = v.mel_nnz = vals.size
-            self.mel = dev(np.pad(vals, (0, -vals.size % 4)))  # copied as float4s
-            self.runs = torch.tensor(runs, device=self.device)
-            v.runs = self.runs.data_ptr()
-        if variant != "phases":  # K8's depend on the batch: launch_args
-            self.region_a = next(iter(smem_plan(g, variant, self.nnz).values()))
-            self.smem_bytes = smem_bytes(g, variant, self.nnz)
+        self.nnz = v.mel_nnz = vals.size
+        self.mel = dev(np.pad(vals, (0, -vals.size % 4)))  # copied as float4s
+        self.runs = torch.tensor(runs, device=self.device)
+        v.runs = self.runs.data_ptr()
         v.w = self.dft.data_ptr()
         v.win = 0 if self.win is None else self.win.data_ptr()
 
@@ -574,14 +658,16 @@ class FrontEnd:
 
     def launch_args(self, batch: int) -> tuple:
         """(FeVariant, samples region in floats, shared-memory bytes,
-        workspace) of a launch over `batch` clips: K8's from its tile plan
-        for the batch (`phases_tile_plan`), with split tiles' workspace for
-        their mel contributions (keep it until the launch is enqueued), the
-        others' fixed and no workspace."""
-        if self.variant != "phases":
+        workspace) of a launch over `batch` clips: K2's and K8's from their
+        tile plan for the batch (`tc_tile_plan`), with split tiles'
+        workspace for their mel contributions (keep it until the launch is
+        enqueued), K9's fixed and no workspace."""
+        if self.variant == "radix4":
             return self._variant, self.region_a, self.smem_bytes, None
+        if self.variant == "fp32":
+            raise ValueError("K4's FP32 front end is launched by ops/kernels/infer.py")
         g = self.geom
-        plan = phases_tile_plan(batch, g, self.nnz)
+        plan = tc_tile_plan(batch, g, self.nnz)
         v = FeVariant.from_buffer_copy(self._variant)
         v.rows, v.splits = plan.rows, plan.splits
         part = None
@@ -592,8 +678,16 @@ class FrontEnd:
         return v, plan.span, plan.smem_bytes, part
 
 
-@functools.lru_cache(maxsize=None)
 def front_end(cfg: AudioConfig, n: int, device: torch.device, variant: str = "hops") -> FrontEnd:
+    """The FrontEnd of (cfg, n, device, variant), made once. K2 and K8 share
+    one: "phases" is the "hops" front end, and cfg's dft_variant, which the
+    constants do not depend on, is not part of the key."""
+    return _front_end(dataclasses.replace(cfg, dft_variant="auto"), n, torch.device(device),
+                      "hops" if variant == "phases" else variant)
+
+
+@functools.lru_cache(maxsize=None)
+def _front_end(cfg: AudioConfig, n: int, device: torch.device, variant: str) -> FrontEnd:
     return FrontEnd(cfg, n, device, variant)
 
 
@@ -607,7 +701,7 @@ class _K2Args(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return _build.bind("mfcc", _K2Args, list(ENTRIES.values()), "k2_args_size",
+    return _build.bind("mfcc", _K2Args, sorted(set(ENTRIES.values())), "k2_args_size",
                        "k2_error_string")
 
 
@@ -678,29 +772,28 @@ def fused_mfcc_reference(wavs: torch.Tensor, cfg: AudioConfig,
 
 
 def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
-    """[B, n] f32 wavs -> [B, frames, C] MFCC or log-mel: the resolved
-    variant's kernel (K2, K8 or K9) for a CUDA tensor, its plain version for
-    a CPU tensor, an error otherwise."""
+    """[B, n] f32 wavs -> [B, frames, C] MFCC or log-mel, by
+    `fused_mfcc_route`: the resolved variant's kernel (K2, K8 or K9) for a
+    CUDA tensor, or the plain feature where the JAX package falls back too;
+    the variant's plain version for a CPU tensor; an error otherwise."""
+    global plain_routes
     if wavs.dim() != 2:
         raise ValueError(f"wavs must be [B, n], got {list(wavs.shape)}")
     n = wavs.shape[1]
     variant = resolve_dft_variant(cfg, n)
-    if wavs.device.type == "cpu":
+    route = fused_mfcc_route(cfg, n, wavs.device.type)
+    if route == "reference":
         return fused_mfcc_reference(wavs, cfg, variant)
-    if wavs.device.type != "cuda":
-        raise ValueError(f"no front-end kernel for device type {wavs.device.type!r}")
+    if route == "plain":
+        plain_routes += 1
+        return plain_feature(wavs, cfg)
     if wavs.dtype != torch.float32:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
     if not wavs.is_contiguous():
         raise ValueError("wavs must be contiguous")
-    if variant != "hops" and wavs.data_ptr() % 16:
+    if wavs.data_ptr() % 16:
         raise ValueError(f"{ENTRIES[variant]} copies wavs in 16-byte chunks: wavs must be "
                          "16-byte aligned")
-    if not fused_mfcc_available(cfg, n):
-        raise ValueError(
-            f"no front-end kernel serves this geometry ({cfg.preprocess_method}, n {n}, "
-            f"window {cfg.window_size_samples}, hop {cfg.window_stride_samples}, "
-            f"variant {variant})")
     fe = front_end(cfg, n, wavs.device, variant)
     g = fe.geom
     out = torch.empty((wavs.shape[0], g.frames, g.width), device=wavs.device,

@@ -190,9 +190,22 @@ def test_new_kernels_check_their_input(cuda_device):
         k16.fused_gather_augment(data, idx, scalars, noise[:, :100].contiguous(), 2560)
     with pytest.raises(TypeError):
         k2.fused_mfcc(_wavs(2, 16000, cuda_device).double(), AudioConfig())
-    with pytest.raises(ValueError):
-        k2.fused_mfcc(_wavs(2, 16000, cuda_device),
-                      dataclasses.replace(AudioConfig(), window_size_ms=25.0))
+    # a geometry that is not hop-decomposable (400 % 160 != 0) takes the
+    # plain feature, as the JAX package does, and launches nothing
+    cfg = dataclasses.replace(AudioConfig(), window_size_ms=25.0)
+    wavs = _wavs(2, 16000, cuda_device)
+    before = (k2.launches, k2.plain_routes)
+    got = k2.fused_mfcc(wavs, cfg)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.plain_routes) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, dsp.mfcc(wavs, cfg), atol=1e-5, rtol=0)
+    # one the JAX kernel takes but no kernel here serves (radix4, 254
+    # frames) raises and is not sent to the plain feature
+    cfg = dataclasses.replace(AudioConfig(), dft_variant="radix4", clip_duration_ms=2560)
+    before = (k2.radix4_launches, k2.plain_routes)
+    with pytest.raises(ValueError, match="no front-end kernel serves"):
+        k2.fused_mfcc(_wavs(1, 40960, cuda_device), cfg)
+    assert (k2.radix4_launches, k2.plain_routes) == before
     with pytest.raises(ValueError):
         k3.frontend_features(data, idx, scalars._replace(vols=scalars.vols.double()), noise,
                              AudioConfig(clip_duration_ms=160), 2560)
@@ -242,6 +255,45 @@ def test_k8_k9_match_plain(cuda_device, variant, geometry, method, matmul):
     torch.testing.assert_close(got, want, **tol)
     feats = dsp.preprocess(wavs, dataclasses.replace(cfg, dsp_backend="pallas"))
     torch.testing.assert_close(feats[..., 0], got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("geometry", ["30/10", "40/20", "25/12.5"])
+def test_k2_batch_one_equals_its_row_of_a_batch(cuda_device, geometry):
+    """K2 of one clip equals that clip's row of a batch of 1536 bit for
+    bit, at 400/200 too (staged chunks of 224 samples, the constant's rows
+    past each hop zero): a row's sum does not depend on the tile it lands in;
+    two calls give the same bits; where K8 serves the geometry, K2 equals
+    it (one stage)."""
+    cfg = (dataclasses.replace(AudioConfig(), window_size_ms=25.0, window_stride_ms=12.5)
+           if geometry == "25/12.5" else GEOMETRIES[geometry])
+    wavs = _wavs(1536, 16000, cuda_device, seed=8)
+    before = k2.launches
+    got = k2.fused_mfcc(wavs, cfg)
+    assert k2.launches == before + 1
+    assert torch.equal(got, k2.fused_mfcc(wavs, cfg))
+    for i in (0, 1, 97, 777, 1535):
+        assert torch.equal(k2.fused_mfcc(wavs[i:i + 1], cfg), got[i:i + 1])
+    if geometry != "25/12.5":
+        assert torch.equal(got, k2.fused_mfcc(wavs, dataclasses.replace(cfg, dft_variant="phases")))
+    torch.testing.assert_close(got, k2.fused_mfcc_reference(wavs, cfg), atol=FEATURE_ATOL, rtol=0)
+
+
+def test_k2_long_window_takes_tiles_of_fewer_rows(cuda_device):
+    """A 256 ms window at a 256 ms hop over 1.024 s: a 16-row tile's span
+    does not fit a block, so K2 takes 8-row tiles (on the 16-row product,
+    its rows past the tile clamped); within FEATURE_ATOL of the plain
+    version at batch 1 and 8, batch 1 equal to its row of batch 8."""
+    cfg = AudioConfig(window_size_ms=256.0, window_stride_ms=256.0, clip_duration_ms=1024,
+                      num_mfccs=10)
+    n = cfg.desired_samples
+    g = k2.front_end_geometry(cfg, n)
+    nnz = k2.tc_mel_constants(*dsp.mel_args(cfg))[1].size
+    assert k2.fused_mfcc_available(cfg, n) and k2.tc_tile_plan(1, g, nnz).rows == 8
+    wavs = _wavs(8, n, cuda_device, seed=9)
+    got = k2.fused_mfcc(wavs, cfg)
+    torch.testing.assert_close(got, k2.fused_mfcc_reference(wavs, cfg), atol=FEATURE_ATOL,
+                               rtol=0)
+    assert torch.equal(k2.fused_mfcc(wavs[3:4], cfg), got[3:4])
 
 
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))

@@ -182,28 +182,27 @@ def test_resolve_dft_variant_equals_jax():
 
 @pytest.mark.parametrize("window_ms,hop_ms,rows", [(30.0, 10.0, 112), (40.0, 20.0, 64)])
 def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
-    """The plans of the three variants at 1 s: K2's samples and spectrum;
-    K8's for a tile of the batch's frames: its sample span, the mel's runs
-    and nonzero weights, the ring of three [32, 136] slices of the DFT, a
-    [rows, 65] power tile and [rows, num_mel] mel sums; K9 keeps the samples
-    (64,000 B), the window and the mel's runs and nonzero weights, and no
-    power spectrum: the ring, two A slices of its product's rows, a
-    [frames, 65] power tile and the [frames, num_mel] mel sums; each within
-    a Hopper block."""
+    """The plans of the three variants at 1 s: K2's and K8's (one stage)
+    for a tile of the batch's frames: its sample span, the mel's runs and
+    nonzero weights, the ring of three [32, 136] slices of the DFT, a
+    [rows, 65] power tile and [rows, num_mel] mel sums; K9 keeps the samples (64,000 B), the window and the
+    mel's runs and nonzero weights, and no power spectrum: the ring, two A
+    slices of its product's rows, a [frames, 65] power tile and the
+    [frames, num_mel] mel sums; each within a Hopper block."""
     cfg = AudioConfig(window_size_ms=window_ms, window_stride_ms=hop_ms)
     g = mfcc.front_end_geometry(cfg, 16000)
     length = g.fft_length // 4
-    assert mfcc.smem_plan(g, "hops") == {"a": 16000, "b": g.frames * 2 * g.ncg}
-    runs, vals = mfcc.phases_kernel_constants(*dsp.mel_args(cfg))
+    runs, vals = mfcc.tc_mel_constants(*dsp.mel_args(cfg))
     stride, gap = g.hop + 4, 352  # 352: the multiple of 32 that holds 2 (1) chunks of 164 (324)
     wh = g.window // g.hop
-    for tile in mfcc.K8_TILE_ROWS:
+    for tile in mfcc.TC_TILE_ROWS:
         pieces = 2 + (tile - 2) // g.frames  # utterances a tile's rows can touch
         phases = mfcc.smem_plan(g, "phases", vals.size, tile)
+        assert phases == mfcc.smem_plan(g, "hops", vals.size, tile)
         assert phases == {"samples": (tile + wh - 1) * stride + (pieces - 1) * gap,
                           "runs": runs.size + (-runs.size % 4),
                           "vals": vals.size + (-vals.size % 4), "ring": 3 * 32 * 136,
-                          "power": tile * 65, "mel": tile * g.num_mel}
+                          "power": tile * 65 + (-tile * 65 % 4), "mel": tile * g.num_mel}
         assert all(x % 4 == 0 for x in phases.values())
         # the 128-row tile does not fit at 640/320: its span is 171 KB
         fits = mfcc.smem_bytes(g, "phases", vals.size, tile) <= mfcc.SMEM_LIMIT
@@ -226,20 +225,25 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     long_cfg = dataclasses.replace(cfg, dft_variant="radix4")
     assert mfcc.resolve_dft_variant(long_cfg, long.n) == "radix4"
     assert not mfcc.fused_mfcc_available(long_cfg, long.n)
-    # K8's constant is the live rows of every W_p (the rows at o_p), with
-    # the interleave keeping (re_k, im_k) next to each other; its mel is the
-    # runs of nonzero weights over the first fft / 2 bins, 64 a unit
+    # K8's constant (K2's too) is the live rows of every W_p (the rows at
+    # o_p), with the interleave keeping (re_k, im_k) next to each other, its
+    # first fft / 2 bins; its mel is the runs of nonzero weights over those
+    # bins, 64 a unit
     fe = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="phases"), 16000, "cpu", "phases")
     v = fe.variant_args()
     assert (v.units, v.stride, v.gap, v.mel_nnz) == (g.fft_length // 128, stride, gap, vals.size)
-    w = fe.dft.reshape(g.window, 4 * g.ncg).numpy()
+    w = fe.dft.numpy()
+    assert w.shape == (g.window, g.fft_length)
+    half = g.num_bins - 1
     for p, (c, _, _, std) in enumerate(
             mfcc.phase_dft_plan(g.window, g.hop, 16000, g.fft_length)[4]):
         o = g.hop * p - 128 * c
-        np.testing.assert_array_equal(w[:, 0::4], std[o:o + g.window, 0:g.num_bins:2])
-        np.testing.assert_array_equal(w[:, 1::4], std[o:o + g.window, g.num_bins::2])
+        np.testing.assert_array_equal(w[:, 0::2], std[o:o + g.window, 0:half])
+        np.testing.assert_array_equal(w[:, 1::2], std[o:o + g.window, g.num_bins:g.num_bins + half])
+    hops = mfcc.FrontEnd(cfg, 16000, "cpu", "hops")
+    assert torch.equal(hops.dft, fe.dft) and torch.equal(hops.runs, fe.runs)
     assert tuple(fe.runs.shape) == (g.fft_length // 128, cfg.num_mel_bins, 3)
-    plan = mfcc.phases_tile_plan(1536, g, vals.size)
+    plan = mfcc.tc_tile_plan(1536, g, vals.size)
     v, span, smem, part = fe.launch_args(1536)
     assert (v.rows, v.splits, span, smem, part) == (plan.rows, 1, plan.span, plan.smem_bytes, None)
     assert plan.rows == (128 if g.hop == 160 else 64)

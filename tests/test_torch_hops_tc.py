@@ -1,0 +1,263 @@
+"""K2's and K3-hops' tensor-core design on the CPU (csrc/dft_tc.cuh: the
+frames' stage that k2_mfcc and k3_frontend share with K8): its tile plan
+`mfcc.tc_tile_plan` at every geometry K2 serves, a replay of the kernel's
+sample staging and A addressing where the hop is no multiple of 32
+(400/200: each staged chunk holds the hop rounded up to 32 samples, and the
+constant's rows past the hop are zero), an
+emulation of its 3xTF32 order held to a float64 MFCC and to the JAX
+Pallas kernel `_kernel` (hops) in interpret mode, the route `fused_mfcc`
+takes for a CUDA geometry no kernel serves (the JAX package's fallback),
+and that the stage serves every geometry the FP32 design served."""
+
+import dataclasses
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tcresnet_tpu.ops.pallas import mfcc as jmfcc
+from tcresnet_tpu_torch.config import AudioConfig, get_preset
+from tcresnet_tpu_torch.ops import dsp
+from tcresnet_tpu_torch.ops.kernels import mfcc
+from tcresnet_tpu_torch.tools.frontend_times import GEOMETRIES, geometry_cfg
+from tests.test_torch_config import to_jax_config
+from tests.test_torch_dft_variants import _dataset_rows, _tf32, mfcc_float64
+from tests.test_torch_k8_tc import emulate_stage, stage_replay
+
+torch.set_num_threads(1)
+
+ATOL = 1e-4  # the card's K2 gate (chip_smoke.py FEATURE_ATOL, the JAX kernel test's)
+BF16_TOL = 5e-3  # with dsp_matmul_dtype="bfloat16" (chip_smoke.py BF16_TOL)
+N = 2560  # the JAX kernel tests' clip (tests/test_pallas.py); 2560 % 200 != 0: no 400/200
+CLIPS = [(geometry, 16000) for geometry in GEOMETRIES] + [
+    (geometry, N) for geometry in ("480/160", "640/320", "320/160")]
+
+
+def _clip(geometry: str, n: int):
+    """(cfg, geometry, nonzero mel weights) of a 480/160-style label at n samples."""
+    cfg = dataclasses.replace(geometry_cfg(geometry), clip_duration_ms=n // 16)
+    assert mfcc.resolve_dft_variant(cfg, n) == "hops" and mfcc.fused_mfcc_available(cfg, n)
+    g = mfcc.front_end_geometry(cfg, n)
+    return cfg, g, mfcc.tc_mel_constants(*dsp.mel_args(cfg))[1].size
+
+
+@pytest.mark.parametrize("batch", [1, 8, 1536])
+@pytest.mark.parametrize("geometry,n", CLIPS)
+def test_hops_tile_plan_covers_every_row_and_unit_once(geometry, n, batch):
+    """K2 takes K8's plan: tiles of 128 rows at a hop of 160 and 64 rows at
+    640/320 and 400/200 (a 128-row tile's span does not fit there) for
+    batch 1536, 16 rows for a small batch, its units split until the grid
+    reaches every SM; the tiles cover each (utterance, frame) row once and
+    the blocks each (tile, column unit) once; `FrontEnd.launch_args` hands
+    the kernel this plan."""
+    cfg, g, nnz = _clip(geometry, n)
+    plan = mfcc.tc_tile_plan(batch, g, nnz)
+    total, units = batch * g.frames, mfcc.tc_units(g.fft_length)
+    assert plan.smem_bytes <= mfcc.SMEM_LIMIT and units == g.fft_length // 128
+    assert plan.rows == (16 if batch < 1536 else 128 if g.hop == 160 else 64)
+    assert (plan.tiles - 1) * plan.rows < total <= plan.tiles * plan.rows
+    rows = np.bincount(np.arange(total) // plan.rows, minlength=plan.tiles)
+    assert rows.sum() == total and (rows[:-1] == plan.rows).all()
+    assert units % plan.splits == 0 and plan.grid == plan.tiles * plan.splits
+    assert plan.splits == (1 if plan.tiles >= mfcc.SMS else
+                           units if plan.tiles * units <= mfcc.SMS else
+                           min(d for d in (1, 2, 4, 8) if plan.tiles * d >= mfcc.SMS))
+    block = np.arange(plan.grid)  # the kernel's blocks (tc_tile)
+    per = units // plan.splits
+    unit_of = (block // plan.splits)[:, None] * units + (block % plan.splits * per)[:, None]
+    unit_of = unit_of + np.arange(per)
+    assert (np.bincount(unit_of.ravel(), minlength=plan.tiles * units) == 1).all()
+    fe = mfcc.FrontEnd(cfg, n, "cpu", "hops")
+    v, span, smem, part = fe.launch_args(batch)
+    assert (v.rows, v.splits, v.stride, v.gap) == (plan.rows, plan.splits, plan.stride, plan.gap)
+    assert (span, smem) == (plan.span, plan.smem_bytes)
+    assert (part is None) == (plan.splits == 1)
+    assert tuple(fe.dft.shape) == (mfcc.tc_kp(g.window, g.hop), 128 * units)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 1536])
+@pytest.mark.parametrize("geometry,n", CLIPS)
+def test_staging_and_a_addressing_read_each_frames_samples(geometry, n, batch):
+    """For every tile alignment, a replay of tc_stage writes each place of
+    the span at most once, and every fragment row (those past the tile
+    clamped to its last) reads at K index k, at lr stride + i gap + k + 4 (k
+    / hs) (hs = the hop rounded up to 32: no K slice straddles two chunks),
+    sample hop (f + k / hs) + k % hs of its own utterance: its frame's
+    window sample where the constant's row is live (k % hs < hop), and in
+    the chunk's tail past the hop, where the row is zero, a sample that was
+    staged (the next chunk's, or a zero past the clip), never a place left
+    unwritten. The eight rows of a fragment read distinct 4-bank groups."""
+    _, g, nnz = _clip(geometry, n)
+    plan = mfcc.tc_tile_plan(batch, g, nnz)
+    hs = mfcc.tc_chunk(g.hop)
+    assert plan.stride == hs + 4 and plan.stride % 32 == 4 and plan.gap % 32 == 0
+    assert (hs > g.hop) == (geometry == "400/200")
+    k = np.arange(mfcc.tc_kp(g.window, g.hop))
+    koff = k + 4 * (k // hs)
+    assert all(k0 // hs == (k0 + 31) // hs for k0 in range(0, k.size, 32))
+    live = k % hs < g.hop
+    w = mfcc.tc_dft_matrix(g.window, g.hop, g.fft_length)
+    assert not w[~live].any() and live.sum() == g.window
+    total = batch * g.frames
+    seen = set()
+    for tile in range(plan.tiles):
+        key = (tile * plan.rows % g.frames, min(plan.rows, total - tile * plan.rows))
+        if key in seen:
+            continue
+        seen.add(key)
+        span, r0, nrows, b0 = stage_replay(plan, g, batch, tile)
+        lr = np.minimum(np.arange(plan.rows), nrows - 1)
+        b, f = np.divmod(r0 + lr, g.frames)
+        base = lr * plan.stride + (b - b0) * plan.gap
+        read = span[base[:, None] + koff]
+        t = g.hop * (f[:, None] + k // hs) + k % hs
+        np.testing.assert_array_equal(read[:, live], (b[:, None] * g.n + t)[:, live])
+        np.testing.assert_array_equal(t[:, live] - g.hop * f[:, None], np.broadcast_to(
+            np.arange(g.window), (plan.rows, g.window)))
+        np.testing.assert_array_equal(read[:, ~live],
+                                      np.where(t < g.n, b[:, None] * g.n + t, -2)[:, ~live])
+        for first in range(0, nrows - 7, 8):
+            assert len(set(base[first:first + 8] % 32)) == 8
+    assert len(seen) >= min(plan.tiles, 2)
+
+
+@pytest.mark.parametrize("source", ["wavs", "dataset rows"])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_emulated_stage_meets_float64(geometry, source):
+    """The stage's 3xTF32 order at n = 16000, zero rows and all, within ATOL
+    of the float64 MFCC at every geometry K2 serves, on seeded wavs and on
+    dataset rows (loud tones, MFCCs up to ~160); one TF32 product a step
+    alone misses the gate, so the split is what holds it."""
+    cfg, _, _ = _clip(geometry, 16000)
+    if source == "wavs":
+        wavs = torch.tensor(np.random.default_rng(13).uniform(-1, 1, (4, 16000)),
+                            dtype=torch.float32)
+    else:
+        wavs = _dataset_rows(16000)
+    want = mfcc_float64(wavs.numpy(), cfg)
+    got = emulate_stage(wavs, cfg).numpy()
+    assert got.shape == want.shape == (wavs.shape[0],) + dsp.feature_shape(cfg)[:2]
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    coarse = emulate_stage(wavs, cfg, lambda a, b: _tf32(a) @ _tf32(b)).numpy()
+    assert np.abs(coarse - want).max() > ATOL
+
+
+@pytest.mark.parametrize("method,dsp_dtype", [("mfcc", "float32"),
+                                              ("log_mel_spectrogram", "float32"),
+                                              ("mfcc", "bfloat16")])
+@pytest.mark.parametrize("geometry", ["480/160", "640/320", "320/160"])
+def test_emulated_stage_matches_the_jax_hops_kernel(geometry, method, dsp_dtype):
+    """The stage's order against JAX's `_kernel` (hops) in interpret mode at
+    n = 2560: ATOL in float32, the bf16 tolerance with the bf16 DFT."""
+    cfg = dataclasses.replace(_clip(geometry, N)[0], preprocess_method=method,
+                              dsp_matmul_dtype=dsp_dtype)
+    wavs = np.random.default_rng(14).uniform(-1, 1, (3, N)).astype(np.float32)
+    want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True,
+                                       variant="hops"))
+    got = emulate_stage(torch.tensor(wavs), cfg).numpy()
+    assert got.shape == want.shape
+    tol = ATOL if dsp_dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got, want, rtol=0 if dsp_dtype == "float32" else tol, atol=tol)
+
+
+@pytest.mark.parametrize("method", ["mfcc", "log_mel_spectrogram"])
+def test_route_of_a_geometry_no_kernel_serves(method):
+    """A 25 ms window at a 10 ms hop (400 % 160 != 0: not hop-decomposable,
+    so no kernel serves it) sends a CUDA batch to the plain feature of the
+    same method, the JAX package's fallback, within 1e-5 of what JAX's
+    `fused_mfcc` returns (and 1e-6 relative: MFCC-0 reaches ~55, where a
+    float32 step is 3.8e-6 and the two sum in other orders); every geometry
+    K2 serves sends it to the kernel; a CPU batch takes the plain version
+    (here, that same feature), and no other device type is served."""
+    base = dataclasses.replace(AudioConfig(), preprocess_method=method, clip_duration_ms=N // 16)
+    cfg = dataclasses.replace(base, window_size_ms=25.0)
+    assert mfcc.fused_mfcc_route(cfg, N, "cuda") == "plain"
+    assert mfcc.fused_mfcc_route(cfg, N, "cpu") == "reference"
+    for geometry, n in CLIPS:
+        served = dataclasses.replace(_clip(geometry, n)[0], preprocess_method=method)
+        assert mfcc.fused_mfcc_route(served, n, "cuda") == "kernel"
+    with pytest.raises(ValueError, match="no front-end kernel"):
+        mfcc.fused_mfcc_route(cfg, N, "meta")
+    wavs = np.random.default_rng(15).uniform(-1, 1, (3, N)).astype(np.float32)
+    got = mfcc.plain_feature(torch.tensor(wavs), cfg)
+    want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg)))
+    assert got.shape == want.shape == (3,) + dsp.feature_shape(cfg)[:2]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    before = mfcc.plain_routes
+    assert torch.equal(mfcc.fused_mfcc(torch.tensor(wavs), cfg), got)
+    assert mfcc.plain_routes == before
+
+
+@pytest.mark.parametrize("method", ["mfcc", "log_mel_spectrogram"])
+def test_route_of_a_geometry_jax_serves_and_no_kernel_does(method):
+    """A 2.56 s clip at 480/160 with dft_variant="radix4": hop-decomposable,
+    so the JAX package runs its radix4 kernel, but its 254 frames exceed
+    K9's largest product. The plain feature is only the JAX package's own
+    fallback, so a CUDA batch raises here (and a CPU batch still takes the
+    plain version); a geometry that is not hop-decomposable is the one
+    that goes to the plain feature."""
+    n = 40960
+    cfg = dataclasses.replace(AudioConfig(), preprocess_method=method, dft_variant="radix4",
+                              clip_duration_ms=n // 16)
+    assert jmfcc.fused_mfcc_available(to_jax_config(cfg), n)
+    assert jmfcc.resolve_dft_variant(to_jax_config(cfg), n) == "radix4"
+    assert mfcc.hop_decomposable(cfg, n) and not mfcc.fused_mfcc_available(cfg, n)
+    with pytest.raises(ValueError, match="no front-end kernel serves this geometry"):
+        mfcc.fused_mfcc_route(cfg, n, "cuda")
+    assert mfcc.fused_mfcc_route(cfg, n, "cpu") == "reference"
+    for window_ms, hop_ms, clip in ((25.0, 10.0, n), (30.0, 10.0, 400), (30.0, 10.0, n + 80)):
+        other = dataclasses.replace(cfg, window_size_ms=window_ms, window_stride_ms=hop_ms)
+        assert not mfcc.hop_decomposable(other, clip)
+        assert not jmfcc.fused_mfcc_available(to_jax_config(other), clip)
+        assert mfcc.fused_mfcc_route(other, clip, "cuda") == "plain"
+
+
+def test_hops_and_phases_share_one_front_end():
+    """K2 and K8 run one stage through one entry point: their configs get
+    one FrontEnd (one upload of the DFT constant, the mel runs and the
+    split tiles' counters), whatever cfg's dft_variant; radix4 and K4's
+    FP32 stage keep their own."""
+    cfg = get_preset("TCResNet8-1.0").audio
+    hops = mfcc.front_end(dataclasses.replace(cfg, dft_variant="hops"), 16000, "cpu", "hops")
+    phases = mfcc.front_end(dataclasses.replace(cfg, dft_variant="phases"), 16000,
+                            torch.device("cpu"), "phases")
+    assert phases is hops and hops.variant == "hops"
+    assert mfcc.front_end(cfg, 16000, "cpu") is hops
+    assert mfcc.ENTRIES["hops"] == mfcc.ENTRIES["phases"]
+    for other in ("radix4", "fp32"):
+        assert mfcc.front_end(cfg, 16000, "cpu", other) is not hops
+
+
+def _fp32_design_served(cfg: AudioConfig, n: int) -> bool:
+    """The FP32 design's rule for hops: hop-decomposable, the common
+    conditions, and one utterance's samples and power spectrum within a
+    block (frontend.cuh's plan, `FrontEndGeometry.regions`)."""
+    window, hop = cfg.window_size_samples, cfg.window_stride_samples
+    return (window % hop == 0 and n % hop == 0 and mfcc.front_end_supported(cfg, n)
+            and 4 * sum(mfcc.front_end_geometry(cfg, n).regions()) <= mfcc.SMEM_LIMIT)
+
+
+def test_serves_every_geometry_the_fp32_design_served():
+    """Over windows of 2-256 ms, hops of 2-256 ms, 0.16-2 s clips, MFCC and
+    log-mel and five filterbanks: the tensor-core stage serves every
+    geometry the FP32 design served, and more (its shared memory does not
+    grow with the clip); where a 16-row tile's span does not fit a block
+    (a 256 ms window at a 128 or 256 ms hop), a tile of fewer rows does."""
+    old = new = small = 0
+    for window_ms, hop_ms, n, method, (mels, coefs) in itertools.product(
+            (2, 4, 10, 16, 20, 25, 30, 32, 40, 50, 64, 128, 256),
+            (2, 4, 5, 8, 10, 12.5, 16, 20, 25, 32, 64, 128, 256), (2560, 16000, 16384, 32000),
+            ("mfcc", "log_mel_spectrogram"), ((40, 10), (40, 40), (64, 40), (80, 13), (128, 64))):
+        cfg = AudioConfig(window_size_ms=window_ms, window_stride_ms=hop_ms, num_mel_bins=mels,
+                          num_mfccs=coefs, preprocess_method=method, clip_duration_ms=n // 16)
+        served = mfcc.fused_mfcc_available(cfg, n)
+        if _fp32_design_served(cfg, n):
+            old += 1
+            assert served, (window_ms, hop_ms, n, method, mels, coefs)
+        if served:
+            new += 1
+            nnz = mfcc.tc_mel_constants(*dsp.mel_args(cfg))[1].size
+            small += mfcc.tc_tile_plan(1, mfcc.front_end_geometry(cfg, n), nnz).rows < 16
+    assert old > 500 and new > old and small > 0

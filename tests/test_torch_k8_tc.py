@@ -1,7 +1,7 @@
 """K8's tensor-core design on the CPU (tcresnet_tpu_torch/csrc/dft_tc.cuh, the
-phase-grouped DFT of `k8_mfcc` and `k3_phases`): the identity it rests on
-(every phase's live DFT rows are the windowed DFT, and its A rows start at
-the frames' own samples), its host plan `mfcc.phases_tile_plan` with a
+phase-grouped DFT of `k2_mfcc` and `k3_frontend` in the phases variant):
+the identity it rests on (every phase's live DFT rows are the windowed DFT,
+and its A rows start at the frames' own samples), its host plan `mfcc.tc_tile_plan` with a
 replay of the kernel's sample staging and row addressing, and an emulation
 of its 3xTF32 arithmetic in the kernel's order, held to a float64 MFCC and
 to the JAX Pallas kernel `_kernel_phases` in interpret mode."""
@@ -65,30 +65,33 @@ def test_unaligned_clip_has_no_phase_plan():
 def _geometry(clip: str):
     cfg = dataclasses.replace(get_preset(CLIPS[clip]).audio, dft_variant="phases")
     g = mfcc.front_end_geometry(cfg, 16000)
-    return cfg, g, mfcc.phases_kernel_constants(*dsp.mel_args(cfg))[1].size
+    return cfg, g, mfcc.tc_mel_constants(*dsp.mel_args(cfg))[1].size
 
 
-def stage_replay(plan: mfcc.PhasesPlan, g, batch: int, tile: int):
+def stage_replay(plan: mfcc.TcPlan, g, batch: int, tile: int):
     """tc_stage for block `tile`: the staged span with the id b * n + t of
-    utterance b's sample t at each place written (-1 elsewhere), and the
-    tile's first row, row count and first utterance. Raises where a place
+    utterance b's sample t at each place written (-2 where a zero is
+    written past the clip's end, -1 elsewhere), and the tile's first row,
+    row count and first utterance. Chunk c of a piece holds
+    `mfcc.tc_chunk(hop)` samples from hop (fa + c) on. Raises where a place
     is written twice or lies outside the span."""
     r0 = tile * plan.rows
     nrows = min(plan.rows, batch * g.frames - r0)
     b0, f0 = divmod(r0, g.frames)
     last = r0 + nrows - 1
     b1 = last // g.frames
-    wh = g.window // g.hop
     span = np.full(plan.span, -1, np.int64)
     for b in range(b0, b1 + 1):
         i = b - b0
         fa = f0 if i == 0 else 0
         fb = last - b * g.frames if b == b1 else g.frames - 1
         dst = (b * g.frames + fa - r0) * plan.stride + i * plan.gap
-        c = np.arange(fb - fa + wh)[:, None]
-        pos = dst + c * plan.stride + np.arange(g.hop)
+        c = np.arange(fb - fa + g.window // g.hop)[:, None]
+        hs = mfcc.tc_chunk(g.hop)
+        pos = dst + c * plan.stride + np.arange(hs)
         assert (span[pos] == -1).all()
-        span[pos] = b * g.n + g.hop * (fa + c) + np.arange(g.hop)
+        t = g.hop * (fa + c) + np.arange(hs)
+        span[pos] = np.where(t < g.n, b * g.n + t, -2)
     return span, r0, nrows, b0
 
 
@@ -105,11 +108,11 @@ def test_tile_plan_covers_every_row_once_and_stages_what_it_reads(clip, batch):
     takes the large tiles, unsplit; a small batch 16-row tiles with their
     units split until the grid reaches every SM (or each unit is a block)."""
     _, g, nnz = _geometry(clip)
-    plan = mfcc.phases_tile_plan(batch, g, nnz)
-    assert plan == mfcc.phases_tile_plan(batch, g, nnz)
+    plan = mfcc.tc_tile_plan(batch, g, nnz)
+    assert plan == mfcc.tc_tile_plan(batch, g, nnz)
     total = batch * g.frames
     units = g.fft_length // 128
-    assert plan.rows in mfcc.K8_TILE_ROWS and plan.smem_bytes <= mfcc.SMEM_LIMIT
+    assert plan.rows in mfcc.TC_TILE_ROWS and plan.smem_bytes <= mfcc.SMEM_LIMIT
     assert plan.rows == (16 if batch < 1536 else 128 if g.hop == 160 else 64)
     assert (plan.tiles - 1) * plan.rows < total <= plan.tiles * plan.rows
     cover = np.bincount(np.arange(total) // plan.rows, minlength=plan.tiles)
@@ -155,26 +158,33 @@ def tf32x3_step(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _toward_zero(p.double() + ahi @ bhi)
 
 
-def emulate_k8(wavs: torch.Tensor, cfg: AudioConfig, step=tf32x3_step) -> torch.Tensor:
-    """k8_kernel's arithmetic on the CPU: every frame's window samples (the
-    A rows read in place from the staged samples) times the live DFT rows,
-    first fft / 2 bins interleaved, in k8 steps in K order, each step's
-    `step` product added to float32 sums; the power (magnitude for
+def emulate_stage(wavs: torch.Tensor, cfg: AudioConfig, step=tf32x3_step) -> torch.Tensor:
+    """The frames' stage on the CPU (frames_kernel: K2 and K8, k2_mfcc):
+    every frame's A row as the kernel reads it from the staged chunks (its
+    window / hop chunks of `mfcc.tc_chunk(hop)` samples, each from the
+    chunk's hop on, zeros past the clip) times the kernel's constant
+    (`mfcc.tc_dft_matrix`: the live DFT rows, each chunk's rows past its hop
+    zero, the first fft / 2 bins interleaved), in k8 steps in K order, each
+    step's `step` product added to float32 sums; the power (magnitude for
     log-mel); the mel unit by unit over its runs of nonzero weights; log(mel
     + 1e-6) and the DCT for MFCC. dsp_matmul_dtype rounds both operands."""
     n = wavs.shape[-1]
     g = mfcc.front_end_geometry(cfg, n)
+    kp, hs = mfcc.tc_kp(g.window, g.hop), mfcc.tc_chunk(g.hop)
     dtype = dsp.dsp_matmul_dtype(cfg)
-    a = dsp.round_operand(dsp.frame_signal(wavs, g.window, g.hop), dtype).float()
-    w = torch.tensor(mfcc.interleaved_dft_matrix(g.window, g.fft_length, g.ncg))
-    w = dsp.round_operand(w[:, :g.fft_length].contiguous(), dtype).float()
-    acc = torch.zeros(*a.shape[:2], g.fft_length)
-    for k0 in range(0, g.window, 8):
+    k = torch.arange(kp)
+    t = g.hop * (torch.arange(g.frames)[:, None] + k // hs) + k % hs  # [frames, Kp]
+    x = torch.nn.functional.pad(wavs, (0, int(t.max()) + 1 - n))
+    a = dsp.round_operand(x[:, t], dtype).float()
+    w = torch.tensor(mfcc.tc_dft_matrix(g.window, g.hop, g.fft_length))
+    w = dsp.round_operand(w, dtype).float()
+    acc = torch.zeros(*a.shape[:2], w.shape[1])
+    for k0 in range(0, kp, 8):
         acc = acc + step(a[..., k0:k0 + 8], w[k0:k0 + 8])
     power = acc[..., 0::2] * acc[..., 0::2] + acc[..., 1::2] * acc[..., 1::2]
     if g.magnitude:
         power = torch.sqrt(power)
-    runs, vals = mfcc.phases_kernel_constants(*dsp.mel_args(cfg))
+    runs, vals = mfcc.tc_mel_constants(*dsp.mel_args(cfg))
     vals = torch.tensor(vals)
     sums = torch.zeros(*a.shape[:2], g.num_mel)
     for u in range(runs.shape[0]):
@@ -204,10 +214,10 @@ def test_emulated_kernel_meets_float64(clip, source):
     want = mfcc_float64(wavs.numpy(), cfg)
     if source == "dataset rows":
         assert np.abs(want).max() > 100
-    got = emulate_k8(wavs, cfg).numpy()
+    got = emulate_stage(wavs, cfg).numpy()
     assert got.shape == want.shape == (wavs.shape[0],) + dsp.feature_shape(cfg)[:2]
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    coarse = emulate_k8(wavs, cfg, lambda a, b: _tf32(a) @ _tf32(b)).numpy()
+    coarse = emulate_stage(wavs, cfg, lambda a, b: _tf32(a) @ _tf32(b)).numpy()
     assert np.abs(coarse - want).max() > ATOL
 
 
@@ -225,7 +235,7 @@ def test_emulated_kernel_matches_the_jax_kernel(clip, method, dsp_dtype):
     wavs = np.random.default_rng(12).uniform(-1, 1, (3, N)).astype(np.float32)
     want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True,
                                        variant="phases"))
-    got = emulate_k8(torch.tensor(wavs), cfg).numpy()
+    got = emulate_stage(torch.tensor(wavs), cfg).numpy()
     assert got.shape == want.shape
     tol = ATOL if dsp_dtype == "float32" else BF16_TOL
     np.testing.assert_allclose(got, want, rtol=0 if dsp_dtype == "float32" else tol, atol=tol)
