@@ -41,11 +41,12 @@ print their lines:
               ms/step, utt/s and the device's busy share of the step for
               the input legs at batch 1536 and 4096
  12. build    tconv.cu (K7: fwd, dx, dw), the ptxas line of each kernel
-              (K7 fwd's by its n8-tile width)
+              (K7 fwd's and dx's by their n8-tile width); fails if a fwd or
+              dx tile spills
  13. kernel   K7 against its plain version (TF32 off) at TCResNet8-1.0's ten
               conv geometries, batch 1, 8, 1536, f32 and bf16-rounded
               inputs, and TCResNet14-1.5's at batch 1536; launch counters;
-              fwd and dw identical on two calls
+              fwd, dx and dw identical on two calls
  14. train    the main path through K7: Trainer with conv_backend="pallas"
               at batch 1536 in bf16, 30 steps, a checkpoint every 10; K7
               launches per step (10 fwd, 9 dx, 10 dw) and per train-stream
@@ -57,11 +58,14 @@ print their lines:
               "pallas" against "xla" on one checkpoint
  16. times    K7 fwd, dx and dw and cuDNN (TF32 off) over one step's ten
               convs at batch 1536 and per conv, CUDA events behind a device
-              sleep (a drained launch queue is named in the line), the eager
-              readings (host gaps included) and the plain versions beside;
-              the FP32-FMA fwd design's time quoted; the host's enqueue of
-              the ten fwd calls; the train step "pallas" against "xla"; eval
-              utt/s
+              sleep (tools/tconv_times.py; a drained launch queue is named
+              in the line), dx also over the nine convs a step launches it
+              for, the eager readings (host gaps included) and the plain
+              versions beside; the FP32-FMA fwd and dx designs' times
+              quoted; K7 beside cuDNN f32 and bf16 (the `xla` step's call)
+              by torch.profiler; the host's enqueue of the ten fwd calls;
+              the train step "pallas" against "xla", with its device time
+              by kind and its costliest kernels; eval utt/s
  17. build    infer2d.cu (K5, the 2D families' op-list kernel), its ptxas
               line and its cooperative grid
  18. kernel   K5 against its plain version (TF32 off) for every 2D preset
@@ -109,7 +113,12 @@ print their lines:
               too); the per-variant launch counters; dsp_backend="pallas"
               at 400/160, not hop-decomposable (the JAX package's fallback
               too): the plain feature within 1e-5, no launch,
-              mfcc.plain_routes up by one
+              mfcc.plain_routes up by one; a radix4 clip past K9's frames
+              (2.56 s at 480/160, 254 frames), MFCC and log-mel, through
+              fused_mfcc (batch 1, 8, 256) and K3 (batch 8): K2's stage,
+              within 1e-4 of the plain radix4 feature, K3 equal to K2(K1),
+              the hops counters up by one, radix4 launches and
+              plain_routes unchanged
  23. train    the 2D main path: the DSCNNL preset (MFCC-10 at 40/20 ms,
               batch 100, float32, adam) with dft_variant="radix4" and
               frontend_fuse="on", 30 steps, a checkpoint every 10: K3-radix4
@@ -164,6 +173,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tcresnet_tpu_torch.tools.frontend_times import graph_of, hops_times, queued_ms  # noqa: E402
+from tcresnet_tpu_torch.tools.tconv_times import conv_cases, conv_geometries, conv_ops  # noqa: E402
+from tcresnet_tpu_torch.tools.tconv_times import k7_times  # noqa: E402
 
 # logits / softmax tolerances of the JAX package's kernel test
 # (tests/test_pallas_infer.py): kernel and plain version differ by
@@ -228,6 +239,11 @@ PR5_K8_MS = {"640/320 MFCC-10": (4.9868, 4.9938), "480/160 MFCC-40": (4.3885, 4.
 # sleep as phase 16 times it (ms; NVIDIA H100 80GB HBM3, 700.00 W): printed
 # beside this run's time, never in the kernels summary
 FP32_K7_FWD_MS = 0.6834
+# K7 dx's earlier design (per-thread FP32 FMA, 4 input channels a thread)
+# the same way, timed by tools/tconv_times.py on a checkout of that design
+# (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): printed beside this
+# run's time, never in the kernels summary
+FP32_K7_DX_MS = 0.9222
 # K2's and K3-hops' earlier design (per-thread FP32 FMA, one block per
 # utterance), timed by tcresnet_tpu_torch/tools/frontend_times.py on a
 # checkout of that design (ms; NVIDIA H100 80GB HBM3, 700.00 W; behind a
@@ -564,6 +580,19 @@ def device_ms(fn, runs: int = 20) -> float:
     return benchmark_on_device(lambda _: fn(), probe, warmup_runs=5, num_runs=runs)["median"] / 1e3
 
 
+def device_spans(fn) -> list:
+    """(name, time range) of every device activity of fn(), kernels and
+    copies, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range) for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def device_times_ms(fn) -> tuple:
     """(summed device-activity time of fn() in ms, kernels and copies, which
     do not overlap on the one stream the port uses; the span from the first
@@ -572,19 +601,34 @@ def device_times_ms(fn) -> tuple:
     times are not inflated by the profiler's host overhead, so the sum over
     an unprofiled CUDA-event span of the same work is the device's busy
     share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [r for _, r in device_spans(fn)]
     busy_us = sum(s.elapsed_us() for s in spans)
     if busy_us <= 0:
         return float("nan"), float("nan"), 0
     return (busy_us / 1e3, (max(s.end for s in spans) - min(s.start for s in spans)) / 1e3,
             len(spans))
+
+
+# a train step's device activities by kind, matched in this order on the
+# lower-cased name (phase 16)
+STEP_KINDS = (("K7", ("k7_",)), ("copies and casts", ("copy", "memcpy", "memset")),
+              ("cuDNN and cuBLAS", ("cudnn", "xmma", "conv", "gemm", "cutlass", "sm90_")))
+
+
+def step_kernels(spans, steps: int) -> tuple:
+    """From the `device_spans` of `steps` train steps: ({kind: [ms,
+    launches] a step}, [(ms, launches, name) a step, most time first])."""
+    by_name = {}
+    for name, r in spans:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + r.elapsed_us() / 1e3 / steps, n + 1 / steps)
+    kinds = {kind: [0.0, 0.0] for kind, _ in STEP_KINDS + (("other", ()),)}
+    for name, (t, n) in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in STEP_KINDS if any(key in low for key in keys)), "other")
+        kinds[kind][0] += t
+        kinds[kind][1] += n
+    return kinds, sorted(((t, n, name) for name, (t, n) in by_name.items()), reverse=True)
 
 
 def device_busy_ms(fn) -> float:
@@ -849,28 +893,9 @@ def training_phases(dev: torch.device, card: str):
     ], ds
 
 
-def conv_geometries(model_cfg, t: int, in_channels: int) -> list:
-    """(k, stride, Ci, Co, T) of every conv of a TC-ResNet, in forward order."""
-    from tcresnet_tpu_torch.models.tc_resnet import block_plan, scaled_channels
-
-    channels = scaled_channels(model_cfg.name, model_cfg.width_multiplier)
-    out, prev = [(3, 1, in_channels, channels[0], t)], channels[0]
-    for _, n, down in block_plan(channels):
-        if down:
-            out += [(1, 2, prev, n, t), (9, 2, prev, n, t)]
-            t = -(-t // 2)
-        else:
-            out.append((9, 1, prev, n, t))
-        out.append((9, 1, n, n, t))
-        prev = n
-    return out
-
-
 def tconv_phases(dev: torch.device, card: str, ds) -> list:
     """Phases 12-16: K7 and the paths through it, training and evaluation."""
     import tempfile
-
-    import torch.nn.functional as F
 
     from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
@@ -884,8 +909,13 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     from tcresnet_tpu_torch.train.trainer import Trainer
 
     # ---- 12. build (compiled in phase 2, all sources at once) ----
-    print(f"[build] tconv.cu for sm_90a | {ptxas_line('tconv')}")
+    line = ptxas_line("tconv")
+    print(f"[build] tconv.cu for sm_90a | {line}")
     k7.build_kernels()
+    tiles = re.findall(r"k7_(fwd|dx)_kernel<(\d+)>: \d+ bytes stack frame, (\d+) bytes spill "
+                       r"stores", line)
+    check(len(tiles) == 18 and all(b == "0" for *_, b in tiles),
+          f"tconv.cu: K7 fwd / dx tiles missing from the ptxas line or spilling: {tiles}")
 
     # ---- 13. K7 against its plain version ----
     flagship = get_preset("TCResNet8-1.0")
@@ -912,13 +942,14 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
                 x, w, dy = conv_inputs(batch, geom, bf16)
                 before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
                 y, y_again = k7.tconv_fwd(x, w, s), k7.tconv_fwd(x, w, s)
-                dx = k7.tconv_dx(dy, w, t, s)
+                dx, dx_again = k7.tconv_dx(dy, w, t, s), k7.tconv_dx(dy, w, t, s)
                 dw, dw_again = k7.tconv_dw(x, dy, k, s), k7.tconv_dw(x, dy, k, s)
                 torch.cuda.synchronize()
                 check((k7.fwd_launches, k7.dx_launches, k7.dw_launches)
-                      == (before[0] + 2, before[1] + 1, before[2] + 2),
+                      == (before[0] + 2, before[1] + 2, before[2] + 2),
                       f"K7 {geom} B={batch}: launch counters did not advance by one per call")
                 check(torch.equal(y, y_again), f"K7 fwd {geom} B={batch}: two calls differ")
+                check(torch.equal(dx, dx_again), f"K7 dx {geom} B={batch}: two calls differ")
                 want_y = k7.tconv_fwd_reference(x, w, s)
                 want_dx = k7.tconv_dx_reference(dy, w, t, s)
                 want_dw = k7.tconv_dw_reference(x, dy, k, s)
@@ -936,7 +967,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
                 errs[op] = max(errs[op], worst[op])
             print(f"[kernel] K7 {label} B={batch} {'bf16-rounded' if bf16 else 'f32'} inputs, "
                   f"{len(gs)} convs: max |err| fwd {worst['fwd']:.2e}, dx {worst['dx']:.2e}, "
-                  f"dw {worst['dw']:.2e} ({worst['dw_rel']:.1e} of max|dw|); fwd and dw "
+                  f"dw {worst['dw']:.2e} ({worst['dw_rel']:.1e} of max|dw|); fwd, dx and dw "
                   f"bit-identical on two calls")
 
     # ---- 14. train through K7: the main path ----
@@ -1052,55 +1083,60 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
 
     # ---- 16. times ----
     batch = 1536
-    convs = []
-    for geom in geoms:
-        k, s, ci, co, t = geom
-        x, w, dy = conv_inputs(batch, geom)
-        _, lo, hi = same_padding(t, k, s)
-        convs.append(dict(geom=geom, k=k, s=s, t=t, lo=lo, x=x, w=w, dy=dy, xp=F.pad(x, (lo, hi))))
-    # per conv: (kernel, plain version, cuDNN f32)
-    ops = {
-        "fwd": (lambda c: k7.tconv_fwd(c["x"], c["w"], c["s"]),
-                lambda c: k7.tconv_fwd_reference(c["x"], c["w"], c["s"]),
-                lambda c: F.conv1d(c["xp"], c["w"], stride=c["s"])),
-        "dx": (lambda c: k7.tconv_dx(c["dy"], c["w"], c["t"], c["s"]),
-               lambda c: k7.tconv_dx_reference(c["dy"], c["w"], c["t"], c["s"]),
-               lambda c: torch.nn.grad.conv1d_input(c["xp"].shape, c["w"], c["dy"],
-                                                    stride=c["s"])[..., c["lo"]:c["lo"] + c["t"]]),
-        "dw": (lambda c: k7.tconv_dw(c["x"], c["dy"], c["k"], c["s"]),
-               lambda c: k7.tconv_dw_reference(c["x"], c["dy"], c["k"], c["s"]),
-               lambda c: torch.nn.grad.conv1d_weight(c["xp"], c["w"].shape, c["dy"],
-                                                     stride=c["s"])),
-    }
+    convs = conv_cases(dev, geoms, batch, gen)
+    ops = conv_ops()
 
     def ten(f):
         return lambda: [f(c) for c in convs]
 
-    # the ten convs behind a device sleep (CUDA events time the device's
-    # work, not the host's ten launches), in the order kernel, cuDNN,
+    # behind a device sleep (CUDA events time the device's work, not the
+    # host's launches; tools/tconv_times.py), in the order kernel, cuDNN,
     # cuDNN, kernel; the eager reading beside it counts the gaps the host
     # leaves between the launches
+    queued = k7_times(convs)
+    quoted = {"fwd": FP32_K7_FWD_MS, "dx": FP32_K7_DX_MS}
     ms = {}
     for op, (kernel, plain, cudnn) in ops.items():
-        (a, fa), (b, fb), (c, fc), (d, fd) = (queued_ms(ten(f)) for f in (kernel, cudnn, cudnn, kernel))
-        full = fa and fb and fc and fd
+        (a, d), (b, c), full = (queued[op]["ten"][key] for key in ("kernel", "cudnn", "queue_full"))
         ek, ep, ec = device_ms(ten(kernel)), device_ms(ten(plain)), device_ms(ten(cudnn))
         ms[op] = dict(ms=min(a, d), library_ms=min(b, c), plain_ms=ep, ms_eager=ek,
                       library_ms_eager=ec, queue_full=full)
-        quoted = (f"; the FP32-FMA design (quoted, not this run): {FP32_K7_FWD_MS} ms, "
-                  f"{FP32_K7_FWD_MS / min(a, d):.2f}x this run's" if op == "fwd" else "")
+        fp32 = (f"; the FP32-FMA design (quoted, not this run): {quoted[op]} ms, "
+                f"{quoted[op] / min(a, d):.2f}x this run's" if op in quoted else "")
         print(f"[times] K7 {op} B={batch}, the ten convs of one step, behind a device sleep: "
               f"kernel {a:.4f} / {d:.4f} ms, cuDNN f32 (TF32 off) {b:.4f} / {c:.4f} ms (mean of "
               f"20; order kernel, cuDNN, cuDNN, kernel; "
               + ("queue full" if full else "a queue DRAINED: host-paced") + ") | eager (host gaps "
               f"included, median of 20): kernel {ek:.4f} ms, plain {ep:.4f} ms, cuDNN {ec:.4f} ms"
-              f"{quoted} | {card}")
+              f"{fp32} | {card}")
+    nine = queued["dx"]["nine"]
+    (a, d), (b, c) = nine["kernel"], nine["cudnn"]
+    ms["dx"].update(ms_nine=min(a, d), library_ms_nine=min(b, c))
+    print(f"[times] K7 dx B={batch}, the nine convs a step launches dx for (not conv 0: its input, "
+          f"the features, needs no gradient), behind a device sleep: kernel {a:.4f} / {d:.4f} ms, "
+          f"cuDNN f32 {b:.4f} / {c:.4f} ms ({min(a, d) / min(b, c):.2f}x; "
+          + ("queue full" if nine["queue_full"] else "a queue DRAINED: host-paced") + f") | {card}")
+    # the library calls a bf16 `xla` step makes: cuDNN on bf16 tensors (K7
+    # computes in float32, 3xTF32, so its yardstick above is cuDNN f32);
+    # the device time torch.profiler sums over 5 runs, which the host's
+    # pace does not inflate
+    convs16 = [{**c, **{key: c[key].to(torch.bfloat16) for key in ("x", "w", "dy", "xp")}}
+               for c in convs]
+    for op, (kernel, _, cudnn) in ops.items():
+        t16, t32, tk = (device_times_ms(lambda f=f, cs=cs: [f(c) for _ in range(5) for c in cs])[0] / 5
+                        for f, cs in ((cudnn, convs16), (cudnn, convs), (kernel, convs)))
+        ms[op]["cudnn_bf16_ms"] = t16
+        print(f"[times] K7 {op} B={batch}, the ten convs of one step, summed device time "
+              f"(torch.profiler, 5 runs): kernel {tk:.4f} ms, cuDNN f32 {t32:.4f} ms, cuDNN bf16 on "
+              f"bf16 tensors (the `xla` step's call under bf16 compute) {t16:.4f} ms "
+              f"({tk / t16:.2f}x) | {card}")
     for i, conv in enumerate(convs):
         parts = []
-        for op, (kernel, _, cudnn) in ops.items():
-            (a, fa), (b, fb), (d, fd) = (queued_ms(lambda: f(conv)) for f in (kernel, cudnn, kernel))
-            parts.append(f"{op} {min(a, d):.4f} / cuDNN {b:.4f} ms ({min(a, d) / b:.2f}x)"
-                         + ("" if fa and fb and fd else " (a queue DRAINED)"))
+        for op in ops:
+            r = queued[op]["per_conv"][i]
+            parts.append(f"{op} {r['kernel']:.4f} / cuDNN {r['cudnn']:.4f} ms "
+                         f"({r['kernel'] / r['cudnn']:.2f}x)"
+                         + ("" if r["queue_full"] else " (a queue DRAINED)"))
         print(f"[times] K7 conv {i} (k, s, Ci, Co, T) = {conv['geom']} B={batch}, behind a device "
               f"sleep: " + ", ".join(parts) + f" | {card}")
     # the host's cost of launching the ten fwd convs (the enqueue alone)
@@ -1127,7 +1163,8 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
         spans[backend].append(((time.perf_counter() - t0) * 1e3 / n_steps,
                                ev0.elapsed_time(ev1) / n_steps))
     for backend, trainer in trainers.items():
-        busy_ms = device_busy_ms(lambda: trainer.train_steps(3, start=500)) / 3
+        activities = device_spans(lambda: trainer.train_steps(3, start=500))
+        busy_ms = sum(r.elapsed_us() for _, r in activities) / 3e3 or float("nan")
         host_ms = sum(h for h, _ in spans[backend]) / 2
         dev_ms = sum(d for _, d in spans[backend]) / 2
         print(f"[times] train step B={batch} bf16 conv_backend={backend} (K3 input): "
@@ -1135,6 +1172,14 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
               + " / ".join(f"{d:.3f}" for _, d in spans[backend]) + " ms/step CUDA events "
               f"(two visits of {n_steps} steps), {batch / host_ms * 1e3:,.0f} utt/s, device busy "
               f"{busy_ms:.3f} ms/step = {busy_ms / dev_ms:.1%} of the step | {card}")
+        # where the busy time goes: the step's device activities by kind and
+        # the costliest by name (torch.profiler over the same 3 steps)
+        kinds, top = step_kernels(activities, 3)
+        print(f"[times] train step B={batch} bf16 conv_backend={backend}, device time a step by "
+              "kind: " + ", ".join(f"{kind} {t:.3f} ms ({n:.0f} launches)"
+                                   for kind, (t, n) in kinds.items()) + f" | {card}")
+        for t, n, name in top[:12]:
+            print(f"[times]   {backend}: {t:.4f} ms, {n:.0f} launches a step: {name[:120]}")
 
     evaluators = {backend: Evaluator(run_cfg.replace(model=dataclasses.replace(
         run_cfg.model, conv_backend=backend)), valid) for backend in ("pallas", "xla")}
@@ -1170,8 +1215,8 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
                 "launches": main_launches[op], "max_abs_err": errs[op],
                 **ms[op], **bound(k7_flops, k7_bytes, rate), "cudnn_ms": ms[op]["library_ms"]}
 
-    # fwd computes its products as 3xTF32; dx and dw in FP32 FMA
-    return [entry("fwd", 63, TF32X3_FLOPS), entry("dx", 68), entry("dw", 99)]
+    # fwd and dx compute their products as 3xTF32; dw in FP32 FMA
+    return [entry("fwd", 63, TF32X3_FLOPS), entry("dx", 68, TF32X3_FLOPS), entry("dw", 99)]
 
 
 def infer2d_phases(dev: torch.device, card: str) -> list:
@@ -1624,6 +1669,52 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
         line.append(f"{method} {err.item():.1e}")
     print("[kernel] dsp_backend=pallas at 400/160 (not hop-decomposable): the plain feature, no "
           "launch, plain_routes +1; max |err| vs dsp_backend=xla " + ", ".join(line))
+
+    # a radix4 clip past K9's largest product (2.56 s at 480/160: 254
+    # frames), which the JAX package runs in its radix4 kernel: K2's stage,
+    # chosen from the geometry (mfcc.kernel_variant), in fused_mfcc and K3
+    n_long, rows = 40960, 64
+    gen_long = torch.Generator(device=dev).manual_seed(4300)
+    data = torch.randint(-32768, 32768, (rows, n_long), generator=gen_long, device=dev,
+                         dtype=torch.int32).to(torch.int16)
+    noise = torch.rand((3, 2 * n_long), generator=gen_long, device=dev) - 0.5
+    idx = torch.randint(0, rows, (8,), generator=gen_long, device=dev, dtype=torch.int32)
+    sc = aug.draw_scalars(gen_long, torch.rand(8, generator=gen_long, device=dev) < 0.25,
+                          augment_cfg, noise, n_long, True)
+    for method in ("mfcc", "log_mel_spectrogram"):
+        cfg = dataclasses.replace(flagship_audio, preprocess_method=method, dft_variant="radix4",
+                                  clip_duration_ms=n_long // 16)
+        check(k2.resolve_dft_variant(cfg, n_long) == "radix4"
+              and k2.kernel_variant(cfg, n_long) == "hops", f"radix4 2.56 s {method}: stage")
+        line = []
+        for batch in (1, 8, 256):
+            wavs = torch.tensor(seeded_wavs(4200 + batch, batch, n_long), device=dev)
+            before = counts(k2), k2.plain_routes
+            got = k2.fused_mfcc(wavs, cfg)
+            torch.cuda.synchronize()
+            check(counts(k2) == (before[0][0] + 1, *before[0][1:])
+                  and k2.plain_routes == before[1],
+                  f"radix4 2.56 s {method}: launches {counts(k2)} (before {before[0]}), plain "
+                  f"routes {k2.plain_routes - before[1]}")
+            want = k2.fused_mfcc_reference(wavs, cfg)
+            err = (got - want).abs().max().item()
+            check(got.shape == want.shape == (batch, 254, dsp.feature_width(cfg))
+                  and err <= FEATURE_ATOL, f"radix4 2.56 s {method} B={batch}: max err {err}")
+            line.append(f"B={batch} {err:.2e}")
+        before = counts(k3), k2.plain_routes
+        got = k3.frontend_features(data, idx, sc, noise, cfg, n_long)
+        torch.cuda.synchronize()
+        check(counts(k3) == (before[0][0] + 1, *before[0][1:]) and k2.plain_routes == before[1],
+              f"K3 radix4 2.56 s {method}: launches {counts(k3)} (before {before[0]})")
+        want = k3.frontend_reference(data, idx, sc, noise, cfg, n_long)
+        err = (got - want).abs().max().item()
+        check(err <= FEATURE_ATOL, f"K3 radix4 2.56 s {method}: max err {err}")
+        two = k2.fused_mfcc(k16.fused_gather_augment(data, idx, sc, noise, n_long), cfg)
+        check(torch.equal(got, two), f"K3 radix4 2.56 s {method}: differs from K2(K1)")
+        print(f"[kernel] dft_variant=radix4, 2.56 s at 480/160 (254 frames, past K9's 112) "
+              f"{method}: K2's stage (launches +1, radix4 launches and plain_routes +0) vs the "
+              f"plain radix4 feature (atol {FEATURE_ATOL}): " + ", ".join(line)
+              + f"; K3 B=8 {err:.2e}, equal to K2(K1) bit for bit | {card}")
 
     # ---- 23. train the 2D families: the main path ----
     workdir = tempfile.mkdtemp(prefix="chip_smoke_2d_")

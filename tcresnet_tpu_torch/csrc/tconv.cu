@@ -43,13 +43,21 @@
 //   so no mma waits on the one before it. Steps run in a fixed order
 //   (channel step, then tap) with no split K and no atomics: two calls give
 //   the same bits.
-// - dx: a block stages a group of samples' dy rows and a 16-channel slice of
-//   the weights in shared memory; each thread accumulates 4 input channels at
-//   one position in FP32 registers, one float4 weight read per dy value. It
-//   reads dy as it is: per input position t it sums only the taps j with
-//   t + lo - j divisible by the stride. The TPU kernel zero-stuffed dy by the
-//   stride to stay within Mosaic's reshape rules; here no multiply-add
-//   touches a stuffed zero.
+// - dx is the same implicit GEMM over dy, one stride phase at a time. The
+//   rows t with (t + lo) % s == p read only the taps j = p + s i: with t =
+//   s q + p - lo, dx[t] = sum_i sum_co w[co, ci, p + s i] dy[co, q - i], a
+//   stride-1 correlation of dy with ceil((k - p) / s) taps and a left halo
+//   of taps - 1. So grid z is the phase, M = (sample, q) rows of that phase
+//   packed 128 a block, N = input channels, K = (output channel, tap i); a
+//   block stages per output channel one row of dy slots with the halo,
+//   zero-filled outside [0, To), and the phase's taps of w^T in B-fragment
+//   order, and stores to t, s apart. No multiply-add touches a zero the
+//   stride would stuff into dy (the TPU kernel zero-stuffed dy to stay
+//   within Mosaic's reshape rules). A phase with no tap (k = 1, s = 2)
+//   writes its rows as zeros in the same launch. It runs fwd's k8 step and
+//   store (k7_mma_step, k7_store), so arithmetic and order are fwd's:
+//   3xTF32, each k8 step from zero, no split K: two calls give the same
+//   bits.
 // - dw is a reduction over B * To rows (150,528 for conv0 at batch 1536).
 //   Blocks run in no order, so it uses no float atomics: each block sums a
 //   fixed batch chunk into its own partial [Co, Ci * k] (4 x 4 outputs per
@@ -59,8 +67,8 @@
 // How it differs from the TPU kernels: no batch tile or batch padding (the
 // grid covers the batch exactly), no VMEM-resident dw carried across a
 // sequential grid (partials and a fixed-order second pass instead), no
-// zero-stuffed dy; fwd computes in 3xTF32 where the TPU kernel used f32
-// matmuls.
+// zero-stuffed dy; fwd and dx compute in 3xTF32 where the TPU kernel used
+// f32 matmuls.
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
 // launch on the given stream and return cudaGetLastError()).
@@ -77,36 +85,106 @@ struct K7Args {
   float* out;       // fwd: [batch, co, to]; dx: [batch, ci, t]; dw: [co, ci, k]
   float* partial;   // dw: [nchunks, co, ci * k] scratch
   int batch, ci, co, k, stride, t, to, lo;
-  int nb;       // dx, dw: samples staged in shared memory at once
+  int nb;       // dw: samples staged in shared memory at once
   int chunk;    // dw: samples summed into one partial
   int nchunks;  // dw: ceil(batch / chunk)
   int smem_bytes;
   // fwd: slots per sample in a staged row (to + (k - 1) / stride), slots of
-  // one phase's row, floats between two channels' rows, channel steps of 8
-  // per slice, n8 tiles of output channels per block
+  // one phase's row; fwd, dx: floats between two channels' rows, channel
+  // steps of 8 per slice, n8 tiles of output (dx: input) channels per block
   int ql, slot_len, xrow, kslice, nt;
 };
 
 #define K7_THREADS 256
-#define K7_CT 16  // input channels per dx block
 
 #define K7F_WARPS 4
 #define K7F_MT 2                            // m16 tiles per warp
-#define K7F_ROWS (K7F_WARPS * K7F_MT * 16)  // output rows per fwd block
+#define K7F_ROWS (K7F_WARPS * K7F_MT * 16)  // output rows per fwd / dx block
 
-__device__ __forceinline__ void fma4(float4& acc, float v, float4 w) {
-  acc.x = fmaf(v, w.x, acc.x);
-  acc.y = fmaf(v, w.y, acc.y);
-  acc.z = fmaf(v, w.z, acc.z);
-  acc.w = fmaf(v, w.w, acc.w);
+// The fwd and dx blocks share their tiles, their k8 step and their store.
+// Rows m = n * per + r (sample n, position r) of a block whose first row is
+// (n0, first) are staged from slot (n - n0) * ql + r - first; roff is that
+// slot for this thread's fragment rows g and g + 8 of its two m16 tiles
+// (warp w holds rows 32 w .. 32 w + 31). Rows past the end read the last
+// row's slots.
+__device__ __forceinline__ void k7_row_slots(int (&roff)[K7F_MT][2], int m0, int rows, int per,
+                                             int ql, int n0, int first, int warp, int g) {
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = min(m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g, rows - 1);
+      const int n = m / per;
+      roff[mi][h] = (n - n0) * ql + (m - n * per) - first;
+    }
 }
 
-// Writes 4 consecutive channels (rows `stride` apart) of which `valid` exist.
-__device__ __forceinline__ void store4(float* p, int stride, int valid, float4 v) {
-  p[0] = v.x;
-  if (valid > 1) p[stride] = v.y;
-  if (valid > 2) p[2 * stride] = v.z;
-  if (valid > 3) p[3 * stride] = v.w;
+// One k8 step: A from the staged rows (channel tig's row at xc, channel tig
+// + 4's 4 xrow floats on; this thread's rows at roff + toff), B from its
+// fragments at wb (float2 (b0, b1) per lane, n8 tiles 32 apart). Each
+// tile's lo*hi, hi*lo, hi*hi are summed from zero, in three passes of
+// independent products, and added to acc.
+template <int NT>
+__device__ __forceinline__ void k7_mma_step(float (&acc)[K7F_MT][NT][4], const float* xc,
+                                            int xrow, const int (&roff)[K7F_MT][2], int toff,
+                                            const float2* wb) {
+  uint32_t ahi[K7F_MT][4], alo[K7F_MT][4];
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi) {
+    split_tf32_rn(xc[roff[mi][0] + toff], ahi[mi][0], alo[mi][0]);
+    split_tf32_rn(xc[roff[mi][1] + toff], ahi[mi][1], alo[mi][1]);
+    split_tf32_rn(xc[4 * xrow + roff[mi][0] + toff], ahi[mi][2], alo[mi][2]);
+    split_tf32_rn(xc[4 * xrow + roff[mi][1] + toff], ahi[mi][3], alo[mi][3]);
+  }
+  uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    const float2 b = wb[ni * 32];
+    split_tf32_rn(b.x, bhi[ni][0], blo[ni][0]);
+    split_tf32_rn(b.y, bhi[ni][1], blo[ni][1]);
+  }
+  float p[K7F_MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) mma_tf32_zero(p[mi][ni], alo[mi], bhi[ni]);
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], blo[ni]);
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], bhi[ni]);
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[mi][ni][e];
+}
+
+// Stores acc, c0 and c1 at (row g, channels 2 tig, 2 tig + 1), c2 and c3 at
+// row g + 8: channel c of row m to row(m)[c * cstride], for rows below
+// `rows` and channels from c0 below nc.
+template <int NT, class Row>
+__device__ __forceinline__ void k7_store(const float (&acc)[K7F_MT][NT][4], int m0, int rows,
+                                         int warp, int g, int tig, int c0, int nc, int cstride,
+                                         Row row) {
+#pragma unroll
+  for (int mi = 0; mi < K7F_MT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g;
+      if (m >= rows) continue;
+      float* r = row(m);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int c = c0 + ni * 8 + 2 * tig;
+        if (c < nc) r[(size_t)c * cstride] = acc[mi][ni][2 * h];
+        if (c + 1 < nc) r[(size_t)(c + 1) * cstride] = acc[mi][ni][2 * h + 1];
+      }
+    }
 }
 
 // fwd. grid (ceil(batch * to / 128), ceil(ceil(co / 8) / NT)); a block
@@ -135,17 +213,9 @@ __global__ void __launch_bounds__(K7F_WARPS * 32) k7_fwd_kernel(const K7Args a) 
   const int xs_floats = cs * a.xrow;
   const int slices = (a.ci + cs - 1) / cs;
 
-  // slot of (row, tap 0) for this thread's fragment rows g and g + 8 of its
-  // two m16 tiles; rows past the end read the last row's slots
+  // slot of (row, tap 0)
   int roff[K7F_MT][2];
-#pragma unroll
-  for (int mi = 0; mi < K7F_MT; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = min(m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g, rows - 1);
-      const int n = m / a.to;
-      roff[mi][h] = (n - n0) * a.ql + (m - n * a.to) - o_first;
-    }
+  k7_row_slots(roff, m0, rows, a.to, a.ql, n0, o_first, warp, g);
 
   // slot u holds position q of sample n0 + nl, (nl, q) = divmod(u + o_first,
   // ql): the quotient as a product with ceil(2^32 / ql), exact while
@@ -205,43 +275,8 @@ __global__ void __launch_bounds__(K7F_WARPS * 32) k7_fwd_kernel(const K7Args a) 
       const float* xc = smem + (c8 * 8 + tig) * a.xrow;
       int ph = 0, qo = 0;
       for (int j = 0; j < k; ++j) {
-        const int toff = ph * a.slot_len + qo;
-        uint32_t ahi[K7F_MT][4], alo[K7F_MT][4];
-#pragma unroll
-        for (int mi = 0; mi < K7F_MT; ++mi) {
-          split_tf32_rn(xc[roff[mi][0] + toff], ahi[mi][0], alo[mi][0]);
-          split_tf32_rn(xc[roff[mi][1] + toff], ahi[mi][1], alo[mi][1]);
-          split_tf32_rn(xc[4 * a.xrow + roff[mi][0] + toff], ahi[mi][2], alo[mi][2]);
-          split_tf32_rn(xc[4 * a.xrow + roff[mi][1] + toff], ahi[mi][3], alo[mi][3]);
-        }
-        uint32_t bhi[NT][2], blo[NT][2];
-        const float2* wb = wfrag + (c8 * k + j) * NT * 32 + lane;
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const float2 b = wb[ni * 32];
-          split_tf32_rn(b.x, bhi[ni][0], blo[ni][0]);
-          split_tf32_rn(b.y, bhi[ni][1], blo[ni][1]);
-        }
-        // three passes of independent products, each tile's three from zero
-        float p[K7F_MT][NT][4];
-#pragma unroll
-        for (int mi = 0; mi < K7F_MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni) mma_tf32_zero(p[mi][ni], alo[mi], bhi[ni]);
-#pragma unroll
-        for (int mi = 0; mi < K7F_MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], blo[ni]);
-#pragma unroll
-        for (int mi = 0; mi < K7F_MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni) mma_tf32(p[mi][ni], ahi[mi], bhi[ni]);
-#pragma unroll
-        for (int mi = 0; mi < K7F_MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[mi][ni][e];
+        k7_mma_step<NT>(acc, xc, a.xrow, roff, ph * a.slot_len + qo,
+                        wfrag + (c8 * k + j) * NT * 32 + lane);
         if (++ph == s) {
           ph = 0;
           ++qo;
@@ -251,66 +286,116 @@ __global__ void __launch_bounds__(K7F_WARPS * 32) k7_fwd_kernel(const K7Args a) 
     __syncthreads();  // the slice is consumed before the next one lands
   }
 
-  // c0, c1 at (row g, channels 2 tig, 2 tig + 1); c2, c3 at row g + 8
+  k7_store<NT>(acc, m0, rows, warp, g, tig, co0, a.co, a.to, [&](int m) {
+    const int n = m / a.to;
+    return a.out + (size_t)n * a.co * a.to + (m - n * a.to);
+  });
+}
+
+// dx. grid (ceil(batch * to / 128), ceil(ceil(ci / 8) / NT), stride): block
+// z computes phase p = z, the rows t = s (q0 + r) + p - lo, r < prow, of
+// every sample, viewed as [batch * prow, ci] (m = n * prow + r); block x
+// its rows [128 x, 128 x + 128) (none past batch * prow: the block
+// returns), block y the NT * 8 input channels from 8 NT y. Warp w holds
+// rows 32 w .. 32 w + 31 (two m16 tiles), as in fwd.
+//
+// Shared memory: ds[c][slot] for the slice's 8 * kslice output channels
+// (floats a.xrow apart): sample n0 + nl's position e, which holds dy
+// position q0 + e - halo, at slot nl * ql + e - r_first (ql = prow +
+// halo), so tap i of row (n, r) reads slot (n - n0) ql + r - r_first +
+// halo - i. The block stages exactly the slots its rows read. Then the
+// weights ws[(c8 * taps + i) * NT + ni][lane] as float2 (b0, b1): w[co,
+// ci, p + s i] at co = c0 + 8 c8 + lane % 4 (+ 4 for b1), ci = ci0 + 8 ni
+// + lane / 4.
+template <int NT>
+__global__ void __launch_bounds__(K7F_WARPS * 32) k7_dx_kernel(const K7Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int s = a.stride, p = blockIdx.z;
+  // the phase: its taps, its first q (t >= 0) and its rows per sample (t < T)
+  const int taps = p < a.k ? (a.k - p + s - 1) / s : 0;
+  const int q0 = max(0, a.lo - p + s - 1) / s;
+  const int last = a.t - 1 + a.lo - p;
+  const int prow = last < 0 ? 0 : max(0, last / s - q0 + 1);
+  const int rows = a.batch * prow;
+  const int m0 = blockIdx.x * K7F_ROWS;
+  if (m0 >= rows) return;
+  const int n0 = m0 / prow, r_first = m0 - n0 * prow;
+  const int ci0 = blockIdx.y * NT * 8;
+  const int halo = max(taps - 1, 0), ql = prow + halo;
+  const int m_last = min(m0 + K7F_ROWS, rows) - 1;
+  const int window = m_last - m0 + 1 + (m_last / prow - n0 + 1) * halo;  // slots read
+  const int cs = 8 * a.kslice;  // output channels per slice
+  const int slices = taps > 0 ? (a.co + cs - 1) / cs : 0;
+
+  // slot of (row, tap 0) less halo
+  int roff[K7F_MT][2];
+  k7_row_slots(roff, m0, rows, prow, ql, n0, r_first, warp, g);
+
+  // slot u holds position e of sample n0 + nl, (nl, e) = divmod(u +
+  // r_first, ql), the quotient as in fwd
+  const unsigned long long ql_inv = (0x100000000ull + ql - 1) / ql;
+
+  auto stage = [&](int slice) {
+    const int c0 = slice * cs;
+    // dy rows: one output channel per warp, its slots across lanes;
+    // positions outside [0, to) and channels past co are zero-filled
+    for (int c = warp; c < cs; c += K7F_WARPS) {
+      const bool live = c0 + c < a.co;
+      float* dst = smem + c * a.xrow;
+      for (int u = lane; u < window; u += 32) {
+        const unsigned v = u + r_first;
+        const int nl = (int)((v * ql_inv) >> 32);
+        const int q = q0 + (int)(v - nl * ql) - halo;
+        const bool valid = live && q >= 0 && q < a.to;
+        cp_async4(dst + u, valid ? a.dy + ((size_t)(n0 + nl) * a.co + c0 + c) * a.to + q : a.dy,
+                  valid);
+      }
+    }
+    // weights: one (channel step, tap) per warp, in fragment order
+    float* ws = smem + cs * a.xrow;
+    for (int ct = warp; ct < a.kslice * taps; ct += K7F_WARPS) {
+      const int c8 = ct / taps, j = p + s * (ct - c8 * taps);
+      for (int i = lane; i < NT * 64; i += 32) {
+        const int ni = i >> 6, l = (i >> 1) & 31;
+        const int ci = ci0 + ni * 8 + (l >> 2);
+        const int co = c0 + c8 * 8 + (l & 3) + 4 * (i & 1);
+        const bool valid = co < a.co && ci < a.ci;
+        cp_async4(ws + ct * NT * 64 + i, valid ? a.w + ((size_t)co * a.ci + ci) * a.k + j : a.w,
+                  valid);
+      }
+    }
+  };
+
+  float acc[K7F_MT][NT][4];
 #pragma unroll
   for (int mi = 0; mi < K7F_MT; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + (warp * K7F_MT + mi) * 16 + h * 8 + g;
-      if (m >= rows) continue;
-      const int n = m / a.to;
-      float* yr = a.out + (size_t)n * a.co * a.to + (m - n * a.to);
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int co = co0 + ni * 8 + 2 * tig;
-        if (co < a.co) yr[(size_t)co * a.to] = acc[mi][ni][2 * h];
-        if (co + 1 < a.co) yr[(size_t)(co + 1) * a.to] = acc[mi][ni][2 * h + 1];
-      }
-    }
-}
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-// dx. grid (ceil(batch / nb), ceil(ci / 16)).
-template <int K>
-__global__ void __launch_bounds__(K7_THREADS) k7_dx_kernel(const K7Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int k = K > 0 ? K : a.k;
-  const int kc = a.co * k;
-  const int ci0 = blockIdx.y * K7_CT;
-  const int b0 = blockIdx.x * a.nb;
-  const int nb = min(a.nb, a.batch - b0);
-  // ws[(co * k + j) * 16 + c] = w[co, ci0 + c, j]; ds[n][co][q] = dy[b0 + n, co, q]
-  const float4* ws = reinterpret_cast<const float4*>(smem);
-  float* ds = smem + kc * K7_CT;
-  for (int i = threadIdx.x; i < kc * K7_CT; i += blockDim.x) {
-    const int c = i % K7_CT, m = i / K7_CT;
-    const int co = m / k, j = m - co * k;
-    smem[i] = ci0 + c < a.ci ? a.w[((size_t)co * a.ci + ci0 + c) * k + j] : 0.f;
-  }
-  const int rows = a.co * a.to;
-  const float* dy = a.dy + (size_t)b0 * rows;
-  for (int i = threadIdx.x; i < nb * rows; i += blockDim.x) ds[i] = dy[i];
-  __syncthreads();
-  const int last = (a.to - 1) * a.stride;  // padded position of the last tap window
-  const int groups = min(K7_CT, a.ci - ci0 + 3) / 4;
-  const int tasks = groups * nb * a.t;
-  for (int task = threadIdx.x; task < tasks; task += blockDim.x) {
-    const int t = task % a.t;
-    const int n = (task / a.t) % nb;
-    const int g = task / (a.t * nb);
-    const int p = t + a.lo;  // position in the padded input
-    const int jmin = max(0, p - last);
-    const int jmax = min(k - 1, p);
-    const float* dr = ds + n * rows;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    // taps with p - j = q * stride, 0 <= q < to
-    for (int j = jmin + (p - jmin) % a.stride; j <= jmax; j += a.stride) {
-      const int q = (p - j) / a.stride;
-      const float4* wr = ws + j * (K7_CT / 4) + g;
-      for (int c = 0; c < a.co; ++c) fma4(acc, dr[c * a.to + q], wr[c * k * (K7_CT / 4)]);
+  const float2* wfrag = reinterpret_cast<const float2*>(smem + cs * a.xrow);
+  for (int sl = 0; sl < slices; ++sl) {
+    stage(sl);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int steps = min(a.kslice, (a.co - sl * cs + 7) / 8);  // the last slice may be short
+    for (int c8 = 0; c8 < steps; ++c8) {
+      const float* dc = smem + (c8 * 8 + tig) * a.xrow;
+      for (int i = 0; i < taps; ++i)
+        k7_mma_step<NT>(acc, dc, a.xrow, roff, halo - i, wfrag + (c8 * taps + i) * NT * 32 + lane);
     }
-    const int ci = ci0 + 4 * g;
-    store4(a.out + ((size_t)(b0 + n) * a.ci + ci) * a.t + t, a.t, a.ci - ci, acc);
+    __syncthreads();  // the slice is consumed before the next one lands
   }
+
+  // a phase with no taps stores its zeros
+  k7_store<NT>(acc, m0, rows, warp, g, tig, ci0, a.ci, a.t, [&](int m) {
+    const int n = m / prow;
+    return a.out + (size_t)n * a.ci * a.t + s * (q0 + m - n * prow) + p - a.lo;
+  });
 }
 
 // dw, first pass. grid (nchunks, ceil(tiles / 256)); a tile is 4 output
@@ -434,12 +519,21 @@ extern "C" int k7_fwd(const K7Args* a, void* stream) {
 }
 
 extern "C" int k7_dx(const K7Args* a, void* stream) {
-  const dim3 grid((a->batch + a->nb - 1) / a->nb, (a->ci + K7_CT - 1) / K7_CT);
-  switch (a->k) {
-    case 1: return launch<k7_dx_kernel<1>>(grid, K7_THREADS, a, stream);
-    case 3: return launch<k7_dx_kernel<3>>(grid, K7_THREADS, a, stream);
-    case 9: return launch<k7_dx_kernel<9>>(grid, K7_THREADS, a, stream);
-    default: return launch<k7_dx_kernel<0>>(grid, K7_THREADS, a, stream);
+  const int n8 = (a->ci + 7) / 8;
+  const dim3 grid((a->batch * a->to + K7F_ROWS - 1) / K7F_ROWS, (n8 + a->nt - 1) / a->nt,
+                  a->stride);
+  const int threads = K7F_WARPS * 32;
+  switch (a->nt) {
+    case 1: return launch<k7_dx_kernel<1>>(grid, threads, a, stream);
+    case 2: return launch<k7_dx_kernel<2>>(grid, threads, a, stream);
+    case 3: return launch<k7_dx_kernel<3>>(grid, threads, a, stream);
+    case 4: return launch<k7_dx_kernel<4>>(grid, threads, a, stream);
+    case 5: return launch<k7_dx_kernel<5>>(grid, threads, a, stream);
+    case 6: return launch<k7_dx_kernel<6>>(grid, threads, a, stream);
+    case 7: return launch<k7_dx_kernel<7>>(grid, threads, a, stream);
+    case 8: return launch<k7_dx_kernel<8>>(grid, threads, a, stream);
+    case 9: return launch<k7_dx_kernel<9>>(grid, threads, a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -3,8 +3,9 @@ decode -> augment -> MFCC or log-mel features [B, frames, C].
 
 Counterpart of tcresnet_tpu/ops/pallas/frontend.py, all three branches:
 the kernel is `csrc/frontend.cu`, in the DFT variant that
-`mfcc.resolve_dft_variant` gives (hops and phases, one entry point, as in
-K2 and K8; radix4 as in K9). K1's per-sample body (`augment.cuh`) writes
+`mfcc.kernel_variant` gives (hops and phases, one entry point, as in K2
+and K8; radix4 as in K9; a radix4 clip past K9's frames runs hops). K1's
+per-sample body (`augment.cuh`) writes
 the augmented samples (hops and phases: the sample span of a tile of the
 batch's frames, each utterance with its own draws; radix4: the row) into
 shared memory and the variant's stage (`dft_tc.cuh`, `radix4.cuh`) turns
@@ -15,7 +16,7 @@ Its plain version is K1's then the variant's MFCC plain version
 (`frontend_reference`); a wrapper takes it only for CPU tensors.
 
 `launches`, `phases_launches` and `radix4_launches` count launches by the
-resolved variant (hops, phases, radix4) and nothing else.
+stage that ran (hops, phases, radix4) and nothing else.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def frontend_fusable(dataset: torch.Tensor, aug_cfg: AugmentConfig,
                      n: int) -> bool:
     """Whether the single-kernel path applies: K1 takes the dataset and
     config, and the front-end kernels the feature geometry (MFCC or
-    log-mel, in the resolved DFT variant)."""
+    log-mel, in the stage `mfcc.kernel_variant` picks)."""
     return (aug.gather_fusable(dataset, aug_cfg, noise_bank, n)
             and mfcc.fused_mfcc_available(audio_cfg, n))
 
@@ -87,9 +88,9 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                       noise_bank: torch.Tensor, audio_cfg: AudioConfig, n: int,
                       quantize: bool = False) -> torch.Tensor:
     """[rows, S] int16 dataset + idx [B] int32 + the batch's draws ->
-    [B, frames, C] f32: K3 in the resolved DFT variant for CUDA tensors,
-    its plain version for CPU."""
-    variant = mfcc.resolve_dft_variant(audio_cfg, n)
+    [B, frames, C] f32: K3 in the stage of `mfcc.kernel_variant` for CUDA
+    tensors (hops for a radix4 clip past K9's frames), its plain version
+    (the resolved variant's) for CPU."""
     if dataset.device.type == "cpu":
         return frontend_reference(dataset, idx, scalars, noise_bank, audio_cfg, n, quantize)
     if dataset.device.type != "cuda":
@@ -100,6 +101,7 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                          f"({audio_cfg.preprocess_method}, window "
                          f"{audio_cfg.window_size_samples}, hop "
                          f"{audio_cfg.window_stride_samples})")
+    variant = mfcc.kernel_variant(audio_cfg, n)
     fe = mfcc.front_end(audio_cfg, n, dataset.device, variant)
     g = fe.geom
     out = torch.empty((idx.shape[0], g.frames, g.width), device=dataset.device,

@@ -42,12 +42,13 @@ H100. This module:
   "radix4", and `phases_reim`, the per-phase products of
   `mfcc_tail_phases`, for "phases";
 - dispatches (`fused_mfcc`, by `fused_mfcc_route`): a CPU tensor goes to
-  the plain version, a CUDA tensor to the variant's kernel, or where the
-  geometry cannot be split into hops to the plain feature of the same
-  method, as the JAX package falls back; anything else raises.
+  the plain version, a CUDA tensor to the kernel of `kernel_variant` (the
+  resolved variant's; K2's stage for a radix4 clip past K9's frames), or
+  where the geometry cannot be split into hops to the plain feature of the
+  same method, as the JAX package falls back; anything else raises.
 
 `launches`, `phases_launches` and `radix4_launches` count launches by the
-resolved variant (K2, K8, K9) and nothing else; `plain_routes` counts CUDA
+stage that ran (K2, K8, K9) and nothing else; `plain_routes` counts CUDA
 batches sent to the plain feature.
 """
 
@@ -516,15 +517,11 @@ def hop_decomposable(cfg: AudioConfig, n: int) -> bool:
             and window % hop == 0 and n % hop == 0 and n >= window)
 
 
-def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
-    """The JAX kernel's condition (`hop_decomposable`) and the kernels':
-    the common ones (`front_end_supported`); no mel weight on a row they
-    leave out; for hops and phases a tile that fits a block
-    (`tc_tile_plan`), for radix4 the frames of one product, the DCT staged
-    in its ring and its plan within a block."""
-    if not hop_decomposable(cfg, n) or not front_end_supported(cfg, n):
-        return False
-    variant = resolve_dft_variant(cfg, n)
+def _stage_serves(cfg: AudioConfig, n: int, variant: str) -> bool:
+    """Whether the stage of `variant` serves the geometry: for hops and
+    phases a tile that fits a block (`tc_tile_plan`), for radix4 the frames
+    of one product, the DCT staged in its ring and its plan within a
+    block; no mel weight on a row they leave out."""
     g = front_end_geometry(cfg, n)
     try:
         if variant != "radix4":
@@ -537,15 +534,37 @@ def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
             and smem_plan(g, variant) is not None and smem_bytes(g, variant, nnz) <= SMEM_LIMIT)
 
 
+def kernel_variant(cfg: AudioConfig, n: int) -> str:
+    """The stage a CUDA batch of cfg's geometry runs: the resolved variant
+    (`resolve_dft_variant`), except a radix4 clip K9 does not serve (more
+    frames than its largest product, R4_PRODUCT_ROWS, or a plan past a
+    block's shared memory), which runs K2's stage ("hops"): the same
+    function, for any frame count. A pure function of the geometry; the
+    CPU's plain version stays the resolved variant's."""
+    variant = resolve_dft_variant(cfg, n)
+    if variant == "radix4" and not _stage_serves(cfg, n, variant):
+        return "hops"
+    return variant
+
+
+def fused_mfcc_available(cfg: AudioConfig, n: int) -> bool:
+    """The JAX kernel's condition (`hop_decomposable`) and the kernels':
+    the common ones (`front_end_supported`) and those of the stage
+    `kernel_variant` picks (`_stage_serves`)."""
+    if not hop_decomposable(cfg, n) or not front_end_supported(cfg, n):
+        return False
+    return _stage_serves(cfg, n, kernel_variant(cfg, n))
+
+
 def fused_mfcc_route(cfg: AudioConfig, n: int, device_type: str) -> str:
     """Where `fused_mfcc` sends a [B, n] batch on a device of `device_type`:
     "reference" for a CPU tensor (the resolved variant's plain version);
     for a CUDA tensor "plain" where the JAX package falls back too (not
     `hop_decomposable`: `plain_feature`, counted in `plain_routes`), else
-    "kernel". A CUDA geometry the JAX kernel takes but no kernel here
-    serves (`fused_mfcc_available`; e.g. a radix4 clip of more frames than
-    K9's largest product) raises ValueError, as any other device type
-    does: it is never sent to the plain feature."""
+    "kernel", the stage of `kernel_variant`. A CUDA geometry the JAX
+    kernel takes but no stage here serves (`fused_mfcc_available`) raises
+    ValueError, as any other device type does: it is never sent to the
+    plain feature."""
     if device_type == "cpu":
         return "reference"
     if device_type != "cuda":
@@ -773,20 +792,22 @@ def fused_mfcc_reference(wavs: torch.Tensor, cfg: AudioConfig,
 
 def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """[B, n] f32 wavs -> [B, frames, C] MFCC or log-mel, by
-    `fused_mfcc_route`: the resolved variant's kernel (K2, K8 or K9) for a
-    CUDA tensor, or the plain feature where the JAX package falls back too;
-    the variant's plain version for a CPU tensor; an error otherwise."""
+    `fused_mfcc_route`: for a CUDA tensor the kernel of `kernel_variant`
+    (K2, K8 or K9; K2 for a radix4 clip past K9's frames), counted by the
+    stage that ran, or the plain feature where the JAX package falls back
+    too; the resolved variant's plain version for a CPU tensor; an error
+    otherwise."""
     global plain_routes
     if wavs.dim() != 2:
         raise ValueError(f"wavs must be [B, n], got {list(wavs.shape)}")
     n = wavs.shape[1]
-    variant = resolve_dft_variant(cfg, n)
     route = fused_mfcc_route(cfg, n, wavs.device.type)
     if route == "reference":
-        return fused_mfcc_reference(wavs, cfg, variant)
+        return fused_mfcc_reference(wavs, cfg)
     if route == "plain":
         plain_routes += 1
         return plain_feature(wavs, cfg)
+    variant = kernel_variant(cfg, n)
     if wavs.dtype != torch.float32:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
     if not wavs.is_contiguous():

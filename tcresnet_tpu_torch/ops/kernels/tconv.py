@@ -11,6 +11,9 @@ says what bounds them on the H100); this module holds:
   and `tconv_dw_reference`: tap sums over shifted, stride-decimated
   slices (the formulation of `ops/kernels/infer.py::_conv_step`), never
   `F.conv1d`, so they hold the kernels to the math and not to cuDNN;
+- the kernels' host plans, pure functions of the shapes: `_fwd_plan`,
+  `_dx_plan` (with `dx_phases`, the stride phases dx computes one grid
+  slice each) and `_dw_plan`;
 - the dispatching wrappers `tconv_fwd`, `tconv_dx`, `tconv_dw`: a CPU
   tensor goes to the plain version, a CUDA tensor to the kernel, anything
   else raises;
@@ -48,15 +51,14 @@ fwd_launches = 0
 dx_launches = 0
 dw_launches = 0
 
-# Shared memory a dx / dw block stages its samples' rows in (floats): 48 KB.
+# Shared memory a dw block stages its samples' rows in (floats): 48 KB.
 _STAGE_FLOATS = 12288
-_CT = 16  # input channels per dx block (K7_CT in csrc/tconv.cu)
 _THREADS = 256
 # dw aims at this many blocks (two per SM of the H100's 132)
 _DW_BLOCKS = 264
-# fwd: output rows (sample, position) per block (K7F_ROWS), n8 tiles of
-# output channels per block at most (its template widths 1-9), k8 steps a
-# slice of input channels aims at, and the shared memory a block may use
+# fwd and dx: output rows (sample, position) per block (K7F_ROWS), n8 tiles
+# of output channels per block at most (the template widths 1-9), k8 steps
+# a slice of channels aims at, and the shared memory a block may use
 _FWD_ROWS = 128
 _FWD_MAX_NT = 9
 _FWD_SLICE_STEPS = 18
@@ -87,6 +89,21 @@ class FwdPlan(NamedTuple):
     nb: int
     ql: int
     slot_len: int
+    xrow: int
+    kslice: int
+    slices: int
+    smem_bytes: int
+
+
+class DxPlan(NamedTuple):
+    """How `k7_dx_kernel` cuts one conv: n8 tiles of input channels per
+    block, the grid (row blocks, channel blocks, stride phases), floats
+    between two output channels' staged dy rows (8 mod 16), output-channel
+    steps of 8 per slice, slices, shared memory bytes. The kernel derives
+    each phase's rows from the shapes (`dx_phases`)."""
+
+    nt: int
+    grid: Tuple[int, int, int]
     xrow: int
     kslice: int
     slices: int
@@ -190,6 +207,17 @@ def _args(batch, ci, co, k, stride, t, **ptrs) -> _K7Args:
     return a
 
 
+def _slice(c8: int, taps: int, xrow: int, nt: int, what: str) -> Tuple[int, int]:
+    """(kslice, smem bytes) of a fwd or dx block: the most channel steps of
+    8 a slice takes (about _FWD_SLICE_STEPS k8 steps with its taps) whose
+    staged rows and weights fit a block's shared memory."""
+    for kslice in range(max(1, min(c8, _FWD_SLICE_STEPS // taps)), 0, -1):
+        smem = 4 * (8 * kslice * xrow + taps * kslice * nt * 64)
+        if smem <= _SMEM_LIMIT:
+            return kslice, smem
+    raise ValueError(f"{what} stages more than {_SMEM_LIMIT} bytes of shared memory")
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> FwdPlan:
     """The fwd kernel's cut of a conv, a pure function of the shapes. A
@@ -208,13 +236,8 @@ def _fwd_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> FwdP
     gx, n8 = -(-batch * to // _FWD_ROWS), -(-co // 8)
     nt = min(n8, _FWD_MAX_NT)
     c8 = -(-ci // 8)
-    for kslice in range(max(1, min(c8, _FWD_SLICE_STEPS // k)), 0, -1):
-        slices = -(-c8 // kslice)
-        smem = 4 * (8 * kslice * xrow + k * kslice * nt * 64)
-        if smem <= _SMEM_LIMIT:
-            return FwdPlan(nt, (gx, -(-n8 // nt)), nb, ql, slot_len, xrow, kslice, slices, smem)
-    raise ValueError(f"k7_fwd: a k={k} stride-{stride} conv over {t} rows stages more than "
-                     f"{_SMEM_LIMIT} bytes of shared memory")
+    kslice, smem = _slice(c8, k, xrow, nt, f"k7_fwd: a k={k} stride-{stride} conv over {t} rows")
+    return FwdPlan(nt, (gx, -(-n8 // nt)), nb, ql, slot_len, xrow, kslice, -(-c8 // kslice), smem)
 
 
 def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -233,15 +256,55 @@ def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return y
 
 
+def dx_phases(t: int, k: int, stride: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Per stride phase p of dx (the rows t with (t + lo) % stride == p):
+    (q0, rows, taps), the first q of its rows t = stride * (q0 + r) + p - lo,
+    its rows per sample and its taps j = p + stride * i, as `k7_dx_kernel`
+    computes them."""
+    _, lo, _ = same_padding(t, k, stride)
+    out = []
+    for p in range(stride):
+        taps = -(-(k - p) // stride) if p < k else 0
+        q0 = max(0, lo - p + stride - 1) // stride
+        last = t - 1 + lo - p
+        out.append((q0, 0 if last < 0 else max(0, last // stride - q0 + 1), taps))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _dx_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> DxPlan:
+    """The dx kernel's cut of a conv, a pure function of the shapes. Phase
+    p's rows m = n * rows + r, 128 a block, span at most nb samples; a block
+    stages, per output channel, the dy slots its rows read (128 rows plus
+    each sample's halo of taps - 1), for 8 * kslice channels at a time with
+    the phase's taps of w^T for its nt * 8 input channels. The row stride
+    fits the widest phase, the weights its most taps."""
+    to, _, _ = same_padding(t, k, stride)
+    phases = dx_phases(t, k, stride)
+    window = 0
+    for _, rows, taps in phases:
+        if rows and taps:
+            nb = min(batch, (_FWD_ROWS + rows - 2) // rows + 1)
+            window = max(window, min(_FWD_ROWS + nb * (taps - 1), nb * (rows + taps - 1)))
+    taps = max(tp for _, _, tp in phases)
+    xrow = window + (8 - window) % 16
+    n8 = -(-ci // 8)
+    nt = min(n8, _FWD_MAX_NT)
+    c8 = -(-co // 8)
+    kslice, smem = _slice(c8, taps, xrow, nt, f"k7_dx: a k={k} stride-{stride} conv over {t} rows")
+    return DxPlan(nt, (-(-batch * to // _FWD_ROWS), -(-n8 // nt), stride), xrow, kslice,
+                  -(-c8 // kslice), smem)
+
+
 def _kernel_dx(dy: torch.Tensor, w: torch.Tensor, t: int, stride: int) -> torch.Tensor:
     global dx_launches
-    (b, co, to), (_, ci, k) = dy.shape, w.shape
+    (b, co, _), (_, ci, k) = dy.shape, w.shape
     dx = torch.empty((b, ci, t), device=dy.device, dtype=torch.float32)
     if b == 0:
         return dx
-    nb = max(1, min(b, _STAGE_FLOATS // (co * to)))
+    p = _dx_plan(b, ci, co, k, t, stride)
     a = _args(b, ci, co, k, stride, t, w=w.data_ptr(), dy=dy.data_ptr(), out=dx.data_ptr(),
-              nb=nb, smem_bytes=4 * (co * k * _CT + nb * co * to))
+              smem_bytes=p.smem_bytes, xrow=p.xrow, kslice=p.kslice, nt=p.nt)
     _build.launch(_library(), "k7_dx", "k7_error_string", a, dy.device)
     dx_launches += 1
     return dx

@@ -199,13 +199,16 @@ def test_new_kernels_check_their_input(cuda_device):
     torch.cuda.synchronize()
     assert (k2.launches, k2.plain_routes) == (before[0], before[1] + 1)
     torch.testing.assert_close(got, dsp.mfcc(wavs, cfg), atol=1e-5, rtol=0)
-    # one the JAX kernel takes but no kernel here serves (radix4, 254
-    # frames) raises and is not sent to the plain feature
+    # a radix4 clip past K9's frames (254) runs K2's stage, not the plain
+    # feature
     cfg = dataclasses.replace(AudioConfig(), dft_variant="radix4", clip_duration_ms=2560)
-    before = (k2.radix4_launches, k2.plain_routes)
-    with pytest.raises(ValueError, match="no front-end kernel serves"):
-        k2.fused_mfcc(_wavs(1, 40960, cuda_device), cfg)
-    assert (k2.radix4_launches, k2.plain_routes) == before
+    wavs = _wavs(2, 40960, cuda_device)
+    before = (k2.launches, k2.radix4_launches, k2.plain_routes)
+    got = k2.fused_mfcc(wavs, cfg)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.radix4_launches, k2.plain_routes) == (before[0] + 1, *before[1:])
+    torch.testing.assert_close(got, k2.fused_mfcc_reference(wavs, cfg, "radix4"),
+                               atol=FEATURE_ATOL, rtol=0)
     with pytest.raises(ValueError):
         k3.frontend_features(data, idx, scalars._replace(vols=scalars.vols.double()), noise,
                              AudioConfig(clip_duration_ms=160), 2560)
@@ -365,7 +368,7 @@ def test_tconv_kernels_match_plain(cuda_device, k, stride, ci, co, t):
     """K7 fwd, dx and dw against the plain versions at batch 1, 8 and 1536:
     fwd and dx within the CPU test's tolerances (f32 sums in another
     order); dw, up to 150,528 products per entry summed in another order,
-    within 1e-5 of max|dw|; fwd and dw give the same bits twice."""
+    within 1e-5 of max|dw|; fwd, dx and dw give the same bits twice."""
     gen = torch.Generator(device=cuda_device).manual_seed(k * 100 + ci)
     to = -(-t // stride)
     for b in (1, 8, 1536):
@@ -374,15 +377,16 @@ def test_tconv_kernels_match_plain(cuda_device, k, stride, ci, co, t):
         dy = torch.randn(b, co, to, device=cuda_device, generator=gen)
         before = (k7.fwd_launches, k7.dx_launches, k7.dw_launches)
         y, y2 = k7.tconv_fwd(x, w, stride), k7.tconv_fwd(x, w, stride)
-        dx = k7.tconv_dx(dy, w, t, stride)
+        dx, dx2 = k7.tconv_dx(dy, w, t, stride), k7.tconv_dx(dy, w, t, stride)
         dw, dw2 = k7.tconv_dw(x, dy, k, stride), k7.tconv_dw(x, dy, k, stride)
         torch.cuda.synchronize()
         assert (k7.fwd_launches, k7.dx_launches, k7.dw_launches) == (
-            before[0] + 2, before[1] + 1, before[2] + 2)
+            before[0] + 2, before[1] + 2, before[2] + 2)
         torch.testing.assert_close(y, k7.tconv_fwd_reference(x, w, stride), atol=1e-5, rtol=1e-5)
         assert torch.equal(y, y2)
         torch.testing.assert_close(dx, k7.tconv_dx_reference(dy, w, t, stride),
                                    atol=2e-4, rtol=1e-4)
+        assert torch.equal(dx, dx2)
         want = k7.tconv_dw_reference(x, dy, k, stride)
         assert (dw - want).abs().max().item() <= 1e-5 * want.abs().max().item()
         assert torch.equal(dw, dw2)

@@ -219,12 +219,14 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     assert mfcc.smem_bytes(g, "radix4", nnz) == 4 * sum(plan.values()) <= mfcc.SMEM_LIMIT
     for variant in ("hops", "phases", "radix4"):
         assert mfcc.fused_mfcc_available(dataclasses.replace(cfg, dft_variant=variant), 16000)
-    # a clip whose frames exceed the largest product has no radix4 plan
+    # a clip whose frames exceed the largest product has no radix4 plan:
+    # it runs K2's stage, whose plan does not grow with the clip
     long = mfcc.front_end_geometry(cfg, 40960)
     assert long.frames > 112 and mfcc.smem_plan(long, "radix4") is None
     long_cfg = dataclasses.replace(cfg, dft_variant="radix4")
     assert mfcc.resolve_dft_variant(long_cfg, long.n) == "radix4"
-    assert not mfcc.fused_mfcc_available(long_cfg, long.n)
+    assert mfcc.kernel_variant(long_cfg, long.n) == "hops"
+    assert mfcc.fused_mfcc_available(long_cfg, long.n)
     # K8's constant (K2's too) is the live rows of every W_p (the rows at
     # o_p), with the interleave keeping (re_k, im_k) next to each other, its
     # first fft / 2 bins; its mel is the runs of nonzero weights over those

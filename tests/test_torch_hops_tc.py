@@ -6,8 +6,9 @@ sample staging and A addressing where the hop is no multiple of 32
 constant's rows past the hop are zero), an
 emulation of its 3xTF32 order held to a float64 MFCC and to the JAX
 Pallas kernel `_kernel` (hops) in interpret mode, the route `fused_mfcc`
-takes for a CUDA geometry no kernel serves (the JAX package's fallback),
-and that the stage serves every geometry the FP32 design served."""
+takes for a CUDA geometry no kernel serves (the JAX package's fallback)
+and for a radix4 clip past K9's frames (K2's stage), and that the stage
+serves every geometry the FP32 design served."""
 
 import dataclasses
 import itertools
@@ -191,22 +192,39 @@ def test_route_of_a_geometry_no_kernel_serves(method):
 
 
 @pytest.mark.parametrize("method", ["mfcc", "log_mel_spectrogram"])
-def test_route_of_a_geometry_jax_serves_and_no_kernel_does(method):
+def test_route_of_a_radix4_clip_past_k9_runs_k2_stage(method):
     """A 2.56 s clip at 480/160 with dft_variant="radix4": hop-decomposable,
     so the JAX package runs its radix4 kernel, but its 254 frames exceed
-    K9's largest product. The plain feature is only the JAX package's own
-    fallback, so a CUDA batch raises here (and a CPU batch still takes the
-    plain version); a geometry that is not hop-decomposable is the one
-    that goes to the plain feature."""
+    K9's largest product. A CUDA batch runs K2's stage (the "hops" kernel,
+    `k2_mfcc`, counted in `launches`), chosen from the geometry alone; the
+    hops plain version is within the K9 gate of JAX's radix4 kernel; a CPU
+    batch still takes the radix4 plain version; a geometry that is not
+    hop-decomposable is the one that goes to the plain feature."""
     n = 40960
     cfg = dataclasses.replace(AudioConfig(), preprocess_method=method, dft_variant="radix4",
                               clip_duration_ms=n // 16)
     assert jmfcc.fused_mfcc_available(to_jax_config(cfg), n)
     assert jmfcc.resolve_dft_variant(to_jax_config(cfg), n) == "radix4"
-    assert mfcc.hop_decomposable(cfg, n) and not mfcc.fused_mfcc_available(cfg, n)
-    with pytest.raises(ValueError, match="no front-end kernel serves this geometry"):
-        mfcc.fused_mfcc_route(cfg, n, "cuda")
+    assert mfcc.resolve_dft_variant(cfg, n) == "radix4"
+    assert mfcc.front_end_geometry(cfg, n).frames == 254 > mfcc.R4_PRODUCT_ROWS[-1]
+    assert mfcc.radix4_product_rows(254) is None
+    assert mfcc.hop_decomposable(cfg, n) and mfcc.fused_mfcc_available(cfg, n)
+    assert mfcc.kernel_variant(cfg, n) == "hops"
+    assert mfcc.ENTRIES["hops"] == "k2_mfcc" and mfcc._COUNTERS["hops"] == "launches"
+    assert mfcc.fused_mfcc_route(cfg, n, "cuda") == "kernel"
     assert mfcc.fused_mfcc_route(cfg, n, "cpu") == "reference"
+    # a 1 s clip of the same config stays on K9
+    assert mfcc.kernel_variant(dataclasses.replace(cfg, clip_duration_ms=1000), 16000) == "radix4"
+
+    wavs = np.random.default_rng(12).uniform(-1, 1, (2, n)).astype(np.float32)
+    want = np.asarray(jmfcc.fused_mfcc(jnp.asarray(wavs), to_jax_config(cfg), interpret=True,
+                                       variant="radix4"))
+    hops = mfcc.fused_mfcc_reference(torch.tensor(wavs), cfg, "hops").numpy()
+    assert hops.shape == want.shape == (2, 254, dsp.feature_width(cfg))
+    np.testing.assert_allclose(hops, want, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(mfcc.fused_mfcc(torch.tensor(wavs), cfg).numpy(),
+                                  mfcc.fused_mfcc_reference(torch.tensor(wavs), cfg,
+                                                            "radix4").numpy())
     for window_ms, hop_ms, clip in ((25.0, 10.0, n), (30.0, 10.0, 400), (30.0, 10.0, n + 80)):
         other = dataclasses.replace(cfg, window_size_ms=window_ms, window_stride_ms=hop_ms)
         assert not mfcc.hop_decomposable(other, clip)
