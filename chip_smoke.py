@@ -10,9 +10,14 @@ print their lines:
 
   1. device   the card, as nvidia-smi reports its name and power limit
   2. build    every kernel source built with nvcc, one process each, all
-              started together; K4's line (csrc/infer.cu)
+              started together; the ptxas line of each K4 instantiation
+              (csrc/infer.cu: K2's stage in its 16-, 64- and 128-row
+              tiles, then the conv stack), none of which may spill
   3. kernel   K4 against its plain PyTorch version on the card (TF32 off),
-              three models x batch 1, 3, 8, 64
+              TCResNet8-1.0, TCResNet14-1.5, log-mel and the bf16 DFT x
+              batch 1, 3, 8, 64, 256, 1024 (every tile size of K2's stage);
+              two calls equal bit for bit, and one utterance's batch-1
+              logits equal to its row of the 1024 batch bit for bit
   4. golden   K4's softmax against the JAX package's, stored in
               tcresnet_tpu_torch/testdata/tcresnet8_golden.npz
   5. serve    build_inference_fn(backend="auto"): 20 single-utterance
@@ -22,7 +27,13 @@ print their lines:
   6. times    kernel and plain path at batch 1 and 1024, host clock and
               CUDA events, beside the card's name and power limit; K4 and
               the `xla` model (wav -> softmax, TF32 off, as a CUDA graph) on
-              one clock behind a device sleep, K4's bound at both batches
+              one clock behind a device sleep at batch 1, 8, 32, 64, 256
+              and 1024 (tcresnet_tpu_torch/tools/infer_times.py), K4's two
+              paths forced beside (the conv stacks in the stage's blocks,
+              and in a kernel of their own), the batch from which the
+              graph is faster, K4's bound at each batch (the DFT at the
+              3xTF32 rate), the FP32 design's times beside (quoted,
+              FP32_K4_MS)
   7. build    the training slice's kernels: augment.cu (K1, K6), mfcc.cu
               (K2), frontend.cu (K3), with their ptxas lines
   8. augment  K1 and K6 against their plain version on the 24,100 x 16,000
@@ -173,6 +184,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tcresnet_tpu_torch.tools.frontend_times import graph_of, hops_times, queued_ms  # noqa: E402
+from tcresnet_tpu_torch.tools.infer_times import crossover, k4_times  # noqa: E402
 from tcresnet_tpu_torch.tools.tconv_times import conv_cases, conv_geometries, conv_ops  # noqa: E402
 from tcresnet_tpu_torch.tools.tconv_times import k7_times  # noqa: E402
 
@@ -252,6 +264,11 @@ FP32_K7_DX_MS = 0.9222
 # run's times, never in the kernels summary
 FP32_HOPS_MS = {"480/160": (3.2100, 3.2153, 0.2538), "640/320": (4.4008, 4.3727, 0.3503),
                 "400/200": (2.5914, 2.5948, 0.2029), "320/160": (2.7965, 2.7985, 0.2194)}
+# K4's earlier design (one block per utterance, its front end on FP32 FMA)
+# serving TCResNet8-1.0 wav -> logits, behind a device sleep as phase 6
+# times it (ms at batch 1 and 1024; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md): printed beside this run's times, never in the kernels summary
+FP32_K4_MS = {1: 0.3283, 1024: 2.7409}
 # the spill stores ptxas reports for K9's 112-row product (mfcc.cu,
 # frontend.cu) since it shares dft_tc.cuh's tc_mma: phase 21 fails if they
 # grow
@@ -274,16 +291,6 @@ def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def front_end_macs(audio) -> int:
-    """Multiply-adds of the front end for one clip: the windowed real DFT,
-    the mel matrix and, for MFCC, the DCT."""
-    from tcresnet_tpu_torch.ops.kernels import mfcc
-
-    g = mfcc.front_end_geometry(audio, audio.desired_samples)
-    dct = 0 if g.magnitude else g.frames * g.num_mel * g.width
-    return g.frames * (g.window * 2 * g.num_bins + g.num_bins * g.num_mel) + dct
 
 
 def enqueue_us(fn, runs: int = 50) -> float:
@@ -328,7 +335,8 @@ def ptxas_line(name: str) -> str:
 
     log = _build.library_path(name).with_suffix(".log")
     variants = {"frames_kernel": "hops+phases", "k3_frames_kernel": "hops+phases",
-                "k9_kernel": "radix4", "k3_radix4_kernel": "radix4"}
+                "k9_kernel": "radix4", "k3_radix4_kernel": "radix4", "k4_kernel": "k4",
+                "k4_conv_kernel": "k4 convs"}
     entry, parts = "", []
     for line in log.read_text().splitlines() if log.exists() else []:
         fn = re.search(r"_Z(\d+)(\w+)", line)
@@ -378,7 +386,15 @@ def main() -> int:
     _build.build_all(SOURCES)
     k4.build_kernels()
     build_s = time.perf_counter() - t0
-    print(f"[build] infer.cu for sm_90a in {build_s:.1f} s | {ptxas_line('infer')}")
+    line = ptxas_line("infer")
+    print(f"[build] infer.cu for sm_90a in {build_s:.1f} s | {line}")
+    tiles = [(int(r), int(b)) for r, b in re.findall(
+        r"k4 (\d+)-row: \d+ bytes stack frame, (\d+) bytes spill stores", line)]
+    convs = re.findall(r"k4 convs: \d+ bytes stack frame, (\d+) bytes spill stores", line)
+    check(sorted({r for r, _ in tiles}) == [16, 64, 128] and all(b == 0 for _, b in tiles)
+          and convs == ["0"],
+          f"infer.cu: K4's instantiations missing from the ptxas line or spilling: {tiles}, "
+          f"conv kernel {convs}")
 
     def variables_for(cfg, seed):
         v = variables_from_jax(cfg.model,
@@ -398,12 +414,18 @@ def main() -> int:
         v = variables_for(cfg, seed=0)
         plan = k4.build_fused_infer(cfg.model, cfg.audio, v["params"], v["batch_stats"], device=dev)
         errs = []
-        for batch in (1, 3, 8, 64):
+        for batch in (1, 3, 8, 64, 256, 1024):
             wavs = torch.tensor(seeded_wavs(100 + batch, batch, cfg.audio.desired_samples), device=dev)
             before = k4.launches
             got = k4.fused_infer(wavs, plan)
+            again = k4.fused_infer(wavs, plan)
             torch.cuda.synchronize()
-            check(k4.launches == before + 1, f"{label} B={batch}: kernel not launched")
+            check(k4.launches == before + 2, f"{label} B={batch}: kernel not launched")
+            check(torch.equal(got, again), f"{label} B={batch}: two calls differ")
+            plan.force_two_kernels = not plan.two_kernels(batch)  # the other path: the same bits
+            other = k4.fused_infer(wavs, plan)
+            plan.force_two_kernels = None
+            check(torch.equal(got, other), f"{label} B={batch}: K4's two paths differ")
             want = k4.fused_infer_reference(wavs, plan)
             check(got.shape == want.shape == (batch, cfg.model.num_classes), f"{label}: shape")
             check(bool(torch.isfinite(got).all()), f"{label} B={batch}: non-finite logits")
@@ -419,7 +441,16 @@ def main() -> int:
                 check(sm_err <= SOFTMAX_ATOL, f"{label} B={batch}: softmax differs by {sm_err}")
                 max_err = max(max_err, err)
             errs.append(f"B={batch} {err:.2e}/{sm_err:.2e}")
-        print(f"[kernel] {label}: max |logit| / |softmax| err vs plain: " + ", ".join(errs))
+        # one utterance alone against its row of the 1024 batch (the last `wavs`)
+        rows = (0, 1, 97, 500, 1023)
+        alone = torch.cat([k4.fused_infer(wavs[r:r + 1].contiguous(), plan) for r in rows])
+        check(torch.equal(alone, got[list(rows)]),
+              f"{label}: batch-1 logits differ from their rows of the 1024 batch")
+        check(not plan.count.any() and not plan.done.any(), f"{label}: a counter is not 0")
+        print(f"[kernel] {label}: max |logit| / |softmax| err vs plain: " + ", ".join(errs)
+              + "; two calls and the two paths (conv stacks in the stage's blocks, and in a "
+              f"kernel of their own) bit-equal at every batch; rows {rows} alone equal to "
+              "their rows of B=1024 bit for bit")
 
     # ---- 4. against the JAX reference ----
     golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -482,39 +513,55 @@ def main() -> int:
                   f"device median {devt['median']:.1f} us (min {devt['min']:.1f}, max {devt['max']:.1f}) | "
                   f"{devt['median'] / batch:.3f} us/utt | {card}")
 
-    # K4's bound at batch 1: the front end, the convs' taps that meet the map
-    # and the fc; the wav, the constants and the logits
+    # K4's bound: the front end's DFT at the 3xTF32 rate (window x fft a
+    # frame, its products on the tensor cores), its mel (the nonzero
+    # weights) and DCT, the convs' taps that meet the map and the fc at the
+    # FP32 rate; the wav, the constants and the logits at HBM's rate
     from tcresnet_tpu_torch.models.layers import same_padding
     from tcresnet_tpu_torch.ops.kernels.infer2d import valid_taps
 
-    macs = front_end_macs(flagship.audio) + flagship.model.num_classes * 48
-    for k, s, ci, co, t in conv_geometries(flagship.model, 98, 40):
-        to, lo, _ = same_padding(t, k, s)
-        macs += valid_taps(to, t, k, s, lo) * ci * co
-    consts = sum(a.numel() for a in (plan8.wts, plan8.fc, plan8.dft, plan8.mel, plan8.dct))
-    k4_bound = {b: bound(2 * b * macs, 4 * (b * n + consts + b * flagship.model.num_classes))
-                for b in (1, 1024)}
+    g = plan8.geom.fe
+    dft_macs = g.frames * g.window * g.fft_length
+    fp32_macs = (variant_macs(flagship.audio, "hops") - dft_macs
+                 + flagship.model.num_classes * 48)
+    for k, stride, ci, co, t in conv_geometries(flagship.model, g.frames, g.width):
+        to, lo, _ = same_padding(t, k, stride)
+        fp32_macs += valid_taps(to, t, k, stride, lo) * ci * co
+    fe8 = plan8.fe
+    consts = sum(a.numel() for a in (plan8.wts, plan8.fc, fe8.dft, fe8.mel, fe8.dct, fe8.runs))
+
+    def k4_bound(b: int) -> dict:
+        t_ops = 2 * b * (dft_macs / TF32X3_FLOPS + fp32_macs / FP32_FLOPS)
+        t_bytes = 4 * (b * n + consts + b * flagship.model.num_classes) / HBM_BYTES_PER_S
+        return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
     # the library yardstick: the `xla` model (wav -> softmax, TF32 off) as
     # a CUDA graph, so that its launches do not pace the reading, and K4 on
-    # the same clock, behind a device sleep
+    # the same clock, behind a device sleep (tools/infer_times.py)
+    k4_batches = (1, 8, 32, 64, 256, 1024)
+    k4_t = k4_times(dev, k4_batches, paths=True)
     k4_lib = {}
-    for batch in (1, 1024):
-        x = torch.tensor(seeded_wavs(3000 + batch, batch, n), device=dev)
-        with torch.no_grad():
-            replay, graph_out = graph_of(lambda: ref(x))
-            replay()
-            torch.cuda.synchronize()
-            check(torch.allclose(graph_out, ref(x), atol=1e-6, rtol=0),
-                  f"K4 B={batch}: the xla graph differs from the call")
-            (a, a_full), (c, c_full), (d, d_full) = (queued_ms(fn) for fn in (
-                lambda: k4.fused_infer(x, plan8), replay, lambda: k4.fused_infer(x, plan8)))
-        check(a_full and c_full and d_full, f"K4 B={batch}: a K4 or xla time is host-paced")
-        k4_lib[batch] = dict(ms=min(a, d), library_ms=c)
+    for batch in k4_batches:
+        t = k4_t[batch]
+        (a, d), c = t["k4"], t["xla"]
+        check(t["queue_full"], f"K4 B={batch}: a K4 or xla time is host-paced")
+        k4_lib[batch] = dict(ms=min(a, d), library_ms=c, **k4_bound(batch))
+        bnd = k4_lib[batch]
+        old = f"; the FP32 design (quoted, not this run): {FP32_K4_MS[batch]} ms" if (
+            batch in FP32_K4_MS) else ""
         print(f"[times] K4 B={batch}: kernel {a:.4f} / {d:.4f} ms, the xla model wav -> softmax "
               f"(TF32 off) as a CUDA graph {c:.4f} ms (device, mean of 20 behind a device "
-              f"sleep; order kernel, xla, kernel); bound {k4_bound[batch]['bound_ms']:.4f} ms "
-              f"({k4_bound[batch]['bound_by']}) | {card}")
+              f"sleep; order kernel, xla, kernel); the graph takes {c / min(a, d):.2f}x K4's "
+              f"time; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, DFT at 3xTF32, "
+              f"{bnd['bound_ms'] / min(a, d):.1%} of it); K4's paths forced, conv stacks in "
+              f"the stage's blocks {t['fused'][0]:.4f} / {t['fused'][1]:.4f} ms, in a kernel "
+              f"of their own {t['two_kernels'][0]:.4f} / {t['two_kernels'][1]:.4f} ms (order "
+              f"fused, two, two, fused; the rule takes "
+              f"{'two kernels' if plan8.two_kernels(batch) else 'the fused path'}){old} | {card}")
+    print(f"[times] K4 against the xla graph: the graph is faster from batch "
+          f"{crossover(k4_t)} on (None: K4 is faster at every batch timed, "
+          f"{', '.join(map(str, k4_batches))}) | {card}")
 
     train_kernels, ds = training_phases(dev, card)
     tconv_kernels = tconv_phases(dev, card, ds)
@@ -534,15 +581,17 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times[("kernel", 1)] / 1e3,
         "plain_ms": times[("kernel_plain_version", 1)] / 1e3,
-        **k4_bound[1],
+        "bound_ms": k4_lib[1]["bound_ms"],
+        "bound_by": k4_lib[1]["bound_by"],
         "library_ms": k4_lib[1]["library_ms"],
         "ms_queued": k4_lib[1]["ms"],
         "ms_b1024": times[("kernel", 1024)] / 1e3,
         "plain_ms_b1024": times[("kernel_plain_version", 1024)] / 1e3,
-        "bound_ms_b1024": k4_bound[1024]["bound_ms"],
-        "bound_by_b1024": k4_bound[1024]["bound_by"],
+        "bound_ms_b1024": k4_lib[1024]["bound_ms"],
+        "bound_by_b1024": k4_lib[1024]["bound_by"],
         "library_ms_b1024": k4_lib[1024]["library_ms"],
         "ms_queued_b1024": k4_lib[1024]["ms"],
+        "crossover_batch": crossover(k4_t),
     }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,8 @@
 //    so the phase-grouped DFT is frame @ W too, W's zero rows adding exact
 //    zeros (tests/test_torch_k8_tc.py checks this at every geometry the
 //    plan covers).
+//  - K4's front end (infer.cu), the hops DFT of the JAX whole-model kernel,
+//    in its own kernel, so that its conv stacks follow in the same call.
 // On Hopper nothing ties a product tile to a hop or a phase:
 //
 //  - Rows: (utterance, frame) flattened into batch x frames rows; a block
@@ -357,6 +359,26 @@ __device__ __forceinline__ void tc_stage(const FeArgs& a, const FeVariant& v, co
   }
 }
 
+// K2, K8 and K4: the tile's samples of wavs [batch, n] staged by tc_stage
+// with cp.async (16-byte aligned: n and hop are multiples of 4), rounded to
+// bf16 in place for dsp_matmul_dtype="bfloat16" (the DFT's A operand, as
+// fe_sample does); the copies are committed only when rounding
+__device__ __forceinline__ void tc_stage_wavs(const FeArgs& a, const FeVariant& v,
+                                              const TcTile& tl, float* smem, const float* wavs,
+                                              int region_a) {
+  const int n = a.n;
+  tc_stage(a, v, tl, smem, [wavs, n](int b) {
+    const float* wav = wavs + (size_t)b * n;
+    return [wav](int t, float* dst) { cp_async16(dst, wav + t, true); };
+  });
+  if (a.round_bf16) {
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < region_a; i += FE_THREADS) smem[i] = fe_bf16(smem[i]);
+  }
+}
+
 // the [32, 128] block of the DFT (row stride ld) at rows k0.., columns n0..
 // into a ring stage
 __device__ __forceinline__ void tc_load_b(const float* w, int ld, float* dst, int n0, int k0) {
@@ -461,9 +483,11 @@ __device__ __forceinline__ void tc_frames_run(const FeArgs& a, const FeVariant& 
 // contributions to v.part [tiles][units][num_mel][rows], not summed, and
 // the tile's last block to finish (a counter per tile in v.done, which it
 // sets back to 0) adds them in unit order, as an unsplit tile adds them to
-// its sums, then runs the tail: the same bits.
+// its sums, then runs the tail: the same bits. Returns whether this block
+// stored the tile's features: false for a split tile's other blocks, which
+// return early (K4 counts the stored rows, infer.cu).
 template <int MI, int WM, bool SPLIT>
-__device__ __forceinline__ void tc_frames_features(const FeArgs& a, const FeVariant& v,
+__device__ __forceinline__ bool tc_frames_features(const FeArgs& a, const FeVariant& v,
                                                    const TcTile& tl, float* smem, int region_a,
                                                    float* out) {
   const int nruns = v.units * a.num_mel * 3;
@@ -495,7 +519,7 @@ __device__ __forceinline__ void tc_frames_features(const FeArgs& a, const FeVari
     __syncthreads();
     if (threadIdx.x == 0) last = atomicAdd(v.done + tl.tile, 1) == v.splits - 1;
     __syncthreads();
-    if (!last) return;
+    if (!last) return false;
     __threadfence();  // the other blocks' contributions, after their counts
     for (int i = threadIdx.x; i < nsum; i += FE_THREADS) {
       float s = 0.f;
@@ -511,4 +535,5 @@ __device__ __forceinline__ void tc_frames_features(const FeArgs& a, const FeVari
   } else {
     tc_tail<true>(a, sums, ring, out, tl.nrows);
   }
+  return true;
 }

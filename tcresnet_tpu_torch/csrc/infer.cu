@@ -1,65 +1,84 @@
-// Whole-model TC-ResNet inference on Hopper: wav -> logits in one launch.
+// Whole-model TC-ResNet inference on Hopper: wav -> logits in one call.
 //
 // Replaces the TPU kernel tcresnet_tpu/ops/pallas/infer.py::_kernel (the
 // fused wav -> MFCC -> 7..16 BN-folded temporal convs -> GAP -> fc
 // program). It computes, per utterance:
-//   1. the windowed real DFT of every frame (reim[f] = frame[f] @ W),
+//   1. the windowed real DFT of every frame (frame[f] @ W),
 //   2. power (MFCC) or magnitude (log-mel), mel, log(mel + 1e-6), and the
 //      DCT for MFCC,
 //   3. the BN-folded TF-SAME k x 1 convs with their residual dataflow,
 //   4. the global average pool and the fc.
 //
 // What bounds it on the H100. Per TCResNet8-1.0 utterance the DFT is
-// ~24.7 M multiply-adds of ~28 M in total (mel 1.6 M, DCT 0.25 M, convs
-// 1.5 M, fc 0.6 k), so the front end sets the kernel's time. Its bound is
-// FP32 FMA throughput (no tensor cores in this first version), but on an
-// H100 SXM at 700 W the front end took ~80% of the kernel's time at about
-// a third of that peak (PERF.md). It is not L2 bandwidth: staging the
-// DFT constant through shared memory, read once per block, made it
-// slower. Latency that 8 warps per SM do not hide is the open suspect.
+// ~24.1 M multiply-adds (window x fft a frame) of ~26 M in total (mel's
+// nonzero weights 0.1 M, DCT 0.16 M, convs 1.5 M, fc 0.6 k), so the front
+// end sets the kernel's work: at the tensor cores' float32-exact rate
+// (3xTF32) it is ~0.3 ms of a 1024 batch's bound, the convs and fc in
+// FP32 ~0.05 ms. At batch 1 no bound is near: the time is latency, the
+// front end's products over their K slices, then one utterance's 7..16
+// convs in sequence on one SM.
 //
 // What the design does about it.
-//  - The TPU kernel kept everything in VMEM. A Hopper block has at most
-//    227 KB of shared memory, and neither the hop-DFT constant (987 KB)
-//    nor the hop-partial intermediate (617 KB per utterance) fits. So the
-//    DFT constant stays in global memory, where it is L2-resident, and the
-//    DFT runs directly on frames (frame[f] @ W[window, 2K]) - the same
-//    math as the hop decomposition without a shifted-add buffer.
-//  - Steps 1 and 2 are frontend.cuh's FP32 stage (K2 and K3, which
-//    compute the same features, run on the tensor cores: dft_tc.cuh).
-//  - The DFT is register-blocked: each thread owns 4 output columns x 14
-//    frames (56 accumulators). Columns are interleaved (re_k, im_k,
-//    re_k+1, im_k+1), so a thread turns its own accumulators into two
-//    power bins with no exchange. Per 4 window samples a thread issues 4
-//    16-byte loads of W, 14 16-byte shared loads of samples, and 224 FMAs.
+//  - Steps 1 and 2 are K2's tensor-core stage (dft_tc.cuh), over every
+//    frame of the batch as one row space: a block takes a tile of 128, 64
+//    or 16 and fewer (utterance, frame) rows of the host's plan
+//    (ops/kernels/mfcc.py::tc_tile_plan), and a small batch's tiles split
+//    their column units over blocks, so that batch 1 runs its front end on
+//    28 blocks (480/160), not one. The features of a tile go to a
+//    [batch, frames, C] workspace in device memory (L2-resident: 15.7 KB
+//    an utterance); the stage's bits do not depend on the tile, so they
+//    are K2's.
+//  - For one utterance (a served request), steps 3 and 4 run in the block
+//    that stores the last of its rows: after a tile's features are stored
+//    (by a split tile's last block), the block fences, adds the rows it
+//    stored of each utterance to that utterance's counter (count, 0
+//    between calls), and the block whose add brings an utterance to
+//    `frames` reads its features back (__ldcg: L2, not a stale L1 line),
+//    sets its counter back to 0, and runs its conv stack, GAP and fc in
+//    the stage's shared memory, which the stage no longer needs. It is the
+//    split tiles' "last block to finish" pattern
+//    (dft_tc.cuh::tc_frames_features), so the call is one launch with no
+//    second pass and no memset.
+//  - A batch of more utterances (the host's rule,
+//    ops/kernels/infer.py::FusedInfer.two_kernels) runs its conv stacks in
+//    a second kernel, one block per utterance: in the stage's blocks, one
+//    whose tile ends two utterances runs both stacks in turn, and a stage
+//    block holds its SM (registers, shared memory) while other tiles
+//    wait; at batch 3-5 that took 1.2-1.8x the split's time (PERF.md). The
+//    same code in the same order: the same bits.
 //  - Each conv thread computes 4 output channels of one row: one float4
 //    weight load feeds 4 independent FMA chains (channel counts are
 //    multiples of 4; the wrapper checks).
-//  - One block per utterance; the batch is the grid, so no batch padding
-//    is needed. At batch 1 this uses one SM of 132: spreading one
-//    utterance over SMs, and tensor cores for the DFT, are later work.
-//  - Shared memory: region A holds the wav (later the log-mel, later the
-//    three conv ping-pong / shortcut buffers), region B the power
-//    spectrum (later the features), then the pooled vector. ~165 KB at
-//    16 kHz / 1 s, so one block per SM.
+//  - Shared memory: the stage's plan for the tile's rows (dft_tc.cuh), or,
+//    if larger, the conv stage's: a flag, the utterance's features [frames,
+//    C], three conv ping-pong / shortcut buffers of act_max floats and the
+//    pooled vector (ops/kernels/infer.py::_Geometry; ~28 KB for
+//    TCResNet14-1.5 at 1 s).
+//  - One utterance's convs stay in one block: at batch 1 they run on one SM
+//    of 132 after the front end, ~0.07 ms of TCResNet8-1.0's ~0.1 (PERF.md:
+//    the next lever).
 //
-// Numerics: float32 throughout, accumulated with fmaf in a fixed order;
-// logf/sqrtf are the IEEE versions (built without --use_fast_math). With
-// round_bf16 the samples are rounded to bf16 here and the DFT constant is
-// passed already rounded, and products still accumulate in float32 (the
-// JAX path's dsp_matmul_dtype="bfloat16").
+// Numerics: the features are K2's (dft_tc.cuh: 3xTF32 products summed in
+// float32 in a fixed k order, IEEE logf/sqrtf, built without
+// --use_fast_math). The convs, GAP and fc accumulate in float32 with fmaf
+// in a fixed order, one partial sum per tap. So an utterance's logits do
+// not depend on the batch it came in, bit for bit. With round_bf16 the
+// samples are rounded to bf16 in shared memory and the DFT constant is
+// passed already rounded; products still accumulate in float32 (the JAX
+// path's dsp_matmul_dtype="bfloat16").
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (ops/kernels/_build.py). The C entry
-// point k4_infer launches on the given stream and returns
-// cudaGetLastError().
+// point k4_infer launches on the given stream (one kernel for one
+// utterance, two for a batch) and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "dft_tc.cuh"
 #include "frontend.cuh"
 
 #define K4_MAX_CONVS 32
-#define K4_THREADS FE_THREADS
+#define K4_FLAG 4  // floats before the conv stage's features: the block's flag
 
 enum { ROLE_CONV0 = 0, ROLE_DOWN = 1, ROLE_BLOCK0 = 2, ROLE_BLOCK1 = 3 };
 
@@ -68,37 +87,37 @@ struct K4Conv {
 };
 
 struct K4Args {
-  FeArgs fe;          // the shared front end (frontend.cuh)
+  FeArgs fe;          // K2's stage's constants (the hops FrontEnd)
+  FeVariant v;        // this batch's tile plan (mfcc.py::tc_tile_plan), K4's own split counters
   const float* wavs;  // [batch, n]
+  float* feats;       // workspace [batch, frames, C]
+  int* count;         // [batch] rows stored per utterance (0 between calls)
   float* out;         // [batch, ncls]
   const float* wts;   // folded conv weights [k*ci, co] and biases [co], by offset
   const float* fc;    // [c_last, ncls]
   int batch, n_convs, ncls, act_max, region_a, smem_bytes;
+  int two_kernels;    // the stage alone, then k4_conv_kernel (the host's rule: a batch)
+  int conv_bytes;     // the conv stage's shared memory
   K4Conv convs[K4_MAX_CONVS];
 };
 
-// At most one block fits an SM (shared memory), and saying so to the
-// compiler (min blocks 1) gave 11% lower latency on the H100 (PERF.md).
-__global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* reg_a = smem;
-  float* reg_b = smem + a.region_a;
-  float* pooled = reg_b + a.fe.frames * 2 * a.fe.ncg;
+// Utterance b's conv stack (residual dataflow by role), GAP and fc, its
+// features read back from the workspace; smem from the features on (the
+// flag before it is the caller's). Ends synchronised.
+__device__ __forceinline__ void k4_convs(const K4Args& a, int b, float* smem) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-
-  // ---- 0. the utterance into shared memory ----
-  const float* wav = a.wavs + (size_t)blockIdx.x * a.fe.n;
-  for (int i = tid; i < a.fe.n; i += nthr) reg_a[i] = fe_sample(a.fe, wav[i]);
+  const int n_feat = fe_width(a.fe);
+  const int nf = a.fe.frames * n_feat;
+  float* feats = smem;
+  float* reg = smem + tc_up4(nf);
+  float* pooled = reg + 3 * a.act_max;
+  const float* src = a.feats + (size_t)b * nf;
+  for (int i = tid; i < nf; i += nthr) feats[i] = __ldcg(src + i);
   __syncthreads();
 
-  // ---- 1-3. front end: features [frames, C] in B ----
-  fe_features(a.fe, reg_a, reg_b);
-  const int n_feat = fe_width(a.fe);
-
-  // ---- 4. conv stack (residual dataflow by role), buffers in A ----
-  float* bufs[3] = {reg_a, reg_a + a.act_max, reg_a + 2 * a.act_max};
-  const float* x = reg_b;
+  float* bufs[3] = {reg, reg + a.act_max, reg + 2 * a.act_max};
+  const float* x = feats;
   const float* sc = nullptr;
   int t_len = a.fe.frames;
   int c_len = n_feat;
@@ -163,7 +182,7 @@ __global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
     }
   }
 
-  // ---- 5. global average pool + fc ----
+  // global average pool + fc
   for (int c = tid; c < c_len; c += nthr) {
     float s = 0.f;
     for (int t = 0; t < t_len; ++t) s += x[t * c_len + c];
@@ -173,13 +192,81 @@ __global__ void __launch_bounds__(K4_THREADS, 1) k4_kernel(const K4Args a) {
   for (int o = tid; o < a.ncls; o += nthr) {
     float s = 0.f;
     for (int c = 0; c < c_len; ++c) s = fmaf(pooled[c], __ldg(&a.fc[c * a.ncls + o]), s);
-    a.out[(size_t)blockIdx.x * a.ncls + o] = s;
+    a.out[(size_t)b * a.ncls + o] = s;
+  }
+  __syncthreads();
+}
+
+// The block's counts of the tile it stored, then the conv stack of every
+// utterance whose last rows they were. The tile is taken again from
+// blockIdx here, so that nothing of it stays live across the stage, whose
+// 128-row product uses every register (kept live, it spilled).
+template <bool SPLIT>
+__device__ __forceinline__ void k4_finish(const K4Args& a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch);
+  __threadfence();  // this block's features, before its counts
+  const int frames = a.fe.frames;
+  const int end = tl.r0 + tl.nrows;  // rows [r0, end) of the batch x frames rows
+  int* ready = reinterpret_cast<int*>(smem);  // the stage's memory is free after the barrier
+  for (int b = tl.b0; b * frames < end; ++b) {
+    __syncthreads();  // the stage's (or the last utterance's) reads of smem are done
+    if (threadIdx.x == 0) {
+      const int rows = min(end, (b + 1) * frames) - max(tl.r0, b * frames);
+      *ready = atomicAdd(a.count + b, rows) + rows == frames;
+    }
+    __syncthreads();
+    if (!*ready) continue;
+    __threadfence();  // the other blocks' features, after their counts
+    if (threadIdx.x == 0) a.count[b] = 0;  // every block's add is in: 0 for the next call
+    k4_convs(a, b, smem + K4_FLAG);
   }
 }
 
+// A tile of the batch's frames through K2's stage (frames_kernel's body,
+// mfcc.cu), then, with CONVS, the conv stack of every utterance whose last
+// rows this block stored (k4_finish); without, k4_conv_kernel runs them
+// after this launch
+template <int MI, int WM, bool SPLIT, bool CONVS>
+__global__ void __launch_bounds__(FE_THREADS, 1) k4_kernel(const __grid_constant__ K4Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch);
+  tc_stage_wavs(a.fe, a.v, tl, smem, a.wavs, a.region_a);
+  if (!tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.feats)) return;
+  if (CONVS) k4_finish<SPLIT>(a);
+}
+
+// one utterance's conv stack a block, after the stage's launch (its
+// features are in the workspace: the launch boundary orders them). Min
+// blocks 1: the conv loop is latency-bound, and with the registers that
+// frees (125, not 64) it ran faster on the H100 at every batch timed, 1 to
+// 1024, though fewer blocks fit an SM
+__global__ void __launch_bounds__(FE_THREADS, 1) k4_conv_kernel(const __grid_constant__ K4Args a) {
+  extern __shared__ __align__(16) float smem[];
+  k4_convs(a, blockIdx.x, smem + K4_FLAG);
+}
+
+template <int MI, int WM, bool SPLIT = false>
+static int k4_launch(const K4Args* args, void* stream) {
+  if (!SPLIT && args->v.splits != 1) return (int)cudaErrorInvalidValue;
+  const int grid = tc_grid(args->fe, args->v, args->batch);
+  if (!args->two_kernels)
+    return fe_launch<K4Args, k4_kernel<MI, WM, SPLIT, true>>(grid, args->smem_bytes, *args, stream);
+  const int e = fe_launch<K4Args, k4_kernel<MI, WM, SPLIT, false>>(grid, args->smem_bytes, *args,
+                                                                   stream);
+  if (e != 0) return e;
+  return fe_launch<K4Args, k4_conv_kernel>(args->batch, args->conv_bytes, *args, stream);
+}
+
+// the tile rows of the host's plan (tc_product), as mfcc.cu's frames_stage;
 // the shared-memory limit raised once per device and larger size (fe_launch)
 extern "C" int k4_infer(const K4Args* args, void* stream) {
-  return fe_launch<K4Args, k4_kernel>(args->batch, args->smem_bytes, *args, stream);
+  switch (tc_product(args->v.rows)) {
+    case 128: return k4_launch<8, 1>(args, stream);
+    case 64: return k4_launch<2, 2>(args, stream);
+    case 16: return k4_launch<1, 1, true>(args, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int k4_args_size(void) { return (int)sizeof(K4Args); }

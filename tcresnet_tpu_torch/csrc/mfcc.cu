@@ -42,25 +42,13 @@ struct K2Args {
   int batch, region_a, smem_bytes;
 };
 
-// K2 and K8: the tile's sample span copied with cp.async (16-byte aligned:
-// n and hop are multiples of 4), rounded to bf16 in place for
-// dsp_matmul_dtype="bfloat16" (the DFT's A operand, as fe_sample does)
+// K2 and K8: the tile's sample span copied with cp.async, rounded to bf16
+// for dsp_matmul_dtype="bfloat16" (tc_stage_wavs), then the stage
 template <int MI, int WM, bool SPLIT>
 __global__ void __launch_bounds__(FE_THREADS, 1) frames_kernel(const K2Args a) {
   extern __shared__ __align__(16) float smem[];
   const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch);
-  const float* wavs = a.wavs;
-  const int n = a.fe.n;
-  tc_stage(a.fe, a.v, tl, smem, [wavs, n](int b) {
-    const float* wav = wavs + (size_t)b * n;
-    return [wav](int t, float* dst) { cp_async16(dst, wav + t, true); };
-  });
-  if (a.fe.round_bf16) {
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int i = threadIdx.x; i < a.region_a; i += FE_THREADS) smem[i] = fe_bf16(smem[i]);
-  }
+  tc_stage_wavs(a.fe, a.v, tl, smem, a.wavs, a.region_a);
   tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.out);
 }
 

@@ -1,23 +1,31 @@
-"""Whole-model TC-ResNet inference: wav -> logits in one CUDA launch.
+"""Whole-model TC-ResNet inference: wav -> logits in one CUDA call.
 
 Counterpart of tcresnet_tpu/ops/pallas/infer.py (kernel K4). The kernel
 itself is `csrc/infer.cu`; its source note says what bounds it on the
-H100 and how its design differs from the TPU kernel's. This module:
+H100 and how its design differs from the TPU kernel's: its front end is
+K2's tensor-core stage over every frame of the batch (`mfcc.front_end`'s
+"hops" constants, `mfcc.tc_tile_plan`'s tiles), and each utterance's conv
+stack runs in the block that stores the last of its frames (one
+utterance), or in a second kernel of the same call (a batch of more:
+`FusedInfer.two_kernels`). This module:
 
 - folds eval-mode BatchNorm into each conv once, on the host
   (`_fold_conv_bn`, epsilon 1e-3), and flattens the residual structure
   into a conv list with roles (`build_layer_spec`);
 - lays the folded constants out for the kernel and copies them to the
-  device once (`build_fused_infer` -> `FusedInfer`);
-- holds the kernel's plain PyTorch version (`fused_infer_reference`),
-  which does the same folding and the same per-tap matmuls;
+  device once (`build_fused_infer` -> `FusedInfer`), with the kernel's
+  shared-memory plan (`_geometry`, `launch_smem_bytes`) and its own
+  per-utterance and split-tile counters;
+- holds the kernel's plain PyTorch version (`fused_infer_reference`): K2's
+  plain feature, then the same folding and the same per-tap matmuls;
 - dispatches (`fused_infer`): a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel, and anything else raises. There is no
   fallback from the kernel to the plain version: a failed build or
   launch raises.
 
-`launches` counts kernel launches (and nothing else), so a run can show
-that its serving path went through the kernel.
+`launches` counts calls of the kernel's entry point, `k4_infer` (one per
+`fused_infer` on a CUDA tensor, whichever path it takes, and nothing
+else), so a run can show that its serving path went through the kernel.
 """
 
 from __future__ import annotations
@@ -51,10 +59,13 @@ _ROLES = {"conv0": 0, "down": 1, "block0": 2, "block1": 3}
 
 @dataclasses.dataclass(frozen=True)
 class _Geometry:
-    fe: mfcc.FrontEndGeometry  # K4's FP32 front end's (csrc/frontend.cuh)
+    fe: mfcc.FrontEndGeometry  # K2's stage's (csrc/dft_tc.cuh)
+    nnz: int  # the mel's nonzero weights (mfcc.tc_mel_constants)
     act_max: int  # largest conv activation, T * C floats
-    region_a: int
-    smem_bytes: int
+    # the conv stage's shared memory, in floats (csrc/infer.cu): the flag,
+    # the features [frames, C] (rounded up to 4), three buffers of act_max
+    # and the pooled vector [C_last]
+    conv_floats: int
 
 
 def _conv_shapes(model_cfg: ModelConfig, t: int) -> List[Tuple[int, int]]:
@@ -68,32 +79,48 @@ def _conv_shapes(model_cfg: ModelConfig, t: int) -> List[Tuple[int, int]]:
     return shapes
 
 
+_FLAG_FLOATS = 4  # K4_FLAG in csrc/infer.cu
+
+
+def _hops(audio_cfg: AudioConfig) -> AudioConfig:
+    """K4's front end is always the hops DFT, as the JAX kernel's is."""
+    return dataclasses.replace(audio_cfg, dft_variant="hops")
+
+
 def _geometry(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> _Geometry:
     fe = mfcc.front_end_geometry(audio_cfg, audio_cfg.desired_samples)
+    nnz = mfcc.tc_mel_constants(*dsp.mel_args(audio_cfg))[1].size
     act_max = max(t * c for t, c in _conv_shapes(model_cfg, fe.frames))
-    region_a, region_b = fe.regions(3 * act_max)
     c_last = scaled_channels(model_cfg.name, model_cfg.width_multiplier)[-1]
-    smem = 4 * (region_a + region_b + c_last)
-    return _Geometry(fe, act_max, region_a, smem)
+    feats = fe.frames * fe.width
+    return _Geometry(fe, nnz, act_max, _FLAG_FLOATS + feats + -feats % 4 + 3 * act_max + c_last)
+
+
+def launch_smem_bytes(geom: _Geometry, plan: mfcc.TcPlan) -> int:
+    """A launch's shared memory: the stage's plan for the tile's rows or,
+    where larger, the conv stage's, which reuses it."""
+    return max(plan.smem_bytes, 4 * geom.conv_floats)
 
 
 def fused_infer_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> bool:
     """The kernel serves the temporal TC-ResNets on both spectral front
-    ends, at hop-decomposable geometry (window % hop == 0, n % hop == 0,
-    n >= window; the JAX kernel's condition), with 16-byte aligned frames
-    (hop and window multiples of 4), conv widths that are multiples of 4
-    (every preset's), and a shared-memory plan that fits one Hopper block."""
+    ends where K2's stage serves the geometry in the hops variant
+    (`mfcc.fused_mfcc_available`: hop-decomposable, window % hop == 0, n %
+    hop == 0 and n >= window as in the JAX kernel; 16-byte aligned frames;
+    a tile plan that fits a block), with conv widths that are multiples of
+    4 (every preset's) and a conv stage whose shared memory fits one Hopper
+    block."""
     if model_cfg.name not in TC_CHANNELS:
         return False
     n = audio_cfg.desired_samples
-    window, hop = audio_cfg.window_size_samples, audio_cfg.window_stride_samples
-    if window % hop or n % hop or not mfcc.front_end_supported(audio_cfg, n):
+    if not mfcc.fused_mfcc_available(_hops(audio_cfg), n):
         return False
     geom = _geometry(model_cfg, audio_cfg)
     shapes = _conv_shapes(model_cfg, geom.fe.frames)
     # a conv thread computes 4 output channels from 16-byte weight loads
     quads = all(c % 4 == 0 for _, c in shapes)
-    return quads and geom.smem_bytes <= mfcc.SMEM_LIMIT and len(shapes) <= _MAX_CONVS
+    return (quads and 4 * geom.conv_floats <= mfcc.SMEM_LIMIT
+            and len(shapes) <= _MAX_CONVS)
 
 
 # ---------------------------------------------------------------------------
@@ -166,13 +193,15 @@ class _K4Conv(ctypes.Structure):
 
 
 class _K4Args(ctypes.Structure):
-    """Mirror of struct K4Args in csrc/infer.cu (checked by size at load)."""
+    """Mirror of struct K4Args in csrc/infer.cu (checked by size at load,
+    and field by field by tests/test_torch_infer_tc.py)."""
 
     _fields_ = (
-        [("fe", mfcc.FeArgs)]
-        + [(f, ctypes.c_void_p) for f in ("wavs", "out", "wts", "fc")]
+        [("fe", mfcc.FeArgs), ("v", mfcc.FeVariant)]
+        + [(f, ctypes.c_void_p) for f in ("wavs", "feats", "count", "out", "wts", "fc")]
         + [(f, ctypes.c_int) for f in (
-            "batch", "n_convs", "ncls", "act_max", "region_a", "smem_bytes")]
+            "batch", "n_convs", "ncls", "act_max", "region_a", "smem_bytes",
+            "two_kernels", "conv_bytes")]
         + [("convs", _K4Conv * _MAX_CONVS)]
     )
 
@@ -205,15 +234,22 @@ class FusedInfer:
         geom = _geometry(model_cfg, audio_cfg)
         self.device = torch.device(device)
         self.geom = geom
+        self.audio = _hops(audio_cfg)
         self.ncls = model_cfg.num_classes
 
         def dev(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32), device=self.device)
 
-        self.fe = mfcc.front_end(audio_cfg, geom.fe.n, self.device, "fp32")
-        self.magnitude = geom.fe.magnitude
-        self.matmul_dtype = self.fe.matmul_dtype
-        self.dft, self.mel, self.dct = self.fe.dft, self.fe.mel, self.fe.dct
+        # K2's constants (shared with K2's calls of this geometry: read only)
+        self.fe = mfcc.front_end(audio_cfg, geom.fe.n, self.device, "hops")
+        # K4's own counters, 0 between calls (calls on one stream at a
+        # time): the split tiles' (fewer than SMS tiles: the plan's rule)
+        # and the utterances' (grown to the largest batch yet)
+        self.done = torch.zeros(mfcc.SMS, dtype=torch.int32, device=self.device)
+        self.count = torch.zeros(0, dtype=torch.int32, device=self.device)
+        # None: the path of the rule (`two_kernels`); True / False forces one,
+        # so that tools/infer_times.py can time both
+        self.force_two_kernels = None
 
         spec, fc = build_layer_spec(model_cfg, params, batch_stats)
         self.fc = dev(fc)
@@ -237,18 +273,42 @@ class FusedInfer:
                 self.wts[b_off:b_off + b.size], w_off, b_off,
             ))
 
-    def kernel_args(self, wavs: torch.Tensor, out: torch.Tensor) -> _K4Args:
-        g = self.geom
+    def two_kernels(self, batch: int) -> bool:
+        """Whether `k4_infer` runs a batch's conv stacks in a kernel of
+        their own after the stage (one block per utterance) rather than in
+        the block that stores an utterance's last rows: for every batch of
+        more than one utterance. A block whose tile ends two utterances
+        runs both stacks in turn, holding its SM (registers, shared memory)
+        while other tiles wait; for one utterance the second launch is all
+        the split adds (measured in PERF.md; both paths give the same
+        bits). `force_two_kernels`, where set, decides instead."""
+        if self.force_two_kernels is not None:
+            return self.force_two_kernels
+        return batch > 1
+
+    def kernel_args(self, wavs: torch.Tensor, feats: torch.Tensor,
+                    out: torch.Tensor) -> Tuple[_K4Args, Any]:
+        """(the launch's args, the split tiles' workspace or None: keep it
+        until the launch is enqueued) for wavs [B, n] on the plan's device,
+        the features' workspace [B, frames, C] and the logits [B, ncls]."""
+        g, batch = self.geom, wavs.shape[0]
+        if self.count.numel() < batch:
+            self.count = torch.zeros(max(batch, 2 * self.count.numel()), dtype=torch.int32,
+                                     device=self.device)
+        v, region_a, _, part = self.fe.launch_args(batch)
+        v.done = self.done.data_ptr()
+        tiles = mfcc.tc_tile_plan(batch, g.fe, g.nnz)
         args = _K4Args(
-            self.fe.args(), wavs.data_ptr(), out.data_ptr(), self.wts.data_ptr(),
-            self.fc.data_ptr(), wavs.shape[0], len(self.convs), self.ncls,
-            g.act_max, g.region_a, g.smem_bytes,
+            self.fe.args(), v, wavs.data_ptr(), feats.data_ptr(), self.count.data_ptr(),
+            out.data_ptr(), self.wts.data_ptr(), self.fc.data_ptr(), batch, len(self.convs),
+            self.ncls, g.act_max, region_a, launch_smem_bytes(g, tiles),
+            int(self.two_kernels(batch)), 4 * g.conv_floats,
         )
         for i, c in enumerate(self.convs):
             ci, co = c.w.shape[0] // c.k, c.w.shape[1]
             args.convs[i] = _K4Conv(c.k, c.stride, _ROLES[c.role], int(c.relu),
                                     ci, co, c.w_off, c.b_off)
-        return args
+        return args, part
 
     def __call__(self, wavs: torch.Tensor) -> torch.Tensor:
         return fused_infer(wavs, self)
@@ -284,18 +344,10 @@ def _conv_step(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
 
 
 def fused_infer_reference(wavs: torch.Tensor, plan: FusedInfer) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on the plan's constants."""
-    g = plan.geom.fe
-    frames = dsp.round_operand(
-        dsp.frame_signal(wavs.to(torch.float32), g.window, g.hop), plan.matmul_dtype)
-    reim = (frames @ plan.dft).unflatten(-1, (2 * g.ncg, 2))
-    re, im = reim[..., 0], reim[..., 1]
-    power = (re * re + im * im)[..., :g.num_bins]
-    spec = torch.sqrt(power) if plan.magnitude else power
-    x = torch.log(spec @ plan.mel + 1e-6)
-    if not plan.magnitude:
-        x = x @ plan.dct
-
+    """Plain PyTorch version of the kernel: K2's plain feature (the dense
+    hops front end, `mfcc.fused_mfcc_reference`), then the plan's folded
+    convs as per-tap matmuls, GAP and fc."""
+    x = mfcc.fused_mfcc_reference(wavs.to(torch.float32), plan.audio, "hops")
     shortcut = None
     for c in plan.convs:
         if c.role == "conv0":
@@ -324,14 +376,19 @@ def fused_infer(wavs: torch.Tensor, plan: FusedInfer) -> torch.Tensor:
         raise ValueError(f"no K4 kernel for device type {wavs.device.type!r}")
     if wavs.dtype != torch.float32:
         raise TypeError(f"wavs must be float32, got {wavs.dtype}")
-    if wavs.dim() != 2 or wavs.shape[1] != plan.geom.fe.n:
-        raise ValueError(f"wavs must be [B, {plan.geom.fe.n}], got {list(wavs.shape)}")
+    g = plan.geom.fe
+    if wavs.dim() != 2 or wavs.shape[1] != g.n:
+        raise ValueError(f"wavs must be [B, {g.n}], got {list(wavs.shape)}")
     if not wavs.is_contiguous():
         raise ValueError("wavs must be contiguous")
-    out = torch.empty((wavs.shape[0], plan.ncls), device=wavs.device, dtype=torch.float32)
-    if wavs.shape[0] == 0:
+    if wavs.data_ptr() % 16:
+        raise ValueError("k4_infer copies wavs in 16-byte chunks: wavs must be 16-byte aligned")
+    batch = wavs.shape[0]
+    out = torch.empty((batch, plan.ncls), device=wavs.device, dtype=torch.float32)
+    if batch == 0:
         return out
-    _build.launch(_library(), "k4_infer", "k4_error_string",
-                  plan.kernel_args(wavs, out), wavs.device)
+    feats = torch.empty((batch, g.frames, g.width), device=wavs.device, dtype=torch.float32)
+    args, _part = plan.kernel_args(wavs, feats, out)
+    _build.launch(_library(), "k4_infer", "k4_error_string", args, wavs.device)
     launches += 1
     return out

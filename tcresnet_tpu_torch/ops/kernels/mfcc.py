@@ -20,9 +20,9 @@ K2 and K8 run one stage on the tensor cores, `csrc/dft_tc.cuh` (every
 frame of a tile of the batch's frames one 3xTF32 product, the
 tensor-core pieces K9 shares), through one entry point and one
 `FrontEnd`; K9 `csrc/radix4.cuh`, each also K3's stage
-of the variant; K4 (`infer.cu`, always "hops" as in JAX) keeps the FP32
-stage of `csrc/frontend.cuh`. The source notes say what bounds each on the
-H100. This module:
+of the variant; K4 (`infer.cu`, always "hops" as in JAX) runs K2's stage
+too, with the hops `FrontEnd` and `tc_tile_plan`. The source notes say
+what bounds each on the H100. This module:
 
 - resolves a config's variant as the JAX package does
   (`resolve_dft_variant`, with its fallback to "hops" where a geometry
@@ -34,7 +34,7 @@ H100. This module:
   (`front_end` -> `FrontEnd`, the ctypes mirrors of `FeArgs` and
   `FeVariant`; the tensor-core DFT constant `tc_dft_matrix`; the mel runs:
   `tc_mel_constants`, `radix4_kernel_constants`, with K9's live columns
-  and rows; K4's FP32 constants as the "fp32" front end), with each
+  and rows), with each
   kernel's shared-memory plan (`smem_plan`) and K2's and K8's tiles of the
   batch's frames (`tc_tile_plan`, the staged samples' `tc_layout`);
 - holds the plain PyTorch versions (`fused_mfcc_reference`): the port's
@@ -199,19 +199,6 @@ def resolve_dft_variant(cfg: AudioConfig, n: int) -> str:
 # ---------------------------------------------------------------------------
 
 
-def interleaved_dft_matrix(window: int, fft_length: int, ncg: int) -> np.ndarray:
-    """[window, 4 * ncg] windowed real-DFT matrix with columns (re_k, im_k,
-    re_k+1, im_k+1) per group of 4, so that a thread of K4's FP32 stage
-    forms two power bins from its own accumulators; bins past the last are
-    zero."""
-    m = dsp.windowed_rdft_matrix(window, fft_length)
-    num_bins = fft_length // 2 + 1
-    out = np.zeros((window, 2 * ncg, 2), np.float32)
-    out[:, :num_bins, 0] = m[:, :num_bins]
-    out[:, :num_bins, 1] = m[:, num_bins:2 * num_bins]
-    return out.reshape(window, 4 * ncg)
-
-
 def tc_dft_matrix(window: int, hop: int, fft_length: int) -> np.ndarray:
     """K2's and K8's constant (csrc/dft_tc.cuh): [Kp, 128 units] in the
     staged chunks' K order (`tc_kp`): the window's rows a chunk of hop at a
@@ -252,8 +239,8 @@ class FeArgs(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("dft", "mel", "dct")]
         + [(f, ctypes.c_int) for f in (
-            "n", "window", "hop", "frames", "ncg", "num_bins", "num_mel",
-            "num_coef", "magnitude", "round_bf16")]
+            "n", "window", "hop", "frames", "num_mel", "num_coef", "magnitude",
+            "round_bf16")]
     )
 
 
@@ -285,9 +272,12 @@ class FrontEndGeometry:
         return 2 * (self.num_bins - 1)
 
     def regions(self, region_a_floats: int = 0) -> tuple:
-        """(region A floats, region B floats) of K4's FP32 front end's
-        shared-memory plan (frontend.cuh); A at least `region_a_floats`, B
-        16-byte aligned."""
+        """(region A floats, region B floats) of the shared-memory plan of
+        K4's former FP32 front end (one utterance's samples, then its power
+        spectrum, in one block); A at least `region_a_floats`, B 16-byte
+        aligned. No kernel runs that stage now: the rule is kept as the
+        record of what it served, which the tensor-core stage and K4 must
+        still serve (tests/test_torch_hops_tc.py, test_torch_infer_tc.py)."""
         a = max(self.n, self.frames * self.num_mel, region_a_floats)
         return a + (-a % 4), self.frames * 2 * self.ncg
 
@@ -497,7 +487,8 @@ def tc_tile_plan(batch: int, g: FrontEndGeometry, nnz: int) -> Optional[TcPlan]:
 def front_end_supported(cfg: AudioConfig, n: int) -> bool:
     """The front-end kernels' common conditions: MFCC or log-mel; samples
     read as 16-byte rows (hop and window multiples of 4); the features fit
-    over the power spectrum in place (C <= 2 * ncg: K4's FP32 stage)."""
+    over the power spectrum in place (C <= 2 * ncg: the rule of K4's former
+    FP32 stage, kept so that the kernels serve what they served)."""
     if cfg.preprocess_method not in ("mfcc", "log_mel_spectrogram"):
         return False
     window, hop = cfg.window_size_samples, cfg.window_stride_samples
@@ -599,15 +590,13 @@ class FrontEnd:
     one device, the DFT rounded to bf16 and back for
     dsp_matmul_dtype="bfloat16":
 
-      hops,   the stage K2 and K8 share (dft_tc.cuh): the windowed DFT
+      hops,   the stage K2, K8 and K4 share (dft_tc.cuh): the windowed DFT
       phases  [Kp, 128 units] (`tc_dft_matrix`; for phases the live rows of
               every W_p); the mel's nonzero weights as `mel` and each
               unit's runs of them as `runs` (`tc_mel_constants`)
       radix4  the live columns of M0 | M1 | M2, the zero-padded window
               [fft], the mel's nonzero weights and runs
               (`radix4_kernel_constants`)
-      fp32    K4's FP32 stage (frontend.cuh): the interleaved windowed DFT
-              [window, 4 ncg] and the mel matrix
 
     and the DCT (None for log-mel). Made once per geometry, device and
     variant by `front_end`; read it, never write it. `launch_args(batch)`
@@ -628,10 +617,6 @@ class FrontEnd:
         self.nnz = 0
         self._variant = v = FeVariant()
         self.win = self.runs = None
-        if variant == "fp32":
-            self.dft = dev(interleaved_dft_matrix(g.window, g.fft_length, g.ncg), rounded=True)
-            self.mel = dev(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
-            return
         if variant in ("hops", "phases"):
             runs, vals = tc_mel_constants(*dsp.mel_args(cfg))
             self.dft = dev(tc_dft_matrix(g.window, g.hop, g.fft_length), rounded=True)
@@ -658,17 +643,12 @@ class FrontEnd:
         v.win = 0 if self.win is None else self.win.data_ptr()
 
     def args(self) -> FeArgs:
-        """The FeArgs of this front end; for radix4 the power rows are the
-        kernel's 2L (num_bins = 2L = 2 ncg)."""
+        """The FeArgs of this front end."""
         g = self.geom
         dct = self.mel if self.dct is None else self.dct
-        num_bins, ncg = g.num_bins, g.ncg
-        if self.variant == "radix4":
-            num_bins = g.fft_length // 2
-            ncg = num_bins // 2
         return FeArgs(
             self.dft.data_ptr(), self.mel.data_ptr(), dct.data_ptr(),
-            g.n, g.window, g.hop, g.frames, ncg, num_bins, g.num_mel,
+            g.n, g.window, g.hop, g.frames, g.num_mel,
             g.width, int(g.magnitude), int(self.matmul_dtype == torch.bfloat16),
         )
 
@@ -683,8 +663,6 @@ class FrontEnd:
         enqueued), K9's fixed and no workspace."""
         if self.variant == "radix4":
             return self._variant, self.region_a, self.smem_bytes, None
-        if self.variant == "fp32":
-            raise ValueError("K4's FP32 front end is launched by ops/kernels/infer.py")
         g = self.geom
         plan = tc_tile_plan(batch, g, self.nnz)
         v = FeVariant.from_buffer_copy(self._variant)

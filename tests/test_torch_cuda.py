@@ -87,6 +87,50 @@ def test_kernel_matches_plain_version(cuda_device, preset, preprocess):
                                    atol=SOFTMAX_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("preset,preprocess,matmul", [("TCResNet8-1.0", "mfcc", "float32"),
+                                                      ("TCResNet14-1.5", "mfcc", "float32"),
+                                                      ("TCResNet8-1.0", "log_mel_spectrogram",
+                                                       "float32"),
+                                                      ("TCResNet8-1.0", "mfcc", "bfloat16")])
+def test_k4_on_k2_stage_matches_plain_and_is_batch_invariant(cuda_device, preset, preprocess,
+                                                             matmul):
+    """K4 on K2's tensor-core stage at batch 1, 3, 64 and 1024 (split
+    16-row tiles, 64- and 128-row tiles) against its plain version, at the
+    kernel gates (the bf16 DFT at its tolerance, argmax equal); two calls,
+    and its two paths (the conv stacks in the stage's blocks, and in a
+    kernel of their own), equal bit for bit; an utterance alone equal to
+    its row of the batch bit for bit; the counters back at 0 after every
+    call."""
+    cfg = get_preset(preset)
+    audio = dataclasses.replace(cfg.audio, preprocess_method=preprocess, dsp_matmul_dtype=matmul)
+    v = _variables(cfg.model, audio, cuda_device)
+    plan = k4.build_fused_infer(cfg.model, audio, v["params"], v["batch_stats"],
+                                device=cuda_device)
+    for batch in (1, 3, 64, 1024):
+        wavs = _wavs(batch, audio.desired_samples, cuda_device, seed=batch)
+        before = k4.launches
+        got, again = k4.fused_infer(wavs, plan), k4.fused_infer(wavs, plan)
+        torch.cuda.synchronize()
+        assert k4.launches == before + 2
+        assert torch.equal(got, again)
+        plan.force_two_kernels = not plan.two_kernels(batch)
+        other = k4.fused_infer(wavs, plan)
+        plan.force_two_kernels = None
+        assert torch.equal(got, other)
+        assert not plan.count.any() and not plan.done.any()
+        want = k4.fused_infer_reference(wavs, plan)
+        if matmul == "bfloat16":
+            torch.testing.assert_close(got, want, **BF16_TOL)
+            assert torch.equal(got.argmax(-1), want.argmax(-1))
+        else:
+            torch.testing.assert_close(got, want, **LOGIT_TOL)
+            torch.testing.assert_close(torch.softmax(got, -1), torch.softmax(want, -1),
+                                       atol=SOFTMAX_ATOL, rtol=0)
+        for row in sorted({0, batch // 2, batch - 1}):
+            assert torch.equal(k4.fused_infer(wavs[row:row + 1].contiguous(), plan),
+                               got[row:row + 1])
+
+
 def test_kernel_checks_its_input(cuda_device):
     model = ModelConfig(name="TCResNet8")
     audio = AudioConfig(clip_duration_ms=160, num_mfccs=20, num_mel_bins=32)

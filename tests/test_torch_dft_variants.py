@@ -255,7 +255,7 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     assert (v.rows, v.splits) == (16, g.fft_length // 128)
     assert part.numel() == -(-g.frames // 16) * v.units * g.num_mel * 16
     r4 = mfcc.FrontEnd(dataclasses.replace(cfg, dft_variant="radix4"), 16000, "cpu", "radix4")
-    assert r4.args().num_bins == 2 * r4.args().ncg == 2 * length
+    assert (r4.args().frames, r4.args().num_mel) == (g.frames, cfg.num_mel_bins)
     assert r4.region_a == 16000 and r4.smem_bytes == mfcc.smem_bytes(g, "radix4", nnz)
     assert tuple(r4.mel.shape) == (nnz + (-nnz % 4),) and r4.variant_args().mel_nnz == nnz
     assert r4.dft.numel() == 6 * length * length

@@ -235,8 +235,8 @@ def test_route_of_a_radix4_clip_past_k9_runs_k2_stage(method):
 def test_hops_and_phases_share_one_front_end():
     """K2 and K8 run one stage through one entry point: their configs get
     one FrontEnd (one upload of the DFT constant, the mel runs and the
-    split tiles' counters), whatever cfg's dft_variant; radix4 and K4's
-    FP32 stage keep their own."""
+    split tiles' counters), whatever cfg's dft_variant; radix4 keeps its
+    own, and K4's former FP32 stage has none."""
     cfg = get_preset("TCResNet8-1.0").audio
     hops = mfcc.front_end(dataclasses.replace(cfg, dft_variant="hops"), 16000, "cpu", "hops")
     phases = mfcc.front_end(dataclasses.replace(cfg, dft_variant="phases"), 16000,
@@ -244,8 +244,9 @@ def test_hops_and_phases_share_one_front_end():
     assert phases is hops and hops.variant == "hops"
     assert mfcc.front_end(cfg, 16000, "cpu") is hops
     assert mfcc.ENTRIES["hops"] == mfcc.ENTRIES["phases"]
-    for other in ("radix4", "fp32"):
-        assert mfcc.front_end(cfg, 16000, "cpu", other) is not hops
+    assert mfcc.front_end(cfg, 16000, "cpu", "radix4") is not hops
+    with pytest.raises(ValueError, match="unknown DFT variant"):
+        mfcc.front_end(cfg, 16000, "cpu", "fp32")  # K4's former FP32 stage
 
 
 def _fp32_design_served(cfg: AudioConfig, n: int) -> bool:

@@ -15,7 +15,6 @@ from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_j
 from tcresnet_tpu_torch.ops import dsp as tdsp
 from tcresnet_tpu_torch.ops.kernels import _build
 from tcresnet_tpu_torch.ops.kernels import infer as k4
-from tcresnet_tpu_torch.ops.kernels import mfcc
 from tests.test_torch_config import to_jax_config
 
 torch.set_num_threads(1)
@@ -103,20 +102,13 @@ def test_availability_gates():
     assert not k4.fused_infer_available(ModelConfig(name="ResNet2D8"), good)
     for bad in (dataclasses.replace(good, window_size_ms=25.0),
                 dataclasses.replace(good, preprocess_method="no_preprocessing"),
-                dataclasses.replace(good, clip_duration_ms=4000)):  # shared memory
+                # shared memory: a 10 s clip's features and conv buffers
+                dataclasses.replace(good, clip_duration_ms=10000)):
         assert not k4.fused_infer_available(ModelConfig(), bad)
     with pytest.raises(ValueError, match="does not serve"):
         k4.build_fused_infer(ModelConfig(name="TCResNet8"),
                              dataclasses.replace(good, window_size_ms=25.0), {}, {},
                              device="cpu")
-
-
-def test_interleaved_dft_matrix_layout():
-    std = tdsp.windowed_rdft_matrix(480, 512)
-    inter = mfcc.interleaved_dft_matrix(480, 512, 129).reshape(480, 258, 2)
-    np.testing.assert_array_equal(inter[:, :257, 0], std[:, :257])
-    np.testing.assert_array_equal(inter[:, :257, 1], std[:, 257:])
-    assert not inter[:, 257:].any()
 
 
 def test_cpu_tensor_takes_the_plain_version_only():
