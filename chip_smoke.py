@@ -52,12 +52,12 @@ print their lines:
               ms/step, utt/s and the device's busy share of the step for
               the input legs at batch 1536 and 4096
  12. build    tconv.cu (K7: fwd, dx, dw), the ptxas line of each kernel
-              (K7 fwd's and dx's by their n8-tile width); fails if a fwd or
-              dx tile spills
+              (fwd's and dx's by their n8-tile width, dw's by its m16 and
+              n8 tiles); fails if a fwd, dx or dw tile spills
  13. kernel   K7 against its plain version (TF32 off) at TCResNet8-1.0's ten
-              conv geometries, batch 1, 8, 1536, f32 and bf16-rounded
-              inputs, and TCResNet14-1.5's at batch 1536; launch counters;
-              fwd, dx and dw identical on two calls
+              conv geometries, TCResNet14-1.5's and an even k at stride 3,
+              batch 1, 8, 1536, f32 and bf16-rounded inputs; launch
+              counters; fwd, dx and dw identical on two calls
  14. train    the main path through K7: Trainer with conv_backend="pallas"
               at batch 1536 in bf16, 30 steps, a checkpoint every 10; K7
               launches per step (10 fwd, 9 dx, 10 dw) and per train-stream
@@ -72,11 +72,11 @@ print their lines:
               sleep (tools/tconv_times.py; a drained launch queue is named
               in the line), dx also over the nine convs a step launches it
               for, the eager readings (host gaps included) and the plain
-              versions beside; the FP32-FMA fwd and dx designs' times
-              quoted; K7 beside cuDNN f32 and bf16 (the `xla` step's call)
-              by torch.profiler; the host's enqueue of the ten fwd calls;
-              the train step "pallas" against "xla", with its device time
-              by kind and its costliest kernels; eval utt/s
+              versions beside; the FP32-FMA fwd, dx and dw designs'
+              times quoted; K7 beside cuDNN f32 and bf16 (the `xla`
+              step's call) by torch.profiler; the host's enqueue of the
+              ten fwd calls; the train step "pallas" against "xla", with
+              its device time by kind and its costliest kernels; eval utt/s
  17. build    infer2d.cu (K5, the 2D families' op-list kernel), its ptxas
               line and its cooperative grid
  18. kernel   K5 against its plain version (TF32 off) for every 2D preset
@@ -186,7 +186,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from tcresnet_tpu_torch.tools.frontend_times import graph_of, hops_times, queued_ms  # noqa: E402
 from tcresnet_tpu_torch.tools.infer_times import crossover, k4_times  # noqa: E402
 from tcresnet_tpu_torch.tools.tconv_times import conv_cases, conv_geometries, conv_ops  # noqa: E402
-from tcresnet_tpu_torch.tools.tconv_times import k7_times  # noqa: E402
+from tcresnet_tpu_torch.tools.tconv_times import conv_work, k7_times  # noqa: E402
 
 # logits / softmax tolerances of the JAX package's kernel test
 # (tests/test_pallas_infer.py): kernel and plain version differ by
@@ -224,11 +224,11 @@ SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# K5's, K8's and K9's bound rate: the float32-exact tensor-core rate. K5
-# computes its convs and dense layers, K8 and K9 their DFT products, as 3xTF32 (three
-# TF32 products per float32 product, at the 495 TFLOP/s TF32 peak), so
-# FP32_FLOPS is no longer the least time the card could take for that work;
-# every other kernel keeps FP32_FLOPS
+# K5's, K7's, K8's and K9's bound rate: the float32-exact tensor-core rate.
+# K5 computes its convs and dense layers, K7 its three passes, K8 and K9
+# their DFT products, as 3xTF32 (three TF32 products per float32 product,
+# at the 495 TFLOP/s TF32 peak), so FP32_FLOPS is no longer the least time
+# the card could take for that work; every other kernel keeps FP32_FLOPS
 TF32X3_FLOPS = 495e12 / 3
 # K5's earlier design (per-thread FP32 FMA, no K split) and the cuDNN model
 # beside it, quoted from PERF.md (PR 5's run; ms; NVIDIA H100 80GB HBM3,
@@ -256,6 +256,11 @@ FP32_K7_FWD_MS = 0.6834
 # (ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): printed beside this
 # run's time, never in the kernels summary
 FP32_K7_DX_MS = 0.9222
+# K7 dw's earlier design (per-thread FP32 FMA, 4 x 4 outputs a thread) the
+# same way, timed by tools/tconv_times.py on a checkout of that design
+# (ms, the lesser of its readings; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md): printed beside this run's time, never in the kernels summary
+FP32_K7_DW_MS = 1.1089
 # K2's and K3-hops' earlier design (per-thread FP32 FMA, one block per
 # utterance), timed by tcresnet_tpu_torch/tools/frontend_times.py on a
 # checkout of that design (ms; NVIDIA H100 80GB HBM3, 700.00 W; behind a
@@ -949,9 +954,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.evaluation.evaluator import Evaluator
-    from tcresnet_tpu_torch.models.layers import same_padding
     from tcresnet_tpu_torch.ops.kernels import tconv as k7
-    from tcresnet_tpu_torch.ops.kernels.infer2d import valid_taps
     from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
     from tcresnet_tpu_torch.tools.train import load_run_config, load_split
     from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
@@ -961,10 +964,11 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     line = ptxas_line("tconv")
     print(f"[build] tconv.cu for sm_90a | {line}")
     k7.build_kernels()
-    tiles = re.findall(r"k7_(fwd|dx)_kernel<(\d+)>: \d+ bytes stack frame, (\d+) bytes spill "
-                       r"stores", line)
-    check(len(tiles) == 18 and all(b == "0" for *_, b in tiles),
-          f"tconv.cu: K7 fwd / dx tiles missing from the ptxas line or spilling: {tiles}")
+    # fwd and dx at n8 widths 1-9, dw at its 26 (m16, n8) tile pairs
+    tiles = re.findall(r"k7_(fwd|dx|dw)_kernel<([\d,]+)>: \d+ bytes stack frame, (\d+) bytes "
+                       r"spill stores", line)
+    check(len(tiles) == 18 + 26 and all(b == "0" for *_, b in tiles),
+          f"tconv.cu: K7 fwd / dx / dw tiles missing from the ptxas line or spilling: {tiles}")
 
     # ---- 13. K7 against its plain version ----
     flagship = get_preset("TCResNet8-1.0")
@@ -982,7 +986,11 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
         return x, w, dy
 
     errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    cases = [("TCResNet8-1.0", b, geoms) for b in (1, 8, 1536)] + [("TCResNet14-1.5", 1536, geoms14)]
+    # an even tap count at stride 3 over 36 channels (tests/test_torch_cuda.py)
+    odd = [(4, 3, 36, 36, 98)]
+    cases = [(label, b, gs) for b in (1, 8, 1536)
+             for label, gs in (("TCResNet8-1.0", geoms), ("TCResNet14-1.5", geoms14),
+                               ("k=4 stride 3", odd))]
     for label, batch, gs in cases:
         for bf16 in (False, True):
             worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_rel": 0.0}
@@ -1143,7 +1151,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     # cuDNN, kernel; the eager reading beside it counts the gaps the host
     # leaves between the launches
     queued = k7_times(convs)
-    quoted = {"fwd": FP32_K7_FWD_MS, "dx": FP32_K7_DX_MS}
+    quoted = {"fwd": FP32_K7_FWD_MS, "dx": FP32_K7_DX_MS, "dw": FP32_K7_DW_MS}
     ms = {}
     for op, (kernel, plain, cudnn) in ops.items():
         (a, d), (b, c), full = (queued[op]["ten"][key] for key in ("kernel", "cudnn", "queue_full"))
@@ -1248,24 +1256,18 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
               f"{eval_batch} " + " / ".join(f"{b * 1e3:.2f}" for _, b in runs) + " ms, "
               f"{eval_batch / min(b for _, b in runs):,.0f} utt/s | {card}")
 
-    # bounds over the ten convs at batch 1536: every tap of x that meets
-    # the map, multiplied once per output channel; each op reads two of
-    # x / w / dy and writes the third
-    k7_flops = k7_bytes = 0
-    for k, s, ci, co, t in geoms:
-        to, lo, _ = same_padding(t, k, s)
-        k7_flops += 2 * batch * valid_taps(to, t, k, s, lo) * ci * co
-        k7_bytes += 4 * (batch * ci * t + co * ci * k + batch * co * to)
+    # bounds over the ten convs at batch 1536 (tools/tconv_times.py::conv_work)
+    k7_flops, k7_bytes = (sum(w) for w in zip(*(conv_work(g, batch) for g in geoms)))
 
-    def entry(op, line, rate=FP32_FLOPS):
+    def entry(op, line):
         return {"name": f"k7_tconv_{op}", "route": "cuda",
                 "source": "tcresnet_tpu_torch/csrc/tconv.cu",
                 "replaces": f"tcresnet_tpu/ops/pallas/tconv.py:{line}",
                 "launches": main_launches[op], "max_abs_err": errs[op],
-                **ms[op], **bound(k7_flops, k7_bytes, rate), "cudnn_ms": ms[op]["library_ms"]}
+                **ms[op], **bound(k7_flops, k7_bytes, TF32X3_FLOPS),
+                "cudnn_ms": ms[op]["library_ms"]}
 
-    # fwd and dx compute their products as 3xTF32; dw in FP32 FMA
-    return [entry("fwd", 63, TF32X3_FLOPS), entry("dx", 68, TF32X3_FLOPS), entry("dw", 99)]
+    return [entry("fwd", 63), entry("dx", 68), entry("dw", 99)]
 
 
 def infer2d_phases(dev: torch.device, card: str) -> list:

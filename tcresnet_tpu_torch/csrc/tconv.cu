@@ -15,7 +15,7 @@
 // narrower than one wgmma tile; each pass is ~2.3 G multiply-adds per
 // TCResNet8-1.0 step at batch 1536, over ~141 MB of activations, so at the
 // float32-exact tensor-core rate (3xTF32, 165 TFLOP/s) a pass is bound by
-// its bytes (~0.04 ms), at the FP32 FMA rate (67 TFLOP/s) by its operations.
+// its bytes (~0.04 ms); all three compute their products that way.
 //
 // What the design does about it:
 // - fwd is an implicit GEMM on the tensor cores: M = (sample, output
@@ -58,16 +58,35 @@
 //   store (k7_mma_step, k7_store), so arithmetic and order are fwd's:
 //   3xTF32, each k8 step from zero, no split K: two calls give the same
 //   bits.
-// - dw is a reduction over B * To rows (150,528 for conv0 at batch 1536).
-//   Blocks run in no order, so it uses no float atomics: each block sums a
-//   fixed batch chunk into its own partial [Co, Ci * k] (4 x 4 outputs per
-//   thread, FP32 FMA), and a second kernel adds the partials in chunk order.
-//   Two calls give the same bits.
+// - dw is the implicit GEMM the other way round: M = output channels (all
+//   of them in a block, up to 5 m16 tiles), N = (input channel, tap)
+//   columns, an n8 tile being 8 input channels at one tap, K = the B * To
+//   (sample, position) rows (150,528 for conv0 at batch 1536). A block
+//   walks a fixed chunk of whole samples in windows of 128 rows, two in
+//   flight by cp.async: per output channel one row of the window's dy
+//   (channel stride 4 mod 8 floats: the A fragment's lanes read channel
+//   g, row tig), and per input channel and stride phase one row of x slots
+//   as fwd stages them (tap j reads phase j % s at slot offset j / s); a
+//   thread decodes one row or slot and copies it for every channel.
+//   Rows are not padded per sample: a k8 step that crosses a sample
+//   boundary computes each row's slot (row + halo * its sample in the
+//   window), where padding every sample to 8 rows would cost 6%, 14%, 28%
+//   and 23% more products at To = 98, 49, 25 and 13. Two warps split the
+//   block's column tiles and two its k8 steps (on the card this beat four
+//   warps on rows, which restage dy for twice the column blocks, and four
+//   on columns); each step runs fwd's arithmetic (3xTF32, lo*hi, hi*lo,
+//   hi*hi from zero, added to float32 sums), and the two row warps' sums
+//   are added in order at the end. Blocks run in no order, so there are no
+//   float atomics: each chunk writes its own partial [Co, Ci * k], and a
+//   second kernel adds the partials in chunk order (one chunk writes dw
+//   itself). The chunk count (ops/kernels/tconv.py::_dw_plan) trades grid
+//   fill (~2 blocks an SM) against partial traffic. Two calls give the
+//   same bits.
 //
 // How it differs from the TPU kernels: no batch tile or batch padding (the
 // grid covers the batch exactly), no VMEM-resident dw carried across a
 // sequential grid (partials and a fixed-order second pass instead), no
-// zero-stuffed dy; fwd and dx compute in 3xTF32 where the TPU kernel used
+// zero-stuffed dy; the three compute in 3xTF32 where the TPU kernel used
 // f32 matmuls.
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
@@ -83,23 +102,27 @@ struct K7Args {
   const float* w;   // fwd, dx: [co, ci, k]
   const float* dy;  // dx, dw: [batch, co, to]
   float* out;       // fwd: [batch, co, to]; dx: [batch, ci, t]; dw: [co, ci, k]
-  float* partial;   // dw: [nchunks, co, ci * k] scratch
+  float* partial;   // dw: [nchunks, co, ci * k] scratch (out itself when nchunks is 1)
   int batch, ci, co, k, stride, t, to, lo;
-  int nb;       // dw: samples staged in shared memory at once
   int chunk;    // dw: samples summed into one partial
   int nchunks;  // dw: ceil(batch / chunk)
   int smem_bytes;
-  // fwd: slots per sample in a staged row (to + (k - 1) / stride), slots of
-  // one phase's row; fwd, dx: floats between two channels' rows, channel
-  // steps of 8 per slice, n8 tiles of output (dx: input) channels per block
+  // fwd: slots per sample in a staged row (to + (k - 1) / stride); fwd, dw:
+  // slots of one phase's row; fwd, dx, dw: floats between two staged
+  // input-channel (dx: output-channel) rows; fwd, dx: channel steps of 8
+  // per slice; fwd, dx, dw: n8 tiles of columns per block
   int ql, slot_len, xrow, kslice, nt;
+  // dw: m16 tiles of output channels, input-channel groups of 8 a block
+  // stages at most
+  int mt, groups;
 };
-
-#define K7_THREADS 256
 
 #define K7F_WARPS 4
 #define K7F_MT 2                            // m16 tiles per warp
 #define K7F_ROWS (K7F_WARPS * K7F_MT * 16)  // output rows per fwd / dx block
+#define K7W_ROWS (K7F_WARPS * 32)           // rows (sample, position) of a dw window
+#define K7W_DROW (K7W_ROWS + 4)             // floats a dw window's dy row takes
+#define K7W_WN 2  // dw warps that split a block's columns (the others split its rows)
 
 // The fwd and dx blocks share their tiles, their k8 step and their store.
 // Rows m = n * per + r (sample n, position r) of a block whose first row is
@@ -162,6 +185,26 @@ __device__ __forceinline__ void k7_mma_step(float (&acc)[K7F_MT][NT][4], const f
     for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[mi][ni][e];
+}
+
+// dw's k8 step for one m16 tile of A and NT n8 tiles of B, split as in
+// k7_mma_step: each tile's lo*hi, hi*lo, hi*hi summed from zero, in three
+// passes of independent products, and added to acc.
+template <int NT>
+__device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], const uint32_t (&bhi)[NT][2],
+                                          const uint32_t (&blo)[NT][2]) {
+  float p[NT][4];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) mma_tf32_zero(p[ni], alo, bhi[ni]);
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) mma_tf32(p[ni], ahi, blo[ni]);
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) mma_tf32(p[ni], ahi, bhi[ni]);
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] += p[ni][e];
 }
 
 // Stores acc, c0 and c1 at (row g, channels 2 tig, 2 tig + 1), c2 and c3 at
@@ -398,81 +441,176 @@ __global__ void __launch_bounds__(K7F_WARPS * 32) k7_dx_kernel(const K7Args a) {
   });
 }
 
-// dw, first pass. grid (nchunks, ceil(tiles / 256)); a tile is 4 output
-// channels x 4 (ci, j) columns. Block x sums samples
-// [x * chunk, min((x + 1) * chunk, batch)) into partial[x].
-__global__ void __launch_bounds__(K7_THREADS) k7_dw_partial_kernel(const K7Args a) {
+// dw, first pass. grid (nchunks, ceil(n8 / (2 NT))), n8 = k * ceil(ci /
+// 8) column tiles: tile u is 8 input channels at one tap, (c8, j) =
+// divmod(u, k). Block (x, y) sums the rows (n, o) of samples [x * chunk,
+// min((x + 1) * chunk, batch)) for every output channel (MT m16 tiles)
+// and the column tiles [2 NT y, 2 NT y + 2 NT), and writes them to
+// partial[x]. Warp w takes the NT tiles from 2 NT y + NT (w % 2) (K7W_WN
+// column warps) and k8 steps w / 2, w / 2 + 2, ... of each window; the two
+// row warps' sums are added in that order at the end.
+//
+// A block walks its rows in windows of K7W_ROWS, two in flight (the next
+// one's cp.async copies overlap this one's products). A window stage holds
+// ds[co][v], dy of window row v, K7W_DROW floats a channel (4 mod 8, so a
+// fragment's lanes, g = channel and tig = row, hit 32 banks; the rows of
+// channels co .. 16 MT - 1 are zero), then xs[c][phase][slot] for the 8 *
+// groups input channels of the block's tiles (a.xrow floats a channel, 4
+// mod 8), staged as fwd stages them: window row v = (sample n0 + nl,
+// position o) reads tap j at slot v + halo * nl + j / s of phase j % s, a
+// slot u holding position q = (u + o_first) % ql of sample n0 + (u +
+// o_first) / ql, ql = to + halo. A thread stages one row v (dy) or slot u
+// (x) for every channel, so each decode is shared by the channels. Rows
+// past the chunk's end are zero in ds; their x slots are clamped to the
+// window's last row. Launch bounds of one block an SM leave ptxas the
+// registers the widest tiles need without spilling (at (128) alone it
+// held some to 96 or 128 and spilled).
+template <int MT, int NT>
+__global__ void __launch_bounds__(K7F_WARPS * 32, 1) k7_dw_kernel(const K7Args a) {
+  constexpr int WN = K7W_WN, WK = K7F_WARPS / K7W_WN;
   extern __shared__ __align__(16) float smem[];
-  const int cols = a.ci * a.k;
-  const int tp = (a.to - 1) * a.stride + a.k;
-  const int xrows = a.ci * tp, drows = a.co * a.to;
-  float* xs = smem;                // [nb][ci][tp], zero-padded
-  float* ds = smem + a.nb * xrows;  // [nb][co][to]
-  const int col_groups = (cols + 3) / 4;
-  const int tile = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = tile < ((a.co + 3) / 4) * col_groups;
-  const int cg = active ? tile / col_groups : 0;
-  const int mg = active ? tile % col_groups : 0;
-  int xoff[4], doff[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int m = min(4 * mg + q, cols - 1);
-    const int ci = m / a.k;
-    xoff[q] = ci * tp + (m - ci * a.k);
-    doff[q] = min(4 * cg + q, a.co - 1) * a.to;
-  }
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wn = warp % WN, wk = warp / WN;  // column warp, row warp
+  const int g = lane >> 2, tig = lane & 3;
+  const int k = a.k, s = a.stride, to = a.to;
+  const int halo = (k - 1) / s, ql = to + halo;
+  const int phases = min(s, k);  // phases some tap reads
+  const int b1 = min(a.batch, (blockIdx.x + 1) * a.chunk);
+  const int r0 = blockIdx.x * a.chunk * to, r1 = b1 * to;  // the chunk's rows
+  const int n8 = k * ((a.ci + 7) / 8);
+  const int u0 = blockIdx.y * WN * NT, u_last = min(u0 + WN * NT, n8) - 1;
+  const int c80 = u0 / k;  // the first channel group staged, and the channels staged
+  const int cs = min(8 * (u_last / k - c80 + 1), a.ci - 8 * c80);
+  const int ds_floats = MT * 16 * K7W_DROW;
+  const int stage_floats = ds_floats + 8 * a.groups * a.xrow;
+  // row v's sample in the window, (v + o_first) / to, as a product with
+  // ceil(2^32 / to), exact while (v + o_first) * to < 2^32
+  const unsigned long long to_inv = (0x100000000ull + to - 1) / to;
 
-  const int c0 = blockIdx.x * a.chunk, c1 = min(a.batch, c0 + a.chunk);
-  for (int b = c0; b < c1; b += a.nb) {
-    const int nb = min(a.nb, c1 - b);
-    __syncthreads();  // the previous group is consumed
-    const float* x = a.x + (size_t)b * a.ci * a.t;
-    for (int i = threadIdx.x; i < nb * xrows; i += blockDim.x) {
-      const int r = i / tp, p = i - r * tp - a.lo;
-      xs[i] = (p >= 0 && p < a.t) ? x[(size_t)r * a.t + p] : 0.f;
+  // this thread's fragment columns: channel g of tile u0 + NT wn + ni
+  // (tiles past n8 read the last one and are not stored), at phase j % s,
+  // slot offset j / s
+  int xcol[NT];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    const int u = min(u0 + wn * NT + ni, n8 - 1), c8 = u / k, j = u - c8 * k;
+    xcol[ni] = ds_floats + ((c8 - c80) * 8 + g) * a.xrow + (j % s) * a.slot_len + j / s;
+  }
+  // the dy rows of channels past co, in both stages, are zero for good
+  for (int i = a.co * K7W_DROW + threadIdx.x; i < ds_floats; i += K7F_WARPS * 32) {
+    smem[i] = 0.f;
+    smem[stage_floats + i] = 0.f;
+  }
+
+  auto stage = [&](int win, float* buf) {
+    const int w0 = r0 + win * K7W_ROWS, live = min(K7W_ROWS, r1 - w0);
+    const int n0 = w0 / to, o_first = w0 - n0 * to;
+    // dy: a window row v of every output channel a thread; rows past the
+    // chunk (up to the last k8 step) zero-filled
+    for (int v = threadIdx.x; v < ((live + 7) & ~7); v += K7F_WARPS * 32) {
+      const int nl = (v + o_first) / to;
+      const bool valid = v < live;
+      const float* src = a.dy + ((size_t)(n0 + nl) * a.co * to + v + o_first - nl * to);
+      for (int c = 0; c < a.co; ++c)
+        cp_async4(buf + c * K7W_DROW + v, valid ? src + (size_t)c * to : a.dy, valid);
     }
-    const float* dy = a.dy + (size_t)b * drows;
-    for (int i = threadIdx.x; i < nb * drows; i += blockDim.x) ds[i] = dy[i];
-    __syncthreads();
-    if (!active) continue;
-    for (int n = 0; n < nb; ++n) {
-      const float* xr = xs + n * xrows;
-      const float* dr = ds + n * drows;
-      for (int o = 0; o < a.to; ++o) {
-        float d[4], v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          d[q] = dr[doff[q] + o];
-          v[q] = xr[xoff[q] + o * a.stride];
+    // x: the slots the window's rows read, of every staged channel and
+    // phase; padding, channels past ci and samples past the chunk
+    // zero-filled
+    const int slots = live + halo * ((live - 1 + o_first) / to + 1);
+    for (int u = threadIdx.x; u < slots; u += K7F_WARPS * 32) {
+      const int nl = (u + o_first) / ql, q = u + o_first - nl * ql;
+      const bool in_chunk = n0 + nl < b1;
+      const float* src = a.x + (((size_t)(n0 + nl) * a.ci + 8 * c80) * a.t + q * s - a.lo);
+      float* dst = buf + ds_floats + u;
+      for (int ph = 0; ph < phases; ++ph) {
+        const int tin = q * s + ph - a.lo;
+        const bool valid = in_chunk && tin >= 0 && tin < a.t;
+        for (int c = 0; c < 8 * a.groups; ++c) {
+          const bool ok = valid && c < cs;
+          cp_async4(dst + c * a.xrow + ph * a.slot_len, ok ? src + ph + (size_t)c * a.t : a.x,
+                    ok);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(d[i], v[j], acc[i][j]);
       }
     }
-  }
-  if (!active) return;
-  float* part = a.partial + (size_t)blockIdx.x * a.co * cols;
+  };
+
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = 4 * cg + i;
-    if (co >= a.co) break;
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = 4 * mg + j;
-      if (m < cols) part[(size_t)co * cols + m] = acc[i][j];
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  const int windows = (r1 - r0 + K7W_ROWS - 1) / K7W_ROWS;
+  stage(0, smem);
+  cp_async_commit();
+  for (int win = 0; win < windows; ++win) {
+    if (win + 1 < windows) stage(win + 1, smem + ((win + 1) & 1) * stage_floats);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = smem + (win & 1) * stage_floats;
+    const int w0 = r0 + win * K7W_ROWS, live = min(K7W_ROWS, r1 - w0);
+    const int o_first = w0 % to;
+    for (int st = wk; st * 8 < live; st += WK) {
+      // B: the x slots of this thread's rows tig and tig + 4 (clamped to
+      // the last live row: its dy is zero past it)
+      uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = min(st * 8 + tig + 4 * h, live - 1);
+        const int slot = v + halo * (int)(((unsigned long long)(v + o_first) * to_inv) >> 32);
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) split_tf32_rn(buf[xcol[ni] + slot], bhi[ni][h], blo[ni][h]);
+      }
+      // A, one m16 tile at a time: channels 16 mi + g (+ 8), rows tig (+ 4)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const float* ar = buf + (mi * 16 + g) * K7W_DROW + st * 8 + tig;
+        uint32_t ahi[4], alo[4];
+        split_tf32_rn(ar[0], ahi[0], alo[0]);
+        split_tf32_rn(ar[8 * K7W_DROW], ahi[1], alo[1]);
+        split_tf32_rn(ar[4], ahi[2], alo[2]);
+        split_tf32_rn(ar[8 * K7W_DROW + 4], ahi[3], alo[3]);
+        mma3_tf32<NT>(acc[mi], ahi, alo, bhi, blo);
+      }
     }
+    __syncthreads();  // the window is consumed before the next stage lands on it
+  }
+  cp_async_wait<0>();
+
+  // the row warps' sums, added in order, to partial[x]: channel co = 16 mi
+  // + lane / 4 (+ 8 for e >= 2) and column 8 c8 + 2 (lane % 4) (+ 1 for odd
+  // e) of tile u0 + NT w + ni, for column warp w
+  float* red = smem;
+  const int per_warp = MT * NT * 128;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[warp * per_warp + ((mi * NT + ni) * 4 + e) * 32 + lane] = acc[mi][ni][e];
+  __syncthreads();
+  float* part = a.partial + (size_t)blockIdx.x * a.co * a.ci * k;
+  for (int i = threadIdx.x; i < WN * per_warp; i += K7F_WARPS * 32) {
+    const int w = i / per_warp, r = i - w * per_warp;  // column warp w's element r
+    const int l = r & 31, e = (r >> 5) & 3, tile = r >> 7;
+    const int mi = tile / NT, u = u0 + w * NT + tile - mi * NT;
+    const int co = mi * 16 + (l >> 2) + 8 * (e >> 1);
+    const int c8 = u / k, j = u - c8 * k, ci = c8 * 8 + 2 * (l & 3) + (e & 1);
+    if (co >= a.co || u >= n8 || ci >= a.ci) continue;
+    float sum = red[w * per_warp + r];
+#pragma unroll
+    for (int q = 1; q < WK; ++q) sum += red[(q * WN + w) * per_warp + r];
+    part[((size_t)co * a.ci + ci) * k + j] = sum;
   }
 }
 
 // dw, second pass: out[i] = sum over chunks c = 0, 1, ... of partial[c][i].
-__global__ void __launch_bounds__(K7_THREADS) k7_dw_reduce_kernel(const K7Args a) {
+__global__ void __launch_bounds__(256) k7_dw_reduce_kernel(const K7Args a) {
   const int n = a.co * a.ci * a.k;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -537,15 +675,30 @@ extern "C" int k7_dx(const K7Args* a, void* stream) {
   }
 }
 
-// Both passes of dw, in order on the one stream.
+// The (MT, NT) tiles a dw warp may take (ops/kernels/tconv.py::_DW_MAX_NT):
+// at most 8, 6, 5, 4, 3 n8 tiles beside 1-5 m16 tiles.
+#define K7_DW_TILES(X)                                                                      \
+  X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(2, 1) X(2, 2) X(2, 3) \
+  X(2, 4) X(2, 5) X(2, 6) X(3, 1) X(3, 2) X(3, 3) X(3, 4) X(3, 5) X(4, 1) X(4, 2) X(4, 3) \
+  X(4, 4) X(5, 1) X(5, 2) X(5, 3)
+
+// Both passes of dw, in order on the one stream; one chunk needs no
+// second pass (its partial is out).
 extern "C" int k7_dw(const K7Args* a, void* stream) {
-  const int tiles = ((a->co + 3) / 4) * ((a->ci * a->k + 3) / 4);
-  const dim3 grid(a->nchunks, (tiles + K7_THREADS - 1) / K7_THREADS);
-  const int rc = launch<k7_dw_partial_kernel>(grid, K7_THREADS, a, stream);
-  if (rc != 0) return rc;
+  const int n8 = a->k * ((a->ci + 7) / 8);
+  const dim3 grid(a->nchunks, (n8 + K7W_WN * a->nt - 1) / (K7W_WN * a->nt));
+  const int threads = K7F_WARPS * 32;
+  int rc = (int)cudaErrorInvalidValue;
+  switch (a->mt * 16 + a->nt) {
+#define K7_DW_CASE(MT, NT) \
+  case MT * 16 + NT: rc = launch<k7_dw_kernel<MT, NT>>(grid, threads, a, stream); break;
+    K7_DW_TILES(K7_DW_CASE)
+#undef K7_DW_CASE
+    default: break;
+  }
+  if (rc != 0 || a->nchunks == 1) return rc;
   const int n = a->co * a->ci * a->k;
-  k7_dw_reduce_kernel<<<(n + K7_THREADS - 1) / K7_THREADS, K7_THREADS, 0,
-                        (cudaStream_t)stream>>>(*a);
+  k7_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,7 @@ The JAX package's batch tile, batch padding and zero-stuffed dy were
 Mosaic artifacts and are left out.
 
 `fwd_launches`, `dx_launches` and `dw_launches` count kernel launches and
-nothing else (a dw launch runs its two passes).
+nothing else (a dw launch runs its one or two passes).
 """
 
 from __future__ import annotations
@@ -51,11 +51,6 @@ fwd_launches = 0
 dx_launches = 0
 dw_launches = 0
 
-# Shared memory a dw block stages its samples' rows in (floats): 48 KB.
-_STAGE_FLOATS = 12288
-_THREADS = 256
-# dw aims at this many blocks (two per SM of the H100's 132)
-_DW_BLOCKS = 264
 # fwd and dx: output rows (sample, position) per block (K7F_ROWS), n8 tiles
 # of output channels per block at most (the template widths 1-9), k8 steps
 # a slice of channels aims at, and the shared memory a block may use
@@ -63,6 +58,21 @@ _FWD_ROWS = 128
 _FWD_MAX_NT = 9
 _FWD_SLICE_STEPS = 18
 _SMEM_LIMIT = 232448
+# dw: rows (sample, position) a staged window holds (K7W_ROWS; two windows
+# are staged at once) and floats a window's dy row takes (K7W_DROW, 4 mod
+# 8: a fragment's lanes, channel g and row tig, read 32 distinct banks);
+# the warps that split a block's column tiles
+# (K7W_WN; the other two split its rows); blocks the grid aims at (two per
+# SM of the H100's 132); rows a chunk holds at least; the most bytes of
+# partials against the x and dy they sum; the most n8 tiles a warp takes
+# beside 1-5 m16 tiles of output channels (K7_DW_TILES)
+_DW_WINDOW = 128
+_DW_DROW = _DW_WINDOW + 4
+_DW_WN = 2
+_DW_BLOCKS = 264
+_DW_MIN_ROWS = 256
+_DW_PARTIAL_SHARE = 0.5
+_DW_MAX_NT = (8, 6, 5, 4, 3)
 
 
 class _K7Args(ctypes.Structure):
@@ -71,8 +81,8 @@ class _K7Args(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("x", "w", "dy", "out", "partial")]
         + [(f, ctypes.c_int) for f in (
-            "batch", "ci", "co", "k", "stride", "t", "to", "lo", "nb", "chunk",
-            "nchunks", "smem_bytes", "ql", "slot_len", "xrow", "kslice", "nt")]
+            "batch", "ci", "co", "k", "stride", "t", "to", "lo", "chunk", "nchunks",
+            "smem_bytes", "ql", "slot_len", "xrow", "kslice", "nt", "mt", "groups")]
     )
 
 
@@ -107,6 +117,25 @@ class DxPlan(NamedTuple):
     xrow: int
     kslice: int
     slices: int
+    smem_bytes: int
+
+
+class DwPlan(NamedTuple):
+    """How `k7_dw_kernel` cuts one conv: m16 tiles of output channels (all
+    of them in every block), n8 tiles of (input channel, tap) columns per
+    warp (a block has _DW_WN times as many), the grid (chunks, column
+    blocks), samples per chunk, input channel groups of 8 a block stages
+    at most, slots of one phase's x row, floats between two input
+    channels' staged x rows (4 mod 8, as _DW_DROW), shared memory bytes
+    (two window stages, or the warps' sums at the end if larger)."""
+
+    mt: int
+    nt: int
+    grid: Tuple[int, int]
+    chunk: int
+    groups: int
+    slot_len: int
+    xrow: int
     smem_bytes: int
 
 
@@ -310,32 +339,66 @@ def _kernel_dx(dy: torch.Tensor, w: torch.Tensor, t: int, stride: int) -> torch.
     return dx
 
 
-def _dw_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> Tuple[int, int, int]:
-    """(samples staged at once, samples per partial, partials) of the dw
-    kernel: a fixed function of the shapes, so the partials, and the
-    fixed-order sum over them, are the same on every call."""
+def _four_mod_eight(n: int) -> int:
+    """The least row stride >= n floats that is 4 mod 8: 8 channels' rows
+    then start on 8 distinct multiples of 4 banks, and a fragment's lanes
+    (channel g, row tig) read 32 distinct banks."""
+    return n + (4 - n) % 8
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_plan(batch: int, ci: int, co: int, k: int, t: int, stride: int) -> DwPlan:
+    """The dw kernel's cut of a conv, a pure function of the shapes, so the
+    partials, and the fixed-order sum over them, are the same on every call.
+
+    A block holds every output channel (mt <= 5) and _DW_WN * nt column
+    tiles, nt the most a warp's registers hold beside mt (_DW_MAX_NT),
+    spread evenly over the column blocks. The chunks, whole samples, are as
+    many as bring the grid to about _DW_BLOCKS blocks, each of at least
+    _DW_MIN_ROWS rows, while their partials (co * ci * k floats each,
+    written once and read once) stay within _DW_PARTIAL_SHARE of the bytes
+    of x and dy; or one chunk takes every row and writes dw itself. A
+    geometry the kernel does not serve raises."""
     to, _, _ = same_padding(t, k, stride)
-    tp = (to - 1) * stride + k
-    nb = max(1, min(batch, _STAGE_FLOATS // (ci * tp + co * to)))
-    tiles = -(-co // 4) * -(-(ci * k) // 4)
-    chunks = max(1, _DW_BLOCKS // -(-tiles // _THREADS))
-    chunk = max(nb, -(-batch // chunks))
-    return nb, chunk, -(-batch // chunk)
+    mt = -(-co // 16)
+    if mt > len(_DW_MAX_NT):
+        raise ValueError(f"k7_dw: {co} output channels, more than the kernel's "
+                         f"{16 * len(_DW_MAX_NT)}")
+    n8 = k * -(-ci // 8)
+    nt = min(-(-n8 // _DW_WN), _DW_MAX_NT[mt - 1])
+    gy = -(-n8 // (_DW_WN * nt))
+    nt = -(-n8 // (gy * _DW_WN))
+    cols = _DW_WN * nt  # n8 tiles a block
+    groups = max((min(u + cols, n8) - 1) // k - u // k + 1 for u in range(0, n8, cols))
+    inputs = batch * (ci * t + co * to)
+    chunks = max(1, min(-(-_DW_BLOCKS // gy), batch * to // _DW_MIN_ROWS,
+                        int(_DW_PARTIAL_SHARE * inputs) // (co * ci * k)))
+    chunk = -(-batch // chunks)
+    halo = (k - 1) // stride
+    nb = min(batch, (_DW_WINDOW + to - 2) // to + 1)
+    slot_len = min(_DW_WINDOW + nb * halo, nb * (to + halo))
+    xrow = _four_mod_eight(min(stride, k) * slot_len)
+    smem = 4 * max(2 * (16 * mt * _DW_DROW + 8 * groups * xrow), 4 * mt * nt * 128)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"k7_dw: a k={k} stride-{stride} conv over {t} rows stages {smem} "
+                         f"bytes of shared memory, more than {_SMEM_LIMIT}")
+    return DwPlan(mt, nt, (-(-batch // chunk), gy), chunk, groups, slot_len, xrow, smem)
 
 
 def _kernel_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     global dw_launches
     (b, ci, t), co = x.shape, dy.shape[1]
-    to, _, _ = same_padding(t, k, stride)
     if b == 0:
         return torch.zeros((co, ci, k), device=x.device, dtype=torch.float32)
+    p = _dw_plan(b, ci, co, k, t, stride)
     dw = torch.empty((co, ci, k), device=x.device, dtype=torch.float32)
-    nb, chunk, nchunks = _dw_plan(b, ci, co, k, t, stride)
-    partial = torch.empty((nchunks, co, ci * k), device=x.device, dtype=torch.float32)
-    tp = (to - 1) * stride + k
+    nchunks = p.grid[0]
+    partial = dw if nchunks == 1 else torch.empty((nchunks, co, ci * k), device=x.device,
+                                                  dtype=torch.float32)
     a = _args(b, ci, co, k, stride, t, x=x.data_ptr(), dy=dy.data_ptr(), out=dw.data_ptr(),
-              partial=partial.data_ptr(), nb=nb, chunk=chunk, nchunks=nchunks,
-              smem_bytes=4 * nb * (ci * tp + co * to))
+              partial=partial.data_ptr(), chunk=p.chunk, nchunks=nchunks,
+              smem_bytes=p.smem_bytes, slot_len=p.slot_len, xrow=p.xrow, nt=p.nt, mt=p.mt,
+              groups=p.groups)
     _build.launch(_library(), "k7_dw", "k7_error_string", a, x.device)
     dw_launches += 1
     return dw

@@ -4,22 +4,27 @@ clock, on one CUDA card.
 
     python -m tcresnet_tpu_torch.tools.tconv_times
     python -m tcresnet_tpu_torch.tools.tconv_times --ops fwd dx
+    python -m tcresnet_tpu_torch.tools.tconv_times --digests
 
 CUDA events around 20 calls of a set of convs that the host enqueues
 behind a device-side sleep (`frontend_times.queued_ms`), in the order
 kernel, cuDNN, cuDNN, kernel: the ten convs of one step; for dx also the
 nine a step launches it for (the first conv's input, the features, needs
-no gradient); and each conv alone (kernel, cuDNN, kernel). The batch is
+no gradient); and each conv alone (kernel, cuDNN, kernel), beside its
+bound (`bound_ms`, the same for the three passes). The batch is
 a training step's, 1536; the inputs are made from a fixed seed. Prints
 one JSON line, with the card's name and power limit. It uses only the
 package's public conv calls, so run by its path it also times another
 checkout of the package put first on PYTHONPATH (the line names the
-module it timed).
+module it timed). `--digests` adds, per pass, the sha256 of each conv's
+kernel output on those inputs: two checkouts whose digests agree compute
+the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 
 import torch
@@ -27,6 +32,9 @@ import torch.nn.functional as F
 
 BATCH = 1536  # TCResNet8-1.0's training batch
 SEED = 1234
+# the H100 SXM's published HBM rate and float32-exact tensor-core rate
+# (3xTF32: the 495 TFLOP/s TF32 peak over three products), as chip_smoke.py
+HBM_BYTES_PER_S, TF32X3_FLOPS = 3.35e12, 495e12 / 3
 
 
 def conv_geometries(model_cfg, t: int, in_channels: int) -> list:
@@ -44,6 +52,25 @@ def conv_geometries(model_cfg, t: int, in_channels: int) -> list:
         out.append((9, 1, n, n, t))
         prev = n
     return out
+
+
+def conv_work(geom, batch: int) -> tuple:
+    """(operations, bytes) of one pass of a conv: every tap of x that meets
+    the map, multiplied once per output channel; each pass reads two of x
+    / w / dy and writes the third, each once."""
+    from tcresnet_tpu_torch.models.layers import same_padding
+    from tcresnet_tpu_torch.ops.kernels.infer2d import valid_taps
+
+    k, s, ci, co, t = geom
+    to, lo, _ = same_padding(t, k, s)
+    return (2 * batch * valid_taps(to, t, k, s, lo) * ci * co,
+            4 * (batch * ci * t + co * ci * k + batch * co * to))
+
+
+def bound_ms(geom, batch: int) -> float:
+    """The least time the card could take for one pass of a conv in 3xTF32."""
+    flops, nbytes = conv_work(geom, batch)
+    return max(flops / TF32X3_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
 def conv_cases(dev: torch.device, geoms, batch: int, gen: torch.Generator) -> list:
@@ -110,6 +137,16 @@ def k7_times(convs, ops=("fwd", "dx", "dw")) -> dict:
     return out
 
 
+def k7_digests(convs, ops=("fwd", "dx", "dw")) -> dict:
+    """{pass: [sha256 of the kernel's output, one a conv]} (16 hex digits)."""
+    out = {}
+    for op in ops:
+        kernel = conv_ops()[op][0]
+        out[op] = [hashlib.sha256(kernel(c).cpu().numpy().tobytes()).hexdigest()[:16]
+                   for c in convs]
+    return out
+
+
 def main(argv=None) -> int:
     from tcresnet_tpu_torch.config import get_preset
     from tcresnet_tpu_torch.ops.kernels import tconv as k7
@@ -118,6 +155,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ops", nargs="+", default=["fwd", "dx", "dw"],
                         choices=["fwd", "dx", "dw"])
+    parser.add_argument("--digests", action="store_true",
+                        help="also print the sha256 of each pass's output per conv")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tconv_times: no CUDA device")
@@ -127,8 +166,12 @@ def main(argv=None) -> int:
     geoms = conv_geometries(get_preset("TCResNet8-1.0").model, 98, 40)
     convs = conv_cases(dev, geoms, BATCH, torch.Generator(device=dev).manual_seed(SEED))
     times = k7_times(convs, args.ops)
-    print(json.dumps({"card": card_description(), "module": k7.__file__, "batch": BATCH,
-                      "geometries": geoms, "times_ms": times}))
+    line = {"card": card_description(), "module": k7.__file__, "batch": BATCH,
+            "geometries": geoms, "bound_ms": [bound_ms(g, BATCH) for g in geoms],
+            "times_ms": times}
+    if args.digests:
+        line["digests"] = k7_digests(convs, args.ops)
+    print(json.dumps(line))
     return 0
 
 
