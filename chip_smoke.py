@@ -157,12 +157,31 @@ print their lines:
               (tcresnet_tpu_torch/tools/frontend_times.py), their bounds at
               the 3xTF32 rate, the FP32 design's times beside (quoted,
               FP32_HOPS_MS); the summary's K2 and K3 times
+ 26. dataset  the Speech Commands path on a tree made from a seed (2,400
+              one-second wavs over 10 keywords and 4 other words, speaker-
+              hashed names, and six noise clips of 60-95 s): the port's
+              prepare_dataset --extracted; train, valid and test loaded with
+              the C++ decoder (fails where numpy decoded), twice, the cache
+              hit equal to the decode; K1 bit-exact to its plain version on
+              the 6 x 1,520,000 noise bank with rows drawn through
+              sample_row, K3 and K7 at the run's batch; tools/train.py's
+              main at TCResNet8-1.0, batch 100, float32, oversampling on,
+              K3 and K7, 30 steps, a checkpoint every 10, --eval-split test:
+              launches equal the steps, plain_routes 0, the loss falls; a
+              warm start from it with fc excluded and only fc trained (K1 +
+              K2), every other param bit-equal to the source, fc moved; its
+              resume under relative_schedule, the first learning rate the
+              shifted one; tools/evaluate.py --split test re-scores the
+              promoted best identically; the decode per 1,000 wavs (C++ and
+              numpy), the upload, and the tree-backed step against the
+              synthetic one at batch 100
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
 plain version's, the least time the card could take for the same work and
 what bounds it, and the time of one PyTorch call that computes the same
-function where there is one), and last
+function where there is one; K1, K2, K3 and K7 also their launches in
+phase 26, `launches_dataset`), and last
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero without that line. There is no CPU fallback: without a
 CUDA device it exits 1.
@@ -577,6 +596,10 @@ def main() -> int:
         if e["name"] in hops:
             err = max(e["max_abs_err"], hops_checks[e["name"]].pop("max_abs_err"))
             e.update(hops[e["name"]], max_abs_err=err, **hops_checks[e["name"]])
+    dataset = dataset_phase(dev, card, ds)
+    for e in train_kernels + tconv_kernels:  # phase 26's launches beside the main path's
+        if e["name"] in dataset:
+            e["launches_dataset"] = dataset[e["name"]]
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -2097,6 +2120,341 @@ def hops_phase(dev: torch.device, card: str, ds) -> dict:
         "k3_frontend": {**k3_t[main], "timed": f"{main} MFCC-40, batch 1536, behind a device "
                         "sleep", "other_geometry": {g: k3_t[g] for g in others}},
     }
+
+
+# Speech Commands v1's _background_noise_ clips and their lengths in seconds
+# (the bank pads them to the longest: 95 s, 1,520,000 samples a row)
+GSC_NOISE_CLIPS = {"doing_the_dishes": 95, "dude_miaowing": 61, "exercise_bike": 61,
+                   "pink_noise": 60, "running_tap": 61, "white_noise": 61}
+
+
+def write_gsc_like_tree(raw: str, seed: int) -> int:
+    """A Speech Commands v1-like source made from `seed`: <raw>/<word>/
+    <speaker>_nohash_<j>.wav, one second at 16 kHz, 200 files for each of
+    the 10 keywords and 100 for each of 4 other words (the "unknown" class
+    after prepare_dataset), speakers drawn from 600 hashed ids; each word a
+    tone of its own with random phase, amplitude, vibrato and a noise floor;
+    and the six noise clips. Returns the number of word files."""
+    from tcresnet_tpu_torch.data import wav as wavlib
+    from tcresnet_tpu_torch.tools.prepare_dataset import BACKGROUND_DIR, KEYWORDS
+
+    rng = np.random.default_rng(seed)
+    n, rate = 16000, 16000
+    t = np.arange(n) / rate
+    speakers = [f"{int(x):08x}" for x in rng.integers(0, 2**32, 600)]
+    words = [(w, 200) for w in KEYWORDS] + [(w, 100) for w in ("bed", "bird", "cat", "dog")]
+    total = 0
+    for k, (word, count) in enumerate(words):
+        f0 = 220.0 * 2.0 ** (k / 6.0)
+        phase, amp = rng.uniform(0, 2 * np.pi, (count, 1)), rng.uniform(0.2, 0.6, (count, 1))
+        vib = 1.0 + 0.01 * np.sin(2 * np.pi * rng.uniform(2, 6, (count, 1)) * t)
+        sig = amp * np.sin(2 * np.pi * f0 * vib * t + phase)
+        sig += 0.3 * amp * np.sin(2 * np.pi * 2 * f0 * t + phase)
+        sig += rng.normal(0, 0.01, (count, n))
+        used = {}
+        for row in sig:
+            spk = speakers[int(rng.integers(0, len(speakers)))]
+            j = used[spk] = used.get(spk, -1) + 1
+            wavlib.write_wav_pcm16(f"{raw}/{word}/{spk}_nohash_{j}.wav", row)
+        total += count
+    for name, seconds in GSC_NOISE_CLIPS.items():
+        scale = rng.uniform(0.05, 0.3)
+        wavlib.write_wav_pcm16(f"{raw}/{BACKGROUND_DIR}/{name}.wav",
+                               rng.normal(0, scale, seconds * rate).clip(-1, 1))
+    return total
+
+
+def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
+    """Phase 26: the Speech Commands path through the entry points a user
+    calls, on a tree made from a seed; {kernel name: its launches there}."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tcresnet_tpu_torch.data import native_loader
+    from tcresnet_tpu_torch.data import wav as wavlib
+    from tcresnet_tpu_torch.data.device_data import DeviceDataset
+    from tcresnet_tpu_torch.ops import augment as aug
+    from tcresnet_tpu_torch.ops.kernels import augment as k16
+    from tcresnet_tpu_torch.ops.kernels import frontend as k3
+    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+    from tcresnet_tpu_torch.ops.kernels import tconv as k7
+    from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
+    from tcresnet_tpu_torch.tools import prepare_dataset
+    from tcresnet_tpu_torch.tools import train as train_cli
+    from tcresnet_tpu_torch.tools.train import load_run_config, load_split
+    from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
+    from tcresnet_tpu_torch.train.trainer import Trainer
+
+    # ---- 26. dataset: a Speech Commands tree, from the wavs to the test score ----
+    root = tempfile.mkdtemp(prefix="chip_smoke_gsc_")
+    raw, tree, cache = f"{root}/raw", f"{root}/tree", f"{root}/cache"
+    t0 = time.perf_counter()
+    n_words = write_gsc_like_tree(raw, seed=26)
+    write_s = time.perf_counter() - t0
+    prepare_dataset.main(["--extracted", raw, "--out", tree])
+    sizes = {s: len(list(Path(tree, s).glob("*/*.wav"))) - len(GSC_NOISE_CLIPS)
+             for s in ("train", "valid", "test")}
+    check(sum(sizes.values()) < n_words and min(sizes.values()) > 0,
+          f"dataset: prepare_dataset placed {sizes} of {n_words} word files")
+
+    # the run's config: TCResNet8-1.0 at batch 100 in float32, oversampling on,
+    # K3 (frontend_fuse on; K1 + K2 with off), K7 (conv_backend pallas)
+    base = ["--dataset-root", tree, "--cache-dir", cache, "--batch-size", "100",
+            "--compute-dtype", "float32", "--seed", "0",
+            "--cfg", "augment.backend=pallas", "--cfg", "audio.dsp_backend=pallas",
+            "--cfg", "model.conv_backend=pallas", "--cfg", "data.oversampling_ratio=0.5",
+            "--cfg", "train.step_evaluation=10"]
+    cfg = train_cli.build_config(train_cli.parse_args(base + ["--cfg", "audio.frontend_fuse=on"]))
+    check(native_loader.available(), "dataset: the C++ wav decoder did not build or load")
+    hosts, load_s = {}, {}
+    for split in ("train", "valid", "test"):
+        native_loader.files_decoded = 0
+        t0 = time.perf_counter()
+        hosts[split] = load_split(cfg, split)
+        load_s[split] = time.perf_counter() - t0
+        check(native_loader.files_decoded == sizes[split],
+              f"dataset {split}: {native_loader.files_decoded} of {sizes[split]} files decoded "
+              "by the C++ decoder")
+        native_loader.files_decoded = 0
+        hit = load_split(cfg, split)
+        check(native_loader.files_decoded == 0, f"dataset {split}: a cache hit decoded files")
+        a = hosts[split]
+        same = all(np.array_equal(getattr(a, f), getattr(hit, f))
+                   for f in ("wavs", "labels", "is_silent", "noise_bank"))
+        same &= a.label_names == hit.label_names and (
+            (a.sample_row is None and hit.sample_row is None)
+            or np.array_equal(a.sample_row, hit.sample_row))
+        check(same, f"dataset {split}: the cache hit differs from the decode")
+        check(a.num_classes == 12 and a.noise_bank.shape == (6, 95 * 16000),
+              f"dataset {split}: {a.num_classes} classes, noise bank {a.noise_bank.shape}")
+    train_host = hosts["train"]
+    check(train_host.sample_row is not None and train_host.num_logical_samples
+          > train_host.num_samples, "dataset: oversampling did not build sample_row")
+    print(f"[dataset] tree of {n_words} one-second wavs over 14 words + 6 noise clips of 60-95 s "
+          f"written in {write_s:.1f} s; prepare_dataset --extracted: train {sizes['train']}, "
+          f"valid {sizes['valid']}, test {sizes['test']} files; loaded with the C++ decoder in "
+          + ", ".join(f"{s} {load_s[s]:.2f} s ({hosts[s].num_samples} rows with silence)"
+                      for s in load_s)
+          + f"; train oversampled to {train_host.num_logical_samples} logical rows; each cache "
+          "hit equal to the decode")
+
+    # decode per 1,000 wavs (files in the page cache), C++ and numpy, and the upload
+    files = [f for f in sorted(map(str, Path(tree, "train").glob("*/*.wav")))
+             if "/_background_noise_/" not in f]
+    decode_ms = {"native": [], "numpy": []}
+    for route in ("native", "numpy", "numpy", "native"):
+        t0 = time.perf_counter()
+        if route == "native":
+            native_loader.decode_batch(files, 16000, expected_rate=16000)
+        else:
+            for f in files:
+                wavlib.decode_wav_int16(f, 16000, expected_rate=16000)
+        decode_ms[route].append((time.perf_counter() - t0) * 1e3 * 1000 / len(files))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tds = DeviceDataset(train_host, dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in (tds.wavs, tds.noise_bank, tds.sample_row))
+    print(f"[times] dataset decode per 1,000 wavs of 16,000 samples ({len(files)} train files, in "
+          "the page cache): C++ decoder " + " / ".join(f"{x:.1f}" for x in decode_ms["native"])
+          + " ms, numpy " + " / ".join(f"{x:.1f}" for x in decode_ms["numpy"])
+          + f" ms (order C++, numpy, numpy, C++); upload of the train split "
+          f"({nbytes / 1e6:.1f} MB: rows, noise bank, sample_row) {upload_s * 1e3:.1f} ms "
+          f"(host clock to a synchronize) | {card}")
+
+    # K1 and K3 on this tree: its 1.52 M-sample noise bank, rows drawn through sample_row
+    n = cfg.audio.desired_samples
+    gen = torch.Generator(device=dev)
+    k1_err = k3_err = 0.0
+    for naive in (True, False):
+        for quantize in (False, True):
+            acfg = dataclasses.replace(cfg.augment, naive_background_mix=naive,
+                                       noise_crop_quantize=quantize)
+            for batch in (1, 100, 1536):
+                gen.manual_seed(2600 + batch)
+                idx, _, silent = DeviceDataset.sample_indices(tds.arrays, gen, batch,
+                                                              tds.sample_row)
+                sc = aug.draw_scalars(gen, silent, acfg, tds.noise_bank, n, True)
+                before = k16.k1_launches
+                got = k16.fused_gather_augment(tds.wavs, idx, sc, tds.noise_bank, n, quantize)
+                want = k16.augment_reference(tds.wavs, idx, sc, tds.noise_bank, n, quantize)
+                torch.cuda.synchronize()
+                check(k16.k1_launches == before + 1, "dataset: K1 not launched")
+                err = (got - want).abs().max().item()
+                check(torch.equal(got, want), f"dataset K1 naive={naive} quantize={quantize} "
+                      f"B={batch}: max err {err}")
+                k1_err = max(k1_err, err)
+    for batch in (100, 1536):
+        gen.manual_seed(2700 + batch)
+        idx, _, silent = DeviceDataset.sample_indices(tds.arrays, gen, batch, tds.sample_row)
+        sc = aug.draw_scalars(gen, silent, cfg.augment, tds.noise_bank, n, True)
+        before = k3.launches
+        got = k3.frontend_features(tds.wavs, idx, sc, tds.noise_bank, cfg.audio, n)
+        want = k3.frontend_reference(tds.wavs, idx, sc, tds.noise_bank, cfg.audio, n)
+        torch.cuda.synchronize()
+        check(k3.launches == before + 1, "dataset: K3 not launched")
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, **DATASET_FEATURE_TOL), f"dataset K3 B={batch}: {err}")
+        k3_err = max(k3_err, err)
+    # K7 at the main path's batch (100), float32, TCResNet8-1.0's ten convs
+    k7_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    tols = {"fwd": TCONV_FWD_TOL, "dx": TCONV_DX_TOL}
+    for c in conv_cases(dev, conv_geometries(cfg.model, 98, 40), 100, gen.manual_seed(2800)):
+        for op, (kernel, plain, _) in conv_ops().items():
+            got, want = kernel(c), plain(c)
+            err = (got - want).abs().max().item()
+            ok = (err <= TCONV_DW_REL * want.abs().max().item() if op == "dw"
+                  else torch.allclose(got, want, **tols[op]))
+            check(ok, f"dataset K7 {op} {c['geom']} B=100: max err {err}")
+            k7_err[op] = max(k7_err[op], err)
+    print(f"[dataset] K1 against its plain version on the 6 x {tds.noise_bank.shape[1]:,} noise "
+          f"bank, rows through sample_row, both crop modes and mix versions, B=1/100/1536: max "
+          f"|err| {k1_err:.1e} (bit-exact); K3 B=100/1536 {k3_err:.2e} (atol "
+          f"{DATASET_FEATURE_TOL['atol']}); K7 at B=100, ten convs: fwd {k7_err['fwd']:.2e}, dx "
+          f"{k7_err['dx']:.2e}, dw {k7_err['dw']:.2e}")
+
+    def counts():
+        return {"k1": k16.k1_launches, "k2": k2.launches, "k3": k3.launches,
+                "k6": k16.k6_launches, "fwd": k7.fwd_launches, "dx": k7.dx_launches,
+                "dw": k7.dw_launches, "plain_routes": k2.plain_routes}
+
+    def zero():
+        k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = k2.plain_routes = 0
+        k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+
+    # ---- the main path: tools/train.py's main on the tree, scored on test ----
+    run, steps = f"{root}/run", 30
+    zero()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(base + [
+        "--cfg", "audio.frontend_fuse=on", "--train-dir", run, "--max-step", str(steps),
+        "--step-save-checkpoint", "10", "--steps-per-call", "10", "--eval-split", "test"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_counts = counts()
+    records = train_records(trainer)
+    losses = [r["total_loss"] for r in records if "total_loss" in r]
+    evals = [r for r in records if "train_stream/accuracy" in r]
+    scored = [json.loads(x) for x in Path(run, "test_metrics.jsonl").read_text().splitlines()]
+    n_test = hosts["test"].num_samples
+    test_batches = -(-n_test // cfg.data.eval_batch_size)
+    want = {"k1": 0, "k2": test_batches, "k3": steps, "k6": 0,
+            "fwd": 10 * steps + 10 * len(evals) + 10 * test_batches, "dx": 9 * steps,
+            "dw": 10 * steps, "plain_routes": 0}
+    check(int(trainer.state.step) == steps and len(evals) == steps // 10,
+          f"dataset train: step {int(trainer.state.step)}, {len(evals)} train-stream evals")
+    check(main_counts == want, f"dataset train: launches {main_counts}, want {want}")
+    check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"dataset train: loss did not fall: {losses}")
+    check(trainer.ckpt.all_steps() == [10, 20, 30],
+          f"dataset train: checkpoints {trainer.ckpt.all_steps()}")
+    check(len(scored) == 1 and scored[0]["step"] == steps and scored[0]["num_samples"] == n_test
+          and np.isfinite(scored[0]["loss"]) and 0.0 <= scored[0]["accuracy"] <= 1.0,
+          f"dataset train: the test eval {scored}")
+    print(f"[train] tools/train.py --dataset-root (TCResNet8-1.0, B=100 f32, oversampling 0.5, "
+          f"K3 + K7): {steps} steps in {wall:.1f} s, launches K3 {main_counts['k3']} K7 fwd "
+          f"{main_counts['fwd']} dx {main_counts['dx']} dw {main_counts['dw']} (per step 1 K3, "
+          f"10/9/10 K7; per train-stream eval 10 fwd; the test eval {test_batches} K2 + "
+          f"{10 * test_batches} fwd), plain_routes 0; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; checkpoints {trainer.ckpt.all_steps()}; --eval-split test at step {steps}: "
+          f"{n_test} rows, accuracy {scored[0]['accuracy']:.4f}, loss {scored[0]['loss']:.4f}")
+
+    # ---- a warm start: fc excluded and the only params trained, K1 + K2 ----
+    fine = f"{root}/fine"
+    warm_args = base + [
+        "--cfg", "audio.frontend_fuse=off", "--train-dir", fine, "--step-save-checkpoint",
+        "10", "--steps-per-call", "5", "--eval-split", "", "--checkpoint-path", f"{run}/ckpt",
+        "--checkpoint-exclude-scopes", "fc", "--cfg", 'optim.trainable_scopes=["fc"]',
+        "--cfg", "optim.lr_list=[0.1,0.01]", "--cfg", "optim.boundaries=[5]",
+        "--cfg", "train.summary_step_default=5"]
+    zero()
+    warm = train_cli.main(warm_args + ["--max-step", "10"])
+    torch.cuda.synchronize()
+    warm_counts = counts()
+    warm_evals = len([r for r in train_records(warm) if "train_stream/accuracy" in r])
+    want = {"k1": 10, "k2": 10, "k3": 0, "k6": 0, "fwd": 100 + 10 * warm_evals, "dx": 90,
+            "dw": 100, "plain_routes": 0}
+    check(warm_counts == want, f"dataset warm start: launches {warm_counts}, want {want}")
+    source = CheckpointManager(f"{run}/ckpt").restore_raw(steps)["params"]
+    fresh = Trainer(load_run_config(fine), tds, workdir=f"{root}/fresh").state.params
+    for k, v in warm.state.params.items():
+        v = v.detach().cpu()
+        if k.startswith("fc."):
+            check(not torch.equal(v, source[k]) and not torch.equal(v, fresh[k].cpu()),
+                  f"dataset warm start: {k} did not move")
+        else:
+            check(torch.equal(v, source[k]), f"dataset warm start: frozen {k} differs from "
+                  "the source run's")
+    check(set(warm.state.opt_state) == {k for k in warm.state.params if k.startswith("fc.")},
+          f"dataset warm start: optimizer state {sorted(warm.state.opt_state)}")
+
+    # ---- its resume under the relative LR shift ----
+    zero()
+    resumed = train_cli.main(warm_args + ["--max-step", "20",
+                                          "--cfg", "optim.relative_schedule=true"])
+    torch.cuda.synchronize()
+    resume_counts = counts()
+    lrs = {r["step"]: r["learning_rate"] for r in train_records(resumed)
+           if "learning_rate" in r}
+    check(int(resumed.state.step) == 20 and resume_counts["k1"] == resume_counts["k2"] == 10,
+          f"dataset resume: step {int(resumed.state.step)}, launches {resume_counts}")
+    check(warm.lr_schedule(10) == 0.01 and resumed.lr_schedule(10) == 0.1
+          and lrs.get(15) == 0.1 and lrs.get(20) == 0.01,
+          f"dataset resume: learning rates {lrs} (want 0.1 at step 15, 0.01 at 20)")
+    print(f"[train] warm start from step {steps} (--checkpoint-exclude-scopes fc, "
+          f"trainable_scopes fc, K1 + K2 + K7): 10 steps, launches K1 {warm_counts['k1']} K2 "
+          f"{warm_counts['k2']} K7 fwd {warm_counts['fwd']} dx {warm_counts['dx']} dw "
+          f"{warm_counts['dw']}; every non-fc param bit-equal to the source, fc moved, optimizer "
+          f"state fc only; resumed at step 10 with relative_schedule: boundary 5 -> 15, "
+          f"learning rate {lrs.get(15)} over steps 11-15 (unshifted: {warm.lr_schedule(10)}), "
+          f"{lrs.get(20)} over 16-20")
+
+    # ---- score the promoted best on test with tools/evaluate.py ----
+    zero()
+    again = evaluate_cli.main(["--train-dir", run, "--split", "test", "--valid-type", "once",
+                               "--best-metric", "accuracy", "--best-split", "test"])
+    torch.cuda.synchronize()
+    eval_counts = counts()
+    for key in ("accuracy", "loss", "mAP_macro"):
+        check(again[key] == scored[0][key], f"dataset evaluate: {key} {again[key]} != "
+              f"{scored[0][key]}")
+    check(eval_counts["fwd"] == 10 * test_batches and eval_counts["k2"] == test_batches,
+          f"dataset evaluate: launches {eval_counts}")
+    print(f"[evaluate] tools/evaluate.py --split test --best-metric accuracy --best-split test: "
+          f"step {steps} re-scored identically (accuracy {again['accuracy']:.4f}, loss "
+          f"{again['loss']:.6f}), K2 {eval_counts['k2']} K7 fwd {eval_counts['fwd']}")
+
+    # ---- times: the tree-backed step against the synthetic one, batch 100 ----
+    run_cfg = load_run_config(run)
+    trainers = {"tree": Trainer(run_cfg, tds, workdir=f"{root}/t_tree"),
+                "synthetic": Trainer(run_cfg, synthetic, workdir=f"{root}/t_synthetic")}
+    for tr in trainers.values():
+        tr.train_steps(3, start=0)
+    spans, n_steps = {label: [] for label in trainers}, 20
+    for visit, label in enumerate(["tree", "synthetic", "synthetic", "tree"]):
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        trainers[label].train_steps(n_steps, start=3 + visit * n_steps)
+        ev1.record()
+        torch.cuda.synchronize()
+        spans[label].append(((time.perf_counter() - t0) * 1e3 / n_steps,
+                             ev0.elapsed_time(ev1) / n_steps))
+    for label, runs in spans.items():
+        data = trainers[label].data
+        print(f"[times] train step B=100 f32 K3 + K7 on the {label} split ({data.num_samples} "
+              f"rows, noise bank {tuple(data.noise_bank.shape)}): "
+              + " / ".join(f"{h:.3f}" for h, _ in runs) + " ms/step host, "
+              + " / ".join(f"{d:.3f}" for _, d in runs) + f" ms/step CUDA events (two visits of "
+              f"{n_steps} steps; order tree, synthetic, synthetic, tree) | {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1_gather_augment": warm_counts["k1"], "k2_mfcc": warm_counts["k2"],
+            "k3_frontend": main_counts["k3"], "k7_tconv_fwd": main_counts["fwd"],
+            "k7_tconv_dx": main_counts["dx"], "k7_tconv_dw": main_counts["dw"]}
 
 
 if __name__ == "__main__":

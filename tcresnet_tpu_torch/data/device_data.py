@@ -53,7 +53,10 @@ class DeviceDataset:
             wavs = np.pad(wavs, ((0, 0), (0, row - self.clip_len)))
 
         def put(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(self.device)
+            # a decode-cache hit is a read-only memory map: copy it, since
+            # a tensor on the CPU would share (and could write) its pages
+            a = np.ascontiguousarray(a) if a.flags.writeable else np.array(a, order="C")
+            return torch.as_tensor(a, dtype=dtype).to(self.device)
 
         self.wavs = put(wavs, torch.int16)  # [N, S] int16
         self.labels = put(host.labels, torch.int64)  # [N]

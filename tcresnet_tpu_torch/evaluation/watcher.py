@@ -18,6 +18,7 @@ in memory, not a copy of the trainer's file.
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from pathlib import Path
@@ -29,6 +30,7 @@ from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.evaluation.best_keeper import DEFAULT_BEST_METRICS, BestKeeper
 from tcresnet_tpu_torch.evaluation.evaluator import Evaluator
 from tcresnet_tpu_torch.models import build_model, param_count
+from tcresnet_tpu_torch.models.convert import jax_path
 from tcresnet_tpu_torch.train import optim as optimlib
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
 from tcresnet_tpu_torch.train.state import TrainState, create_train_state
@@ -76,12 +78,15 @@ class WatchingEvaluator:
     def _make_template(self) -> TrainState:
         """A train state of the run's structure on the evaluation device.
         The optimizer is built with num_samples = batch_size = 1: only its
-        state's structure matters here, and the watcher has no train split
-        to resolve epoch boundaries with."""
+        state's structure matters here (which params have state under
+        optim.trainable_scopes), and the watcher has no train split to
+        resolve epoch boundaries with."""
         cfg = self.cfg
         model = build_model(cfg.model, self.evaluator.feature_shape, cfg.train.compute_dtype,
                             device=self.data.device)
-        optimizer, _ = optimlib.build_optimizer(cfg.optim, num_samples=1, batch_size=1)
+        optimizer, _ = optimlib.build_optimizer(
+            cfg.optim, num_samples=1, batch_size=1, params=dict(model.named_parameters()),
+            path_of=functools.partial(jax_path, cfg.model.name))
         return create_train_state(model, optimizer, use_ema=cfg.optim.use_ema)
 
     def evaluate_once(self, step: int) -> Optional[Dict[str, float]]:

@@ -18,6 +18,11 @@ conv, a TCResNet8 one [k, 1, Ci, Co] a temporal conv.
 A batch norm with neither scale nor shift (Res) has no params entry in
 Flax and none here: only its running statistics.
 
+`jax_path` gives each port name the '/'-joined Flax path it maps to
+("conv0_conv.weight" -> "conv0_conv/kernel", "conv0_bn.running_mean" ->
+"conv0_bn/mean"): the path the JAX package matches scope regexes
+against, so a scope selects the same tensors in both packages.
+
 The port's variables are {"params": {...}, "batch_stats": {...}} with an
 optional "ema_params", each a flat {state-dict name: tensor} mapping; the
 EMA copy replaces "params" only, as in the JAX package.
@@ -73,6 +78,30 @@ def scope_kind(model_name: str, scope: str) -> str:
     raise KeyError(f"no port counterpart for Flax scope {scope!r} of {model_name}")
 
 
+# port leaf -> Flax leaf: BN params, the other kinds' params, BN statistics
+_BN_LEAVES = {"weight": "scale", "bias": "bias"}
+_STAT_LEAVES = {"running_mean": "mean", "running_var": "var"}
+
+
+def _jax_leaf(kind: str, leaf: str) -> str:
+    if kind == "bn":
+        return _BN_LEAVES[leaf]
+    return "bias" if leaf == "bias" else "kernel"
+
+
+def jax_path(model_name: str, name: str) -> str:
+    """The '/'-joined Flax path of the port's params or batch_stats `name`
+    in `model_name`'s family; KeyError for a name the family lacks."""
+    scope, _, leaf = name.rpartition(".")
+    if not scope:
+        if scope_kind(model_name, leaf) != "leaf":
+            raise KeyError(f"no Flax counterpart for port name {name!r}")
+        return leaf
+    if leaf in _STAT_LEAVES:
+        return f"{scope}/{_STAT_LEAVES[leaf]}"
+    return f"{scope}/{_jax_leaf(scope_kind(model_name, scope), leaf)}"
+
+
 def _f32(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
@@ -87,7 +116,7 @@ def _params_from_jax(model_name: str, params: Nested) -> Dict[str, torch.Tensor]
         leaves = dict(leaves)
         kern = leaves.pop("kernel", None)
         if kind == "bn":
-            names = {"scale": "weight", "bias": "bias"}
+            names = {v: k for k, v in _BN_LEAVES.items()}
         else:
             names = {"bias": "bias"}
             if kind == "temporal":
@@ -114,8 +143,8 @@ def variables_from_jax(
     numpy -> port variables."""
     stats = {}
     for scope, leaves in batch_stats.items():
-        stats[f"{scope}.running_mean"] = _f32(leaves["mean"])
-        stats[f"{scope}.running_var"] = _f32(leaves["var"])
+        for leaf, jleaf in _STAT_LEAVES.items():
+            stats[f"{scope}.{leaf}"] = _f32(leaves[jleaf])
     out = {"params": _params_from_jax(model_cfg.name, params), "batch_stats": stats}
     if ema_params is not None:
         out["ema_params"] = _params_from_jax(model_cfg.name, ema_params)
@@ -139,17 +168,16 @@ def _params_to_jax(model_name: str, params: Mapping[str, Any]) -> Dict[str, Any]
             out[leaf] = a
             continue
         kind = scope_kind(model_name, scope)
-        entry = out.setdefault(scope, {})
-        if kind == "bn":
-            entry["scale" if leaf == "weight" else "bias"] = a
-        elif leaf == "bias":
-            entry["bias"] = a
-        elif kind == "temporal":
-            entry["kernel"] = np.ascontiguousarray(a.transpose(2, 1, 0)[:, None])
-        elif kind == "conv2d":
-            entry["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
-        else:  # dense
-            entry["kernel"] = np.ascontiguousarray(a.T)
+        jleaf = _jax_leaf(kind, leaf)
+        if jleaf == "kernel":
+            if kind == "temporal":
+                a = a.transpose(2, 1, 0)[:, None]
+            elif kind == "conv2d":
+                a = a.transpose(2, 3, 1, 0)
+            else:  # dense
+                a = a.T
+            a = np.ascontiguousarray(a)
+        out.setdefault(scope, {})[jleaf] = a
     return out
 
 
@@ -161,8 +189,7 @@ def variables_to_jax(model_cfg: ModelConfig,
     stats: Dict[str, Dict[str, np.ndarray]] = {}
     for name, t in variables["batch_stats"].items():
         scope, leaf = name.rsplit(".", 1)
-        key = {"running_mean": "mean", "running_var": "var"}[leaf]
-        stats.setdefault(scope, {})[key] = _host(t)
+        stats.setdefault(scope, {})[_STAT_LEAVES[leaf]] = _host(t)
     out = {"params": _params_to_jax(model_cfg.name, variables["params"]), "batch_stats": stats}
     if variables.get("ema_params") is not None:
         out["ema_params"] = _params_to_jax(model_cfg.name, variables["ema_params"])

@@ -10,6 +10,9 @@ half-way is never loaded either. ptxas's register / shared-memory /
 spill report is kept beside it as `<lib>.log`.
 
 A missing nvcc or a failed build raises: there is no fallback.
+
+Host code in C++ (`csrc/<name>.cc`, the wav decoder) is built the same
+way by `build_host`, with g++ in the place of nvcc.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+# the host libraries' flags (csrc/Makefile's, for the JAX package's copy)
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared", "-pthread")
 
 
 def find_nvcc() -> str:
@@ -92,6 +99,36 @@ def build_all(names) -> Dict[str, Path]:
         if failed:
             raise RuntimeError("\n".join(failed))
     return libs
+
+
+def host_library_path(name: str) -> Path:
+    """Where the build of the host source csrc/<name>.cc lives, named by a
+    hash of the source and GXX_FLAGS."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cc").read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cc with g++ ($CXX when set) unless this exact
+    source is already built; raises when the compiler is missing or fails."""
+    so = host_library_path(name)
+    if so.exists():
+        return so
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found (looked in $CXX and PATH)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cc")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed to build {name}.cc (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, so)
+    return so
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,12 +6,16 @@
     # once: the latest checkpoint, one step, or a promoted best
     python -m tcresnet_tpu_torch.tools.evaluate --train-dir runs/x --synthetic \
         --split valid --valid-type once --best-metric accuracy
+    # the test split of the run's Speech Commands tree
+    python -m tcresnet_tpu_torch.tools.evaluate --train-dir runs/x --split test
 
 The config is the run's `config.json` (the preset when the run has none),
 with the flags and `--cfg SECTION.FIELD=VALUE` overrides on top, so the
 model is built as it was trained: a run trained with
-model.conv_backend=pallas is scored through K7's forward. The data is
-the synthetic split only (the Speech Commands loader is not ported yet).
+model.conv_backend=pallas is scored through K7's forward. The split comes
+from the run's data (its tree, or the synthetic dataset) through the
+train CLI's `load_split`; `--dataset-root` and `--cache-dir` point at
+another tree or cache.
 `--device auto` evaluates on the first CUDA card; `--device cpu` on the
 CPU, through the plain versions, which keeps the evaluator off a card a
 trainer holds.
@@ -32,8 +36,11 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="TCResNet8-1.0")
     p.add_argument("--train-dir", required=True)
+    p.add_argument("--dataset-root", nargs="+", default=None,
+                   help="the tree(s) to score (default: the run's)")
+    p.add_argument("--cache-dir", default=None, help="where decoded splits are cached")
     p.add_argument("--synthetic", action="store_true",
-                   help="use the synthetic dataset (the only data this slice loads)")
+                   help="use the synthetic dataset (no Speech Commands needed)")
     p.add_argument("--synthetic-samples", type=int, default=None,
                    help="rows of the synthetic train split the other splits are sized "
                         "from (default: the run's config)")

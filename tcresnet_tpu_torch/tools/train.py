@@ -1,26 +1,44 @@
 """Train CLI of the port (counterpart of tools/train.py).
 
+    python -m tcresnet_tpu_torch.tools.prepare_dataset --extracted <gsc> --out <tree>
+    python -m tcresnet_tpu_torch.tools.train --preset TCResNet8-1.0 \
+        --dataset-root <tree> --cache-dir <cache> --train-dir runs/%DATE%_tc8
     python -m tcresnet_tpu_torch.tools.train --preset TCResNet8-1.0 \
         --synthetic --synthetic-samples 24100 --max-step 20 \
         --cfg model.conv_backend=pallas
     python -m tcresnet_tpu_torch.tools.train --preset DSCNNL --synthetic \
         --max-step 20 --cfg audio.dft_variant=radix4
+    # transfer: every tensor but fc from another run, only fc trained
+    python -m tcresnet_tpu_torch.tools.train --dataset-root <tree> --train-dir runs/ft \
+        --checkpoint-path runs/tc8/ckpt --checkpoint-exclude-scopes fc \
+        --cfg 'optim.trainable_scopes=["fc"]'
 
-Every preset trains (the 2D families too). Takes the subset of the JAX
-CLI's flags that the port serves, and
-`--cfg SECTION.FIELD=VALUE` overrides (JSON values; unknown fields and
-values of the wrong type raise). The Speech Commands loader is not
-ported yet, so --synthetic is required. `--device auto` trains on the
-first CUDA card (and fails without one); `--device cpu` runs on the CPU,
-where every kernel wrapper runs its plain version. The resolved config
-is written to `<train-dir>/config.json`, which the evaluator
-(`tcresnet_tpu_torch.tools.evaluate`) builds its model from.
+Every preset trains (the 2D families too), from a `<root>/<split>/<label>/*.wav`
+tree (`--dataset-root`, one root or several with the same labels; the
+decode is cached under `--cache-dir`; oversampling, `data.oversampling_ratio`,
+applies to the train split only) or from the synthetic dataset
+(`--synthetic`). After training the last checkpoint is scored on
+`--eval-split` (default valid; '' skips it) through the loop evaluator's
+`evaluate_once`, which promotes it under `<train-dir>/best/<split>/`.
+`--checkpoint-path` warm-starts from another run's checkpoint directory
+(scopes are prefix-anchored regexes over Flax paths such as `fc`,
+`block3` or `conv0_conv/kernel`; `--ignore-missing-vars` keeps fresh
+values for names the checkpoint lacks or holds in another shape).
+`--cfg SECTION.FIELD=VALUE` overrides any config field (JSON values;
+unknown fields and values of the wrong type raise). `--train-dir` expands
+%DATE%, %USER% and %<CONFIG_FIELD>%. `--device auto` trains on the first
+CUDA card (and fails without one); `--device cpu` runs on the CPU, where
+every kernel wrapper runs its plain version. The resolved config is
+written to `<train-dir>/config.json`, which the evaluator
+(`tcresnet_tpu_torch.tools.evaluate`) builds its model and data from.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import getpass
 import json
 import logging
 import types
@@ -28,20 +46,56 @@ import typing
 from pathlib import Path
 
 
+def expand_train_dir(train_dir: str, cfg=None) -> str:
+    """%DATE% / %USER% / %<CONFIG_FIELD>% placeholder expansion (the
+    reference's common/utils.py:22-59: any field name, e.g. %BATCH_SIZE%,
+    becomes its value; a list is joined with commas, a value with a '/'
+    becomes UNKNOWN)."""
+    out = train_dir.replace(
+        "%DATE%", datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+    ).replace("%USER%", getpass.getuser())
+    if cfg is not None and "%" in out:
+        for section in dataclasses.fields(cfg):
+            sub = getattr(cfg, section.name)
+            for f in dataclasses.fields(sub):
+                ph = f"%{f.name.upper()}%"
+                if ph in out:
+                    v = getattr(sub, f.name)
+                    if isinstance(v, (list, tuple)):
+                        v = ",".join(map(str, v))
+                    v = str(v)
+                    out = out.replace(ph, "UNKNOWN" if "/" in v else v)
+    return out
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="TCResNet8-1.0")
+    p.add_argument("--dataset-root", nargs="+", default=None,
+                   help="one <root>/<split>/<label>/*.wav tree, or several with the same "
+                        "labels")
+    p.add_argument("--cache-dir", default=None, help="where decoded splits are cached")
     p.add_argument("--train-dir", default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="use the synthetic dataset (the only data this slice loads)")
+                   help="use the synthetic dataset (no Speech Commands needed)")
     p.add_argument("--synthetic-samples", type=int, default=4096)
     p.add_argument("--max-step", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None)
+    p.add_argument("--eval-split", default="valid",
+                   help="split evaluated after training ('' to skip)")
+    p.add_argument("--num-silent", type=int, default=None,
+                   help="silent rows added to each split (-1: samples // labels)")
     p.add_argument("--steps-per-call", type=int, default=None)
     p.add_argument("--step-save-checkpoint", type=int, default=None)
+    p.add_argument("--clip-duration-ms", type=int, default=None)
+    p.add_argument("--checkpoint-path", default=None,
+                   help="warm-start params from another run's checkpoint directory")
+    p.add_argument("--checkpoint-include-scopes", nargs="*", default=None)
+    p.add_argument("--checkpoint-exclude-scopes", nargs="*", default=None)
+    p.add_argument("--ignore-missing-vars", action="store_true")
     p.add_argument("--device", choices=["auto", "cpu"], default="auto",
                    help="auto: the first CUDA card; cpu: the host")
     p.add_argument("--cfg", action="append", default=[], metavar="SECTION.FIELD=VALUE",
@@ -121,44 +175,89 @@ def build_config(args, base=None):
     train_kw = {field: getattr(args, field) for field in (
         "max_step", "batch_size", "seed", "compute_dtype", "step_save_checkpoint",
         "train_dir") if getattr(args, field, None) is not None}
+    if getattr(args, "clip_duration_ms", None):
+        cfg = cfg.replace(audio=dataclasses.replace(
+            cfg.audio, clip_duration_ms=args.clip_duration_ms))
     if train_kw:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw))
+    data_kw = {}
+    roots = getattr(args, "dataset_root", None)
+    if roots:
+        data_kw["dataset_root"] = roots[0] if len(roots) == 1 else tuple(roots)
+    if getattr(args, "cache_dir", None):
+        data_kw["cache_dir"] = args.cache_dir
     if args.synthetic:
-        cfg = cfg.replace(data=dataclasses.replace(
-            cfg.data, use_synthetic=True, synthetic_num_samples=args.synthetic_samples))
-    return apply_cfg_overrides(cfg, args.cfg)
+        data_kw.update(use_synthetic=True, synthetic_num_samples=args.synthetic_samples)
+    if data_kw:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+    if getattr(args, "num_silent", None) is not None:
+        cfg = cfg.replace(augment=dataclasses.replace(cfg.augment, num_silent=args.num_silent))
+    cfg = apply_cfg_overrides(cfg, args.cfg)
+    if "%" in cfg.train.train_dir:
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, train_dir=expand_train_dir(cfg.train.train_dir, cfg)))
+    return cfg
 
 
 def load_split(cfg, split: str):
-    """The synthetic split of `cfg` as the JAX CLI builds it: train is seed
-    0 with data.synthetic_num_samples rows, every other split seed 1 with
-    max(n // 8, 128) rows."""
+    """One split of `cfg`'s data, as the JAX CLI loads it.
+
+    Synthetic: train is seed 0 with data.synthetic_num_samples rows, every
+    other split seed 1 with max(n // 8, 128) rows. A tree
+    (data.dataset_root): `load_speech_commands` with the clip length, the
+    silence count, the decode cache, the header rate checked, and
+    oversampling on the train split only (the reference oversampled the
+    training file list)."""
+    from tcresnet_tpu_torch.data.speech_commands import load_speech_commands
     from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
 
-    if not cfg.data.use_synthetic:
-        raise SystemExit("the Speech Commands loader is not ported yet: pass --synthetic")
-    n = cfg.data.synthetic_num_samples
-    return make_synthetic_dataset(
-        num_samples=n if split == "train" else max(n // 8, 128),
-        num_classes=cfg.model.num_classes, desired_samples=cfg.audio.desired_samples,
-        sample_rate=cfg.audio.sample_rate, seed=0 if split == "train" else 1, split=split)
+    if cfg.data.use_synthetic:
+        n = cfg.data.synthetic_num_samples
+        return make_synthetic_dataset(
+            num_samples=n if split == "train" else max(n // 8, 128),
+            num_classes=cfg.model.num_classes, desired_samples=cfg.audio.desired_samples,
+            sample_rate=cfg.audio.sample_rate, seed=0 if split == "train" else 1, split=split)
+    if not cfg.data.dataset_root:
+        raise SystemExit("--dataset-root is required (or pass --synthetic)")
+    return load_speech_commands(
+        cfg.data.dataset_root, split, desired_samples=cfg.audio.desired_samples,
+        num_silent=cfg.augment.num_silent, cache_dir=cfg.data.cache_dir or None,
+        oversampling_ratio=cfg.data.oversampling_ratio if split == "train" else None,
+        sample_rate=cfg.audio.sample_rate, add_null_class=cfg.data.add_null_class)
 
 
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    log = logging.getLogger("tcresnet_tpu_torch.train_cli")
     cfg = build_config(args)
     host = load_split(cfg, "train")
 
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
+    from tcresnet_tpu_torch.evaluation.watcher import WatchingEvaluator
     from tcresnet_tpu_torch.train.trainer import Trainer
 
     device = "cuda" if args.device == "auto" else "cpu"
     trainer = Trainer(cfg, DeviceDataset(host, device), workdir=cfg.train.train_dir,
                       steps_per_call=args.steps_per_call)
+    if args.checkpoint_path:
+        trainer.warm_start(args.checkpoint_path,
+                           include_scopes=args.checkpoint_include_scopes,
+                           exclude_scopes=args.checkpoint_exclude_scopes,
+                           ignore_missing=args.ignore_missing_vars)
     state = trainer.train(cfg.train.max_step)
-    logging.getLogger("tcresnet_tpu_torch.train_cli").info(
-        f"training done at step {int(state.step)}")
+    log.info(f"training done at step {int(state.step)}")
+
+    if args.eval_split:
+        try:
+            eval_host = load_split(cfg, args.eval_split)
+        except (FileNotFoundError, SystemExit) as e:
+            log.warning(f"skipping eval: {e}")
+            return trainer
+        watcher = WatchingEvaluator(cfg, DeviceDataset(eval_host, device), trainer.workdir)
+        scores = watcher.evaluate_once(int(state.step))
+        log.info(f"{args.eval_split}: accuracy {scores['accuracy']:.4f} "
+                 f"loss {scores['loss']:.4f}")
     return trainer
 
 

@@ -18,13 +18,20 @@ The update rules are written by hand to optax's order and initial state
 The state is a flat {name: tensor} mapping ("count", "mu/<param>",
 "nu/<param>" for adam), so checkpoints carry it, the step count included,
 and a resumed run updates as an uninterrupted one would.
-trainable_scopes raises NotImplementedError (ROADMAP.md Queue 1 item 6).
+
+With `trainable_scopes` only the params whose path matches a scope
+(`trainable_mask`, prefix-anchored regexes) are updated, as optax's
+multi_transform with set_to_zero does in the JAX package: the others get
+no update and keep no optimizer state (set_to_zero's state is empty;
+adam's count is one scalar for the trained set). Their gradients are
+still computed by the step, as in JAX.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Callable, Dict, Mapping, Optional, Sequence
+import re
+from typing import Callable, Dict, FrozenSet, Mapping, Optional, Sequence
 
 import torch
 
@@ -66,23 +73,43 @@ def resolve_boundaries(cfg: OptimConfig, num_samples: Optional[int] = None,
     return tuple(boundaries)
 
 
+def trainable_mask(params: Mapping[str, object], scopes: Sequence[str],
+                   path_of: Callable[[str], str] = str) -> Dict[str, bool]:
+    """{name: True where path_of(name) matches a scope regex} (the JAX
+    package's trainable_mask, get_variables_to_train parity). Matching is
+    PREFIX-ANCHORED (re.match), the reference's startswith: "fc" selects
+    paths that start with fc, not "block3/fc_proj"."""
+    return {name: any(re.match(s, path_of(name)) for s in scopes) for name in params}
+
+
 class UnitOptimizer:
     """A unit-LR optimizer: init(params) -> state; update(grads, state) ->
     (updates, new state). State and updates are {name: tensor} on the
-    params' device; update() never reads the device."""
+    params' device; update() never reads the device. With `trainable` (a
+    set of names) only those params have state and get updates."""
 
     NAMES = ("gd", "mom", "adam", "rmsprop")
 
     def __init__(self, name: str, momentum: float = 0.9, *, adam_epsilon: float = 1e-8,
-                 rmsprop_decay: float = 0.9, rmsprop_epsilon: float = 1e-10):
+                 rmsprop_decay: float = 0.9, rmsprop_epsilon: float = 1e-10,
+                 trainable: Optional[FrozenSet[str]] = None):
         if name not in self.NAMES:
             raise ValueError(f"Unknown optimizer {name!r}")
         self.name = name
         self.momentum = momentum
         self.adam_epsilon = adam_epsilon
         self.rmsprop_decay, self.rmsprop_epsilon = rmsprop_decay, rmsprop_epsilon
+        self.trainable = trainable
+
+    def _trained(self, tensors: Mapping[str, torch.Tensor]) -> Mapping[str, torch.Tensor]:
+        if self.trainable is None:
+            return tensors
+        return {k: v for k, v in tensors.items() if k in self.trainable}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Tensors:
+        device = next(iter(params.values())).device
+        params = self._trained(params)
+
         def zeros(prefix):
             return {f"{prefix}{k}": torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()}
@@ -93,12 +120,12 @@ class UnitOptimizer:
             return zeros("")
         if self.name == "rmsprop":
             return zeros("nu/")
-        device = next(iter(params.values())).device
         return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 **zeros("mu/"), **zeros("nu/")}
 
     def update(self, grads: Mapping[str, torch.Tensor],
                state: Mapping[str, torch.Tensor]):
+        grads = self._trained(grads)
         if self.name == "gd":
             return {k: -g for k, g in grads.items()}, dict(state)
         if self.name == "mom":
@@ -127,15 +154,22 @@ class UnitOptimizer:
 
 def build_optimizer(cfg: OptimConfig, num_samples: Optional[int] = None,
                     batch_size: Optional[int] = None, restore_step: int = 0,
-                    relative: bool = False):
-    """(UnitOptimizer, schedule) for `cfg`."""
+                    relative: bool = False, params: Optional[Mapping[str, object]] = None,
+                    path_of: Callable[[str], str] = str):
+    """(UnitOptimizer, schedule) for `cfg`. With cfg.trainable_scopes the
+    optimizer updates only the `params` names whose `path_of(name)`
+    matches a scope (`params` is required then; the trainer's `path_of` is
+    `models/convert.py::jax_path`, the path JAX's scopes match)."""
+    trainable = None
     if cfg.trainable_scopes:
-        raise NotImplementedError(
-            "trainable_scopes is not ported yet (ROADMAP.md Queue 1 item 6)")
+        if params is None:
+            raise ValueError("trainable_scopes requires params for the mask")
+        mask = trainable_mask(params, cfg.trainable_scopes, path_of)
+        trainable = frozenset(k for k, m in mask.items() if m)
     boundaries = resolve_boundaries(cfg, num_samples, batch_size, restore_step, relative)
     optimizer = UnitOptimizer(cfg.optimizer, cfg.momentum, adam_epsilon=cfg.adam_epsilon,
                               rmsprop_decay=cfg.rmsprop_decay,
-                              rmsprop_epsilon=cfg.rmsprop_epsilon)
+                              rmsprop_epsilon=cfg.rmsprop_epsilon, trainable=trainable)
     return optimizer, piecewise_constant(boundaries, cfg.lr_list)
 
 

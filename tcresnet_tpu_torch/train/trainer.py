@@ -27,14 +27,20 @@ Differences from the JAX trainer, and why:
   `augment.backend` auto takes K1/K6 on the card; `dsp_backend` auto and
   `frontend_fuse` auto take K2/K3 at batch >= 2048. That threshold is TPU
   data; its H100 crossover is measured in PERF.md.
+- Warm start (`warm_start`) copies another run's params and BN statistics
+  into the state's tensors by name, under scope regexes matched against
+  the Flax path of each name (`models/convert.py::jax_path`), so a scope
+  means the same in both packages; `optim.trainable_scopes` freezes the
+  same way. With `optim.relative_schedule` the LR boundaries shift by the
+  restored step; the schedule is a host closure, so it is just rebuilt.
 
-Not ported yet (ROADMAP.md Queue 1 item 7): warm start and partial
-restore, the relative LR shift on restore, data parallelism.
+Not ported yet: data parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from pathlib import Path
@@ -47,13 +53,14 @@ from tcresnet_tpu_torch.config import ExperimentConfig
 from tcresnet_tpu_torch.metrics.writers import MetricWriter, crossed_boundary, should_write_summary
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.models import build_model, param_count
+from tcresnet_tpu_torch.models.convert import jax_path
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import frontend
 from tcresnet_tpu_torch.ops.kernels import mfcc as k2
 from tcresnet_tpu_torch.train import loss as losslib
 from tcresnet_tpu_torch.train import optim as optimlib
-from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
+from tcresnet_tpu_torch.train.checkpoint import CheckpointManager, restore_params_partial
 from tcresnet_tpu_torch.train.state import TrainState, create_train_state
 
 # generator streams of one (seed, step)
@@ -106,11 +113,11 @@ class Trainer:
         self.steps_per_call = steps_per_call or max(
             1, min(cfg.train.summary_step_default, cfg.train.step_save_checkpoint))
 
-        if cfg.optim.relative_schedule:
-            raise NotImplementedError(
-                "optim.relative_schedule is not ported yet (ROADMAP.md Queue 1 item 7)")
+        # a scope regex is matched against a name's Flax path
+        self.path_of = functools.partial(jax_path, cfg.model.name)
         self.optimizer, self.lr_schedule = optimlib.build_optimizer(
-            cfg.optim, num_samples=self._num_samples, batch_size=cfg.train.batch_size)
+            cfg.optim, num_samples=self._num_samples, batch_size=cfg.train.batch_size,
+            params=dict(self.model.named_parameters()), path_of=self.path_of)
         self.state: TrainState = create_train_state(
             self.model, self.optimizer, use_ema=cfg.optim.use_ema)
         self._generator = torch.Generator(device=self.device)
@@ -128,11 +135,61 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def maybe_restore(self) -> int:
-        """Resume from the latest checkpoint if one exists; returns the step."""
+        """Resume from the latest checkpoint if one exists; returns the step.
+        With optim.relative_schedule the LR boundaries shift forward by the
+        restored step (reference --lr_*_relative, helper/trainer.py:120-133)."""
         step = self.ckpt.latest_step()
         if step is not None:
             self.ckpt.restore(self.state, step)
+            self._apply_relative_schedule(int(self.state.step))
         return int(self.state.step)
+
+    def _apply_relative_schedule(self, restore_step: int) -> None:
+        if not self.cfg.optim.relative_schedule or restore_step <= 0:
+            return
+        boundaries = optimlib.resolve_boundaries(
+            self.cfg.optim, num_samples=self._num_samples,
+            batch_size=self.cfg.train.batch_size, restore_step=restore_step, relative=True)
+        self.lr_schedule = optimlib.piecewise_constant(boundaries, self.cfg.optim.lr_list)
+        self.log.info(f"LR boundaries shifted by restore step {restore_step}: {boundaries}")
+
+    def warm_start(self, checkpoint_dir, step: Optional[int] = None, include_scopes=None,
+                   exclude_scopes=None, ignore_missing: bool = False,
+                   reset_step: bool = True) -> None:
+        """Initialise the params from another run's checkpoint (transfer;
+        reference --checkpoint_path with include / exclude scopes and
+        ignore_missing_vars, common/model_loader.py:42-83).
+
+        The checkpoint is read with no state to fit (`restore_raw`), so it
+        may come from another architecture. Params are merged by name under
+        the scope filters (`restore_params_partial`); the BN statistics
+        travel with their layer under the same filters and never raise
+        (a fresh statistic is always safe). With `ignore_missing` a name
+        the checkpoint lacks, or holds in another shape, keeps its fresh
+        value. The optimizer state restarts, the EMA restarts from the
+        params, and the step restarts at 0 unless `reset_step=False`, which
+        keeps the checkpoint's step (and applies the relative LR shift)."""
+        src = CheckpointManager(checkpoint_dir)
+        raw = src.restore_raw(step)
+        state = self.state
+        params = restore_params_partial(state.params, raw["params"], include_scopes,
+                                        exclude_scopes, ignore_missing, self.path_of)
+        stats = restore_params_partial(state.batch_stats, raw.get("batch_stats") or {},
+                                       include_scopes, exclude_scopes, True, self.path_of)
+        restored_step = int(raw["step"])
+        with torch.no_grad():
+            for mine, merged in ((state.params, params), (state.batch_stats, stats)):
+                for k, t in mine.items():
+                    if merged[k] is not t:
+                        t.copy_(merged[k])
+            state.step.fill_(0 if reset_step else restored_step)
+            state.opt_state = self.optimizer.init(state.params)
+            if state.ema_params is not None:
+                state.ema_params = {k: p.detach().clone() for k, p in state.params.items()}
+        if not reset_step:
+            # the LR is schedule(step), so a kept step keeps the logged LR
+            self._apply_relative_schedule(restored_step)
+        self.log.info(f"Warm-started from {checkpoint_dir} (step {src.latest_step()})")
 
     # ------------------------------------------------------------------
     # the step
@@ -198,8 +255,8 @@ class Trainer:
                                                          state.opt_state)
         updates = optimlib.scale_updates(updates, self.lr_schedule(step))
         with torch.no_grad():
-            for k in names:
-                state.params[k].add_(updates[k])
+            for k, u in updates.items():  # frozen params (trainable_scopes) get none
+                state.params[k].add_(u)
             if state.ema_params is not None:
                 state.ema_params = optimlib.ema_update(
                     state.ema_params, state.params, cfg.optim.ema_decay)

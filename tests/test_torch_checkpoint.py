@@ -1,5 +1,6 @@
 """Checkpoints and resume of the port's trainer (CPU, small geometry)."""
 
+import dataclasses
 import json
 
 import pytest
@@ -95,8 +96,13 @@ def test_budgets_and_unported_options(tmp_path, dataset):
     with pytest.raises(ValueError, match="unbounded"):
         Trainer(_cfg(tmp_path / "d", max_step=0), dataset).train(-1)
     cfg = _cfg(tmp_path / "e")
-    with pytest.raises(NotImplementedError, match="relative_schedule"):
-        Trainer(cfg.replace(optim=OptimConfig(relative_schedule=True)), dataset)
+    # relative_schedule: a resume at step 3 shifts the boundary (3,) to (6,)
+    relative = Trainer(cfg.replace(
+        train=trainer.cfg.train,
+        optim=dataclasses.replace(cfg.optim, relative_schedule=True)),
+        dataset)
+    assert relative.maybe_restore() == 3
+    assert [relative.lr_schedule(s) for s in (3, 6, 7)] == [0.1, 0.1, 0.05]
     with pytest.raises(ValueError, match="classes"):
         Trainer(cfg.replace(model=ModelConfig(name="TCResNet8", num_classes=5)), dataset)
 

@@ -25,6 +25,8 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.ops.augment",
     "tcresnet_tpu_torch.data",
     "tcresnet_tpu_torch.data.speech_commands",
+    "tcresnet_tpu_torch.data.wav",
+    "tcresnet_tpu_torch.data.native_loader",
     "tcresnet_tpu_torch.data.synthetic",
     "tcresnet_tpu_torch.data.device_data",
     "tcresnet_tpu_torch.train",
@@ -35,6 +37,7 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.train.trainer",
     "tcresnet_tpu_torch.tools.train",
     "tcresnet_tpu_torch.tools.evaluate",
+    "tcresnet_tpu_torch.tools.prepare_dataset",
     "tcresnet_tpu_torch.metrics",
     "tcresnet_tpu_torch.metrics.host_metrics",
     "tcresnet_tpu_torch.metrics.writers",

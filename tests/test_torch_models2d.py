@@ -154,8 +154,8 @@ def test_unknown_names_raise():
 def test_trainer_trains_each_2d_family(tmp_path):
     """Each 2D family takes two adam steps in the Trainer on the CPU with a
     finite loss (train mode and steps are held to JAX in
-    tests/test_torch_train2d.py); what is still not ported
-    (optim.trainable_scopes) raises."""
+    tests/test_torch_train2d.py); with optim.trainable_scopes=("fc",) only
+    the fc params move."""
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
     from tcresnet_tpu_torch.train.trainer import Trainer
@@ -171,6 +171,9 @@ def test_trainer_trains_each_2d_family(tmp_path):
         trainer = Trainer(cfg, DeviceDataset(host, "cpu"), workdir=tmp_path / name)
         out = trainer.train_steps(2, start=0)
         assert np.isfinite(float(out["total_loss"])) and int(trainer.state.step) == 2, name
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(cfg.replace(optim=tconfig.OptimConfig(trainable_scopes=("fc",))),
-                DeviceDataset(host, "cpu"), workdir=tmp_path / "scopes")
+    frozen = Trainer(cfg.replace(optim=dataclasses.replace(cfg.optim, trainable_scopes=("fc",))),
+                     DeviceDataset(host, "cpu"), workdir=tmp_path / "scopes")
+    before = {k: p.detach().clone() for k, p in frozen.state.params.items()}
+    frozen.train_steps(2, start=0)
+    for k, p in frozen.state.params.items():
+        assert torch.equal(p, before[k]) != k.startswith("fc."), k

@@ -155,8 +155,10 @@ def test_optimizer_matches_optax(name):
             np.testing.assert_allclose(tema[k].numpy(), np.asarray(jema[k]), rtol=1e-6, atol=1e-7)
     assert optim.resolve_boundaries(
         OptimConfig(boundaries=(3,), boundaries_epoch=True), 1000, 64) == (46,)
-    # adam and rmsprop are ported (tests/test_torch_train2d.py); trainable_scopes is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # adam and rmsprop: tests/test_torch_train2d.py; trainable_scopes needs
+    # the params for its mask, as in the JAX package
+    # (tests/test_torch_trainable_scopes.py)
+    with pytest.raises(ValueError, match="requires params"):
         optim.build_optimizer(OptimConfig(optimizer="adam", trainable_scopes=("fc",)))
 
 

@@ -217,8 +217,14 @@ def test_adam_and_rmsprop_match_optax(name):
                                        rtol=1e-6, atol=1e-7)
             np.testing.assert_allclose(tstate[f"nu/{k}"].numpy(), np.asarray(jstate[0].nu[k]),
                                        rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="trainable_scopes"):
-        optim.build_optimizer(dataclasses.replace(ocfg, trainable_scopes=("fc",)))
+    # trainable_scopes: only the matching params keep state and get updates
+    # (against optax's multi_transform: tests/test_torch_trainable_scopes.py)
+    frozen, _ = optim.build_optimizer(dataclasses.replace(ocfg, trainable_scopes=("a",)),
+                                      params=p0)
+    fstate = frozen.init({k: torch.tensor(v) for k, v in p0.items()})
+    assert {k.rpartition("/")[2] for k in fstate if k != "count"} == {"a"}
+    upd, _ = frozen.update({k: torch.tensor(v) for k, v in p0.items()}, fstate)
+    assert set(upd) == {"a"}
 
 
 # ---------------------------------------------------------------------------
