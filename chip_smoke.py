@@ -175,13 +175,31 @@ print their lines:
               promoted best identically; the decode per 1,000 wavs (C++ and
               numpy), the upload, and the tree-backed step against the
               synthetic one at batch 100
+ 27. deploy   tools/run_experiment.py at TCResNet8-1.0 (batch 100, float32,
+              K3 and K7, 30 steps, a checkpoint every 10; trainer and loop
+              evaluator on the card): rc 0, a promoted best, step 30 scored,
+              the final test eval; tools/export.py on that run (best
+              accuracy, --fused-kernel, TF32 off, --output, --benchmark):
+              its three 1e-5 gates, K4 launched, plain_routes 0; the same
+              CLI on a seeded DSCNNL checkpoint through K2 + K5;
+              compile_inference's CUDA graph at batch 1 and 1024 against the
+              uncaptured call (1e-5), another batch raising, and the times
+              of both; an artifact exported on the CPU loaded onto the card
+              against its xla path (TF32 off, 1e-5); K4 at width 1.25
+              (TCResNet8 and TCResNet14, widths padded to 4) against its
+              plain version at batch 1, 8, 1024; streaming SVDF (2,560
+              filters, 49 x MFCC-40) fed in chunks of 1 and 7 against the
+              full window (1e-4) and the batch model (1e-5), its µs per chunk
+              and real-time factor; the adaptive benchmark_on_device at
+              batch 1 for K4 and the xla path
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
 plain version's, the least time the card could take for the same work and
 what bounds it, and the time of one PyTorch call that computes the same
 function where there is one; K1, K2, K3 and K7 also their launches in
-phase 26, `launches_dataset`), and last
+phase 26, `launches_dataset`, K4 its launches in phase 27,
+`launches_deploy`, its max error including width 1.25), and last
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero without that line. There is no CPU fallback: without a
 CUDA device it exits 1.
@@ -386,8 +404,6 @@ def main() -> int:
         return 1
 
     from tcresnet_tpu_torch.config import get_preset
-    from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
-    from tcresnet_tpu_torch.ops import dsp
     from tcresnet_tpu_torch.ops.kernels import _build
     from tcresnet_tpu_torch.ops.kernels import infer as k4
     from tcresnet_tpu_torch.serve.benchmark import benchmark_compiled, benchmark_on_device
@@ -421,9 +437,7 @@ def main() -> int:
           f"conv kernel {convs}")
 
     def variables_for(cfg, seed):
-        v = variables_from_jax(cfg.model,
-                               **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed))
-        return {k: {n: t.to(dev) for n, t in d.items()} for k, d in v.items()}
+        return seeded_variables_on(cfg, seed, dev)
 
     # ---- 3. kernel vs plain version ----
     flagship = get_preset("TCResNet8-1.0")
@@ -600,13 +614,15 @@ def main() -> int:
     for e in train_kernels + tconv_kernels:  # phase 26's launches beside the main path's
         if e["name"] in dataset:
             e["launches_dataset"] = dataset[e["name"]]
+    deploy = deploy_phase(dev, card)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
         "source": "tcresnet_tpu_torch/csrc/infer.cu",
         "replaces": "tcresnet_tpu/ops/pallas/infer.py:170",
         "launches": main_launches,
-        "max_abs_err": max_err,
+        "launches_deploy": deploy["launches"],
+        "max_abs_err": max(max_err, deploy["max_abs_err"]),
         "ms": times[("kernel", 1)] / 1e3,
         "plain_ms": times[("kernel_plain_version", 1)] / 1e3,
         "bound_ms": k4_lib[1]["bound_ms"],
@@ -650,11 +666,13 @@ def train_records(trainer) -> list:
 
 
 def device_ms(fn, runs: int = 20) -> float:
-    """Median CUDA-event time of fn() in ms (5 warm-up calls)."""
+    """Median CUDA-event time of fn() in ms over one block of calls (5
+    warm-up calls)."""
     from tcresnet_tpu_torch.serve.benchmark import benchmark_on_device
 
     probe = torch.empty(1, device="cuda")
-    return benchmark_on_device(lambda _: fn(), probe, warmup_runs=5, num_runs=runs)["median"] / 1e3
+    return benchmark_on_device(lambda _: fn(), probe, warmup_runs=5, num_runs=runs, repeats=1,
+                               max_repeats=1)["median"] / 1e3
 
 
 def device_spans(fn) -> list:
@@ -2456,6 +2474,219 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
             "k3_frontend": main_counts["k3"], "k7_tconv_fwd": main_counts["fwd"],
             "k7_tconv_dx": main_counts["dx"], "k7_tconv_dw": main_counts["dw"]}
 
+
+def seeded_variables_on(cfg, seed: int, dev: torch.device) -> dict:
+    """The port's variables of `cfg`'s model made from a seed, on `dev`."""
+    from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
+    from tcresnet_tpu_torch.ops import dsp
+
+    v = variables_from_jax(cfg.model,
+                           **seeded_variables(cfg.model, dsp.feature_shape(cfg.audio), seed))
+    return {k: {n: t.to(dev) for n, t in d.items()} for k, d in v.items()}
+
+
+def deploy_phase(dev: torch.device, card: str) -> dict:
+    """Phase 27: the composed run and deployment through the entry points a
+    user calls; K4's largest logit error at width 1.25 and its launches."""
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from tcresnet_tpu_torch.config import ModelConfig, get_preset
+    from tcresnet_tpu_torch.models import build_model
+    from tcresnet_tpu_torch.models.tc_resnet import scaled_channels
+    from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.ops.kernels import infer as k4
+    from tcresnet_tpu_torch.ops.kernels import infer2d as k5
+    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+    from tcresnet_tpu_torch.serve import streaming
+    from tcresnet_tpu_torch.serve.benchmark import benchmark_compiled, benchmark_on_device
+    from tcresnet_tpu_torch.serve.export import (
+        _with_matmul_precision, build_inference_fn, compile_inference, export_serialized,
+        load_serialized)
+    from tcresnet_tpu_torch.tools import export as export_cli
+    from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
+    from tcresnet_tpu_torch.train.state import TrainState
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    k4_launches, plain_before = k4.launches, k2.plain_routes
+
+    # ---- 27.1 the composed run: trainer, loop evaluator, final test eval ----
+    run = f"{root}/run"
+    cmd = [sys.executable, "-m", "tcresnet_tpu_torch.tools.run_experiment",
+           "--preset", "TCResNet8-1.0", "--synthetic", "--batch-size", "100",
+           "--compute-dtype", "float32", "--max-step", "30", "--step-save-checkpoint", "10",
+           "--cfg", "model.conv_backend=pallas", "--cfg", "audio.frontend_fuse=on",
+           "--eval-poll-timeout", "120", "--train-dir", run]
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=400)
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"run_experiment: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    best = Path(run, "best", "valid", "accuracy")
+    valid_steps = [json.loads(line)["step"]
+                   for line in Path(run, "valid_metrics.jsonl").read_text().splitlines()]
+    check(bool(list(best.glob("ckpt_*.pt"))), "run_experiment: no promoted best/valid/accuracy")
+    check(30 in valid_steps, f"run_experiment: the loop evaluator scored steps {valid_steps}")
+    check(Path(run, "test_metrics.jsonl").is_file(), "run_experiment: no final test eval")
+    test_rec = json.loads(Path(run, "test_metrics.jsonl").read_text().splitlines()[-1])
+    print(f"[deploy] run_experiment TCResNet8-1.0 B=100 f32, K3 + K7, 30 steps, trainer and "
+          f"loop evaluator both on the card: rc 0 in {run_s:.1f} s; valid steps {valid_steps}; "
+          f"best {sorted(p.name for p in best.glob('ckpt_*.pt'))}; test from the best: "
+          f"accuracy {test_rec.get('accuracy', float('nan')):.4f} | {card}")
+
+    # ---- 27.2 the export CLI on that run (K4), then DSCNNL (front end + K5) ----
+    before = k4.launches
+    res = export_cli.main(["--train-dir", run, "--best-metric", "accuracy", "--fused-kernel",
+                           "--parity-precision", "highest", "--output", f"{root}/tc8.pt2",
+                           "--benchmark"])
+    tc8_k4 = k4.launches - before
+    check(tc8_k4 > 0, "export CLI: --fused-kernel did not launch K4")
+    check(k2.plain_routes == plain_before, "export CLI: a batch took the plain front end")
+    print(f"[deploy] tools/export.py TCResNet8-1.0 best-accuracy B=1: compiled (CUDA graph) vs "
+          f"build_inference_fn {res['compiled_err']:.2e}, fused (K4) vs xla TF32 off "
+          f"{res['fused_err_highest']:.2e}, artifact ({res['artifact_bytes']} bytes) reloaded "
+          f"vs xla TF32 off {res['artifact_err']:.2e} (limit 1e-5); K4 launches {tc8_k4}; "
+          f"compiled host avg {res['compiled_host_us']['avg']:.1f} us, device avg (median of "
+          f"{res['xla_device_us']['repeats']:.0f} blocks, converged "
+          f"{bool(res['xla_device_us']['converged'])}) xla {res['xla_device_us']['avg']:.1f} "
+          f"us, fused {res['fused_device_us']['avg']:.1f} us ({res['fused_device_us']['repeats']:.0f}"
+          f" blocks, converged {bool(res['fused_device_us']['converged'])}) | {card}")
+
+    ds = get_preset("DSCNNL")
+    ds_dir = Path(root, "dscnnl")
+    (ds_dir / "ckpt").mkdir(parents=True)
+    (ds_dir / "config.json").write_text(ds.to_json())
+    dv = seeded_variables_on(ds, 27, torch.device("cpu"))
+    CheckpointManager(ds_dir / "ckpt").save(0, TrainState(
+        step=torch.zeros((), dtype=torch.int64), params=dv["params"],
+        batch_stats=dv["batch_stats"], opt_state={}))
+    counts = (k2.launches + k2.phases_launches + k2.radix4_launches, k5.launches)
+    res2 = export_cli.main(["--train-dir", str(ds_dir), "--fused-kernel",
+                            "--parity-precision", "highest"])
+    fe_n = k2.launches + k2.phases_launches + k2.radix4_launches - counts[0]
+    k5_n = k5.launches - counts[1]
+    check(fe_n > 0 and k5_n > 0, f"export CLI DSCNNL: front end {fe_n}, K5 {k5_n} launches")
+    check(k2.plain_routes == plain_before, "export CLI DSCNNL: the plain front end ran")
+    print(f"[deploy] tools/export.py DSCNNL ({ds.audio.dft_variant} front end + K5, seeded "
+          f"checkpoint) B=1: compiled vs build_inference_fn {res2['compiled_err']:.2e}, fused vs "
+          f"xla TF32 off {res2['fused_err_highest']:.2e} (limit 1e-5); front-end launches {fe_n}, "
+          f"K5 {k5_n} | {card}")
+
+    # ---- 27.3 compile_inference on the card; a CPU artifact loaded onto it ----
+    flagship = get_preset("TCResNet8-1.0")
+    v8 = seeded_variables_on(flagship, 0, dev)
+    n = flagship.audio.desired_samples
+    eager = build_inference_fn(flagship, v8, device=dev)
+    hi = build_inference_fn(flagship, v8, precision="highest", device=dev)
+    graph_times = {}
+    for batch in (1, 1024):
+        compiled, shape = compile_inference(flagship, v8, batch, device=dev)
+        x = torch.tensor(seeded_wavs(2700 + batch, batch, n), device=dev)
+        err = (compiled(x) - eager(x)).abs().max().item()
+        check(err <= SOFTMAX_ATOL, f"compile_inference B={batch}: graph vs eager {err}")
+        try:
+            compiled(torch.zeros(batch + 1, n, device=dev))
+            check(False, f"compile_inference B={batch}: another batch was accepted")
+        except ValueError:
+            pass
+        stats = {name: (benchmark_compiled(fn, x), benchmark_on_device(fn, x))
+                 for name, fn in (("graph", compiled), ("eager", eager))}
+        graph_times[batch] = stats
+        print(f"[deploy] compile_inference B={batch} (CUDA graph, TF32 off): vs the uncaptured "
+              f"call {err:.2e}; another batch raises; "
+              + "; ".join(f"{name} host avg {h['avg']:.1f} us, device avg {d['avg']:.1f} us "
+                          f"({d['repeats']:.0f} blocks of {d['count']:.0f}, converged "
+                          f"{bool(d['converged'])})" for name, (h, d) in stats.items())
+              + f" | {card}")
+    data = export_serialized(flagship, seeded_variables_on(flagship, 0, torch.device("cpu")), 1,
+                             device="cpu")
+    moved = _with_matmul_precision(load_serialized(data, device=dev), "highest")
+    x = torch.tensor(seeded_wavs(2701, 1, n), device=dev)
+    art_err = (moved(x) - hi(x)).abs().max().item()
+    check(art_err <= SOFTMAX_ATOL, f"a CPU artifact loaded onto the card: {art_err}")
+    print(f"[deploy] export_serialized on the CPU ({len(data)} bytes) -> "
+          f"load_serialized(device='cuda'): vs the card's xla path TF32 off {art_err:.2e} "
+          f"(limit 1e-5) | {card}")
+
+    # ---- 27.4 K4 at width 1.25 against its plain version ----
+    w_err = 0.0
+    for name in ("TCResNet8", "TCResNet14"):
+        cfg = get_preset(f"{name}-1.0")
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, width_multiplier=1.25))
+        vw = seeded_variables_on(cfg, 0, dev)
+        plan = k4.build_fused_infer(cfg.model, cfg.audio, vw["params"], vw["batch_stats"],
+                                    device=dev)
+        errs = []
+        for batch in (1, 8, 1024):
+            wavs = torch.tensor(seeded_wavs(1250 + batch, batch, n), device=dev)
+            before = k4.launches
+            got, again = k4.fused_infer(wavs, plan), k4.fused_infer(wavs, plan)
+            torch.cuda.synchronize()
+            check(k4.launches == before + 2, f"K4 {name}-1.25 B={batch}: launches")
+            check(torch.equal(got, again), f"K4 {name}-1.25 B={batch}: two calls differ")
+            want = k4.fused_infer_reference(wavs, plan)
+            err = (got - want).abs().max().item()
+            sm_err = (torch.softmax(got, -1) - torch.softmax(want, -1)).abs().max().item()
+            check(torch.allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+                  f"K4 {name}-1.25 B={batch}: logits differ by {err}")
+            check(sm_err <= SOFTMAX_ATOL, f"K4 {name}-1.25 B={batch}: softmax {sm_err}")
+            w_err = max(w_err, err)
+            errs.append(f"B={batch} {err:.2e}/{sm_err:.2e}")
+        print(f"[deploy] K4 {name}-1.25 (widths {list(scaled_channels(name, 1.25))}, the "
+              f"convs' padded to {[c.w.shape[1] for c in plan.convs]}): max |logit| / |softmax| "
+              f"err vs plain: {', '.join(errs)}; two calls bit-equal | {card}")
+
+    # ---- 27.5 streaming SVDF at full size ----
+    kws = get_preset("KWSfpool3")
+    scfg = kws.replace(model=ModelConfig(name="KWS", kws_architecture="low_latency_svdf",
+                                         num_classes=kws.model.num_classes))
+    shape = dsp.feature_shape(scfg.audio)
+    sv = seeded_variables_on(scfg, 5, dev)
+    model = build_model(scfg.model, shape, device=dev)
+    model.load_state_dict({**sv["params"], **sv["batch_stats"]})
+    frames = torch.tensor(np.random.default_rng(5).normal(size=shape[:2]).astype(np.float32),
+                          device=dev)
+    with torch.no_grad():
+        batch_probs = torch.softmax(model(frames[None, :, :, None])[0], -1)
+    t = shape[0]
+    full, _ = streaming.streaming_step(sv["params"], streaming.init_state(t, device=dev), frames)
+    full_err = (full - batch_probs).abs().max().item()
+    check(full_err <= SOFTMAX_ATOL, f"streaming: full window vs the batch model {full_err}")
+    chunk_errs = {}
+    for chunk in (1, 7):
+        mem = streaming.init_state(t, device=dev)
+        for i in range(0, t, chunk):
+            probs, mem = streaming.streaming_step(sv["params"], mem, frames[i:i + chunk])
+        chunk_errs[chunk] = (probs - full).abs().max().item()
+        check(chunk_errs[chunk] <= 1e-4, f"streaming: chunks of {chunk} vs full {chunk_errs}")
+    stride_us = scfg.audio.window_stride_ms * 1e3
+    mem = streaming.init_state(t, device=dev)
+    step_times = {chunk: benchmark_on_device(
+        lambda x: streaming.streaming_step(sv["params"], mem, x), frames[:chunk].contiguous())
+        for chunk in (1, 7)}
+    print(f"[deploy] streaming SVDF ({mem.shape[0]} filters x {t} frames, MFCC-{shape[1]} at "
+          f"{scfg.audio.window_stride_ms:g} ms stride): full window vs batch model "
+          f"{full_err:.2e} (limit 1e-5); chunks of 1 / 7 vs full {chunk_errs[1]:.2e} / "
+          f"{chunk_errs[7]:.2e} (limit 1e-4); "
+          + "; ".join(f"{c} frame(s) a chunk {d['avg']:.1f} us device avg ({d['repeats']:.0f} "
+                      f"blocks, converged {bool(d['converged'])}), real-time factor "
+                      f"{d['avg'] / (c * stride_us):.4f}" for c, d in step_times.items())
+          + f" | {card}")
+
+    # ---- 27.6 the adaptive device protocol at batch 1: K4 and the xla path ----
+    fused = build_inference_fn(flagship, v8, backend="fused", device=dev)
+    x = torch.tensor(seeded_wavs(2706, 1, n), device=dev)
+    for name, fn in (("K4 (fused)", fused), ("xla", eager)):
+        d = benchmark_on_device(fn, x)
+        print(f"[deploy] benchmark_on_device TCResNet8-1.0 B=1 {name}: avg {d['avg']:.1f} us "
+              f"(median of {d['repeats']:.0f} blocks of {d['count']:.0f}), trimmed min "
+              f"{d['min']:.1f} max {d['max']:.1f} std {d['std']:.2f}, converged "
+              f"{bool(d['converged'])} | {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"max_abs_err": w_err, "launches": k4.launches - k4_launches}
 
 if __name__ == "__main__":
     sys.exit(main())

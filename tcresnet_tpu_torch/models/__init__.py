@@ -19,8 +19,8 @@ An unknown name raises KeyError.
   K7 (`csrc/tconv.cu`) on the card, its plain version on the CPU;
 - "pallas-interpret": K7's plain version on any device (the JAX
   package's test value);
-- "im2col" raises NotImplementedError (not carried over, ROADMAP.md
-  Queue 1 item 15); any other value raises ValueError.
+- "im2col" raises NotImplementedError (ROADMAP.md Queue 1, "Not
+  carried over"); any other value raises ValueError.
 
 As in the JAX package, the Pallas conv is temporal only, so the 2D
 families run cuDNN whichever of the three served values is set.

@@ -96,7 +96,7 @@ def check_conv_backend(conv_backend: str) -> None:
     if conv_backend == "im2col":
         raise NotImplementedError(
             "conv_backend='im2col' (Im2ColConv, an XLA formulation for the TPU) is "
-            "not carried over to the port (ROADMAP.md Queue 1 item 15)")
+            "not carried over to the port (ROADMAP.md Queue 1, \"Not carried over\")")
     if conv_backend not in ("xla", "pallas", "pallas-interpret"):
         raise ValueError(f"conv_backend must be 'xla', 'pallas' or 'pallas-interpret', "
                          f"got {conv_backend!r}")
@@ -119,8 +119,8 @@ def slim_conv(in_channels: int, out_channels: int, kernel: Tuple[int, int],
     check_conv_backend(conv_backend)
     if kernel[1] != 1 or stride[1] != 1:
         raise NotImplementedError(
-            f"only temporal k x 1 convs are ported, got kernel {kernel} stride {stride} "
-            "(ROADMAP.md Queue 1 item 11)")
+            f"only temporal k x 1 convs are ported (every TC-ResNet conv is one), got "
+            f"kernel {kernel} stride {stride}")
     args = (in_channels, out_channels, kernel[0], stride[0])
     if conv_backend == "xla":
         return TemporalConv(*args, dtype=dtype, device=device)

@@ -286,14 +286,30 @@ def round_operand(x: torch.Tensor, matmul_dtype: torch.dtype) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_constant(builder, args: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(builder(*args), device=device)
+
+
+def _tracing() -> bool:
+    """Whether PyTorch is tracing this call (torch.compile, or the fake
+    tensors of torch.export), so that a tensor made now is not real."""
+    from torch._guards import detect_fake_mode
+
+    return torch.compiler.is_compiling() or detect_fake_mode() is not None
+
+
 def device_constant(builder, args: tuple, device: torch.device) -> torch.Tensor:
     """`builder(*args)` as a tensor on `device`, made once per process.
 
     The JAX path folds its constants into the compiled program; here they
     would otherwise be copied host-to-device on every call (a pageable
     copy the host waits for). Shared by every caller: read it, never
-    write it."""
-    return torch.tensor(builder(*args), device=device)
+    write it. While PyTorch traces (`torch.export.export`), the constant
+    is made for that trace and not cached: a cached fake tensor would be
+    handed to every later eager call."""
+    if _tracing():
+        return torch.tensor(builder(*args), device=device)
+    return _cached_constant(builder, args, device)
 
 
 def _frame_index(frames: int, window: int, hop: int) -> np.ndarray:

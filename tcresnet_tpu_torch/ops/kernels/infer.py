@@ -10,8 +10,10 @@ utterance), or in a second kernel of the same call (a batch of more:
 `FusedInfer.two_kernels`). This module:
 
 - folds eval-mode BatchNorm into each conv once, on the host
-  (`_fold_conv_bn`, epsilon 1e-3), and flattens the residual structure
-  into a conv list with roles (`build_layer_spec`);
+  (`_fold_conv_bn`, epsilon 1e-3), flattens the residual structure
+  into a conv list with roles (`build_layer_spec`), and pads every conv
+  width to a multiple of 4 with zeros (`_pad_channels`), so that the
+  kernel serves every width multiplier, as the JAX kernel does;
 - lays the folded constants out for the kernel and copies them to the
   device once (`build_fused_infer` -> `FusedInfer`), with the kernel's
   shared-memory plan (`_geometry`, `launch_smem_bytes`) and its own
@@ -68,13 +70,21 @@ class _Geometry:
     conv_floats: int
 
 
+def _pad4(c: int) -> int:
+    """A width padded to the kernel's: a conv thread computes 4 output
+    channels from 16-byte weight loads."""
+    return c + -c % 4
+
+
 def _conv_shapes(model_cfg: ModelConfig, t: int) -> List[Tuple[int, int]]:
-    """(out rows, out channels) of every conv in spec order."""
+    """(out rows, out channels padded to 4, as `_pad_channels` lays them
+    out) of every conv in spec order. The blocks are the model's: two
+    widths that pad alike still have a down conv between them."""
     channels = scaled_channels(model_cfg.name, model_cfg.width_multiplier)
-    shapes = [(t, channels[0])]
+    shapes = [(t, _pad4(channels[0]))]
     for _, n, down in block_plan(channels):
         to = -(-t // 2) if down else t
-        shapes += ([(to, n)] if down else []) + [(to, n), (to, n)]
+        shapes += [(to, _pad4(n))] * (3 if down else 2)
         t = to
     return shapes
 
@@ -91,7 +101,7 @@ def _geometry(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> _Geometry:
     fe = mfcc.front_end_geometry(audio_cfg, audio_cfg.desired_samples)
     nnz = mfcc.tc_mel_constants(*dsp.mel_args(audio_cfg))[1].size
     act_max = max(t * c for t, c in _conv_shapes(model_cfg, fe.frames))
-    c_last = scaled_channels(model_cfg.name, model_cfg.width_multiplier)[-1]
+    c_last = _pad4(scaled_channels(model_cfg.name, model_cfg.width_multiplier)[-1])
     feats = fe.frames * fe.width
     return _Geometry(fe, nnz, act_max, _FLAG_FLOATS + feats + -feats % 4 + 3 * act_max + c_last)
 
@@ -107,20 +117,18 @@ def fused_infer_available(model_cfg: ModelConfig, audio_cfg: AudioConfig) -> boo
     ends where K2's stage serves the geometry in the hops variant
     (`mfcc.fused_mfcc_available`: hop-decomposable, window % hop == 0, n %
     hop == 0 and n >= window as in the JAX kernel; 16-byte aligned frames;
-    a tile plan that fits a block), with conv widths that are multiples of
-    4 (every preset's) and a conv stage whose shared memory fits one Hopper
-    block."""
+    a tile plan that fits a block), with a conv stage whose shared memory
+    fits one Hopper block at the widths padded to 4 (`_pad_channels`) and
+    at most the kernel's number of convs. Like the JAX kernel, it serves
+    every width multiplier."""
     if model_cfg.name not in TC_CHANNELS:
         return False
     n = audio_cfg.desired_samples
     if not mfcc.fused_mfcc_available(_hops(audio_cfg), n):
         return False
     geom = _geometry(model_cfg, audio_cfg)
-    shapes = _conv_shapes(model_cfg, geom.fe.frames)
-    # a conv thread computes 4 output channels from 16-byte weight loads
-    quads = all(c % 4 == 0 for _, c in shapes)
-    return (quads and 4 * geom.conv_floats <= mfcc.SMEM_LIMIT
-            and len(shapes) <= _MAX_CONVS)
+    return (4 * geom.conv_floats <= mfcc.SMEM_LIMIT
+            and len(_conv_shapes(model_cfg, geom.fe.frames)) <= _MAX_CONVS)
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +176,26 @@ def build_layer_spec(
                          wb=_fold_conv_bn(params, stats, f"block{i}_conv1")))
     fc = _np(params["fc.weight"]).astype(np.float32).T  # Linear [out, in] -> [in, out]
     return spec, np.ascontiguousarray(fc)
+
+
+def _pad_channels(spec: List[Dict[str, Any]],
+                  fc: np.ndarray) -> Tuple[List[Dict[str, Any]], np.ndarray]:
+    """The spec with every conv's output channels padded to a multiple of 4
+    (zero weight columns, zero biases) and every input that came from a
+    conv padded to match (zero weight rows; conv0 reads the features as
+    they are), and the fc's input rows padded with zeros. A padded channel
+    is 0 after each conv, its ReLU and the residual add, so it adds 0 to
+    every sum and the logits are those of the unpadded model."""
+    out = []
+    for e in spec:
+        w, b = e["wb"]
+        k, co = e["k"], w.shape[1]
+        ci = w.shape[0] // k
+        ci_pad = 0 if e["role"] == "conv0" else _pad4(ci) - ci
+        w = np.pad(w.reshape(k, ci, co), ((0, 0), (0, ci_pad), (0, _pad4(co) - co)))
+        out.append({**e, "wb": (w.reshape(k * (ci + ci_pad), _pad4(co)),
+                                np.pad(b, (0, _pad4(co) - co)))})
+    return out, np.pad(fc, ((0, _pad4(fc.shape[0]) - fc.shape[0]), (0, 0)))
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +279,7 @@ class FusedInfer:
         # so that tools/infer_times.py can time both
         self.force_two_kernels = None
 
-        spec, fc = build_layer_spec(model_cfg, params, batch_stats)
+        spec, fc = _pad_channels(*build_layer_spec(model_cfg, params, batch_stats))
         self.fc = dev(fc)
         # weights and biases at 16-byte aligned offsets: the kernel reads
         # the weights as float4

@@ -18,15 +18,29 @@ run configs carry over:
   "auto"  — "fused" when the input tensor is on a CUDA device and its
             batch is at most `auto_fused_max_batch(name)`, else "xla".
 
-Not in this slice (ROADMAP.md Queue 1 item 10): `compile_inference` and
-the serialized artifact (`torch.export`).
+The `xla` path at one fixed input shape is also what is deployed:
+
+  compile_inference — a callable for that shape: on the card the path
+      captured once in a CUDA graph and replayed, on the CPU the program
+      `torch.export` traces (the counterparts of JAX's AOT executable);
+  export_serialized / load_serialized — that program as `torch.export`
+      bytes, and back as a callable (JAX's serialized StableHLO).
+
+As in the JAX package, neither the fused kernels nor "auto" are exported:
+a kernel launched through ctypes is not an op `torch.export` can trace, so
+the traced program runs the plain per-op convs and front end (cuDNN, the
+dense DFT), whatever `conv_backend` and `dsp_backend` the run trained with:
+the same function.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional
+import dataclasses
+import io
+from typing import Any, Callable, Mapping, Optional, Tuple
 
 import torch
+from torch import nn
 
 from tcresnet_tpu_torch.config import ExperimentConfig
 from tcresnet_tpu_torch.models import build_model
@@ -95,16 +109,7 @@ def build_inference_fn(
     mapping (models/convert.py). The weights move to `device` once; inputs
     must already be there."""
     device = resolve_device(device)
-    if use_ema:
-        # never silently ship raw params when the caller asked for EMA
-        params = variables.get("ema_params")
-        if params is None:
-            raise ValueError(
-                "use_ema=True but the variables mapping has no 'ema_params'"
-            )
-    else:
-        params = variables["params"]
-    batch_stats = variables.get("batch_stats", {})
+    params, batch_stats = _weights(variables, use_ema)
 
     if backend not in ("xla", "fused", "auto"):
         raise ValueError(f"Unknown backend {backend!r}")
@@ -155,19 +160,177 @@ def build_inference_fn(
     return _with_matmul_precision(infer_auto, precision)
 
 
+def _weights(variables: Mapping[str, Any], use_ema: bool):
+    """(params, batch_stats) of the port's variables mapping."""
+    if use_ema:
+        # never silently ship raw params when the caller asked for EMA
+        params = variables.get("ema_params")
+        if params is None:
+            raise ValueError(
+                "use_ema=True but the variables mapping has no 'ema_params'"
+            )
+    else:
+        params = variables["params"]
+    return params, variables.get("batch_stats", {})
+
+
+class _XlaInfer(nn.Module):
+    """The `xla` path as one module, wav (or features) -> softmax: what
+    build_inference_fn calls, a CUDA graph captures and torch.export
+    traces."""
+
+    def __init__(self, cfg: ExperimentConfig, params, batch_stats,
+                 include_preprocess: bool, device: torch.device):
+        super().__init__()
+        self.audio = cfg.audio
+        self.include_preprocess = include_preprocess
+        self.model = build_model(
+            cfg.model, dsp.feature_shape(cfg.audio), cfg.train.compute_dtype,
+            device=device,
+        )
+        state = {k: torch.as_tensor(v) for k, v in {**params, **batch_stats}.items()}
+        self.model.load_state_dict(state)
+        self.requires_grad_(False)
+        self.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.include_preprocess:
+            x = dsp.preprocess(x, self.audio)
+        return torch.softmax(self.model(x), dim=-1)
+
+
 def _build_xla_infer(cfg, params, batch_stats, include_preprocess, device):
-    model = build_model(
-        cfg.model, dsp.feature_shape(cfg.audio), cfg.train.compute_dtype,
-        device=device,
-    )
-    state = {k: torch.as_tensor(v) for k, v in {**params, **batch_stats}.items()}
-    model.load_state_dict(state)
+    module = _XlaInfer(cfg, params, batch_stats, include_preprocess, device)
 
     @torch.no_grad()
     def infer(x: torch.Tensor) -> torch.Tensor:
         _check_input(x, device)
-        if include_preprocess:
-            x = dsp.preprocess(x, cfg.audio)
-        return torch.softmax(model(x), dim=-1)
+        return module(x)
 
     return infer
+
+
+def _input_shape(cfg: ExperimentConfig, batch_size: int,
+                include_preprocess: bool) -> Tuple[int, ...]:
+    """[B, N] wavs, or [B, H, W, 1] features without the front end."""
+    if include_preprocess:
+        return (batch_size, cfg.audio.desired_samples)
+    return (batch_size,) + dsp.feature_shape(cfg.audio)
+
+
+def _plain(cfg: ExperimentConfig) -> ExperimentConfig:
+    """`cfg` with the per-op convs and front end that torch.export traces
+    (a ctypes launch is not a PyTorch op): the same function."""
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, conv_backend="xla"),
+        audio=dataclasses.replace(cfg.audio, dsp_backend="xla"),
+    )
+
+
+def _export(cfg, variables, batch_size, include_preprocess, use_ema, device):
+    module = _XlaInfer(_plain(cfg), *_weights(variables, use_ema), include_preprocess, device)
+    example = torch.zeros(_input_shape(cfg, batch_size, include_preprocess), device=device)
+    return torch.export.export(module, (example,))
+
+
+class _CudaGraph:
+    """`module` at input `shape` captured once in a CUDA graph, after three
+    warm-up calls on a side stream (they build the front end's constants
+    and load any kernel the path launches: a capture may not copy from the
+    host). A call copies x into the static input, replays the graph and
+    returns a copy of the static output. The graph reads the module's
+    weights where they lie, so this object holds the module. TF32 is as
+    the caller left it at capture. One caller at a time: the static
+    buffers are shared."""
+
+    def __init__(self, module: nn.Module, shape: Tuple[int, ...], device: torch.device):
+        self.module = module
+        self.static_in = torch.zeros(shape, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(3):
+                module(self.static_in)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(self.graph):
+            self.static_out = module(self.static_in)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.static_in.copy_(x)
+        self.graph.replay()
+        return self.static_out.clone()
+
+
+def compile_inference(
+    cfg: ExperimentConfig,
+    variables: Mapping[str, Any],
+    batch_size: int = 1,
+    include_preprocess: bool = True,
+    use_ema: bool = False,
+    *,
+    device,
+) -> Tuple[Callable[[torch.Tensor], torch.Tensor], Tuple[int, ...]]:
+    """The `xla` path compiled for one input shape -> (callable, shape).
+
+    The counterpart of JAX's AOT executable (`jit(...).lower().compile()`),
+    not a kernel. On a CUDA device the path is captured once in a CUDA
+    graph (`_CudaGraph`: the convs and front end the config names, K7
+    included, with TF32 as the caller left it) and replayed per call; on
+    the CPU the callable is the program `torch.export.export` traces at
+    that shape, run through its `.module()`. Either raises for an input of
+    another shape or on another device."""
+    device = resolve_device(device)
+    shape = _input_shape(cfg, batch_size, include_preprocess)
+    if device.type == "cuda":
+        module = _XlaInfer(cfg, *_weights(variables, use_ema), include_preprocess, device)
+        run = _CudaGraph(module, shape, device)
+    else:
+        run = _export(cfg, variables, batch_size, include_preprocess, use_ema, device).module()
+
+    @torch.no_grad()
+    def compiled(x: torch.Tensor) -> torch.Tensor:
+        _check_input(x, device)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"compiled for input {list(shape)}, got {list(x.shape)}")
+        return run(x)
+
+    return compiled, shape
+
+
+def export_serialized(
+    cfg: ExperimentConfig,
+    variables: Mapping[str, Any],
+    batch_size: int = 1,
+    include_preprocess: bool = True,
+    use_ema: bool = False,
+    *,
+    device,
+) -> bytes:
+    """The `xla` path at one batch as a serialized `torch.export` program
+    (`torch.export.save`), traced on `device` (JAX's `platforms`): the
+    .pb / .tflite analog. Reload with `load_serialized`."""
+    program = _export(cfg, variables, batch_size, include_preprocess, use_ema,
+                      resolve_device(device))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def load_serialized(data: bytes, device=None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The program `export_serialized` wrote, as a callable on the device
+    it was traced on, or on `device` (its weights, lifted constants and the
+    devices named in its ops moved by `torch.export.passes.
+    move_to_device_pass`). It raises for an input of another shape."""
+    program = torch.export.load(io.BytesIO(data))
+    if device is not None:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, resolve_device(device))
+    module = program.module()
+
+    @torch.no_grad()
+    def run(x: torch.Tensor) -> torch.Tensor:
+        return module(x)
+
+    return run

@@ -16,9 +16,10 @@ model.conv_backend=pallas is scored through K7's forward. The split comes
 from the run's data (its tree, or the synthetic dataset) through the
 train CLI's `load_split`; `--dataset-root` and `--cache-dir` point at
 another tree or cache.
-`--device auto` evaluates on the first CUDA card; `--device cpu` on the
-CPU, through the plain versions, which keeps the evaluator off a card a
-trainer holds.
+`--seed`, `--compute-dtype`, `--num-silent` and `--clip-duration-ms` set
+the same fields as the train CLI's flags (tools/run_experiment.py forwards
+them to both). `--device auto` evaluates on the first CUDA card; `--device
+cpu` on the CPU, through the plain versions.
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ def parse_args(argv=None):
     p.add_argument("--timeout", type=float, default=None,
                    help="loop mode: stop after this many idle seconds")
     p.add_argument("--batch-size", type=int, default=None, help="data.eval_batch_size")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None)
+    p.add_argument("--num-silent", type=int, default=None,
+                   help="silent rows added to the split (-1: samples // labels)")
+    p.add_argument("--clip-duration-ms", type=int, default=None)
     p.add_argument("--best-metric", default=None,
                    help="once mode: score the promoted best checkpoint for this metric, "
                         "<train-dir>/best/<best-split>/<metric>")

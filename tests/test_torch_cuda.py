@@ -623,3 +623,70 @@ def test_k5_checks_its_input(cuda_device):
     assert k5.fused_infer2d(feats[:0], plan).shape == (0, cfg.model.num_classes)
     assert k5.grid_blocks(cuda_device) >= torch.cuda.get_device_properties(
         cuda_device).multi_processor_count
+
+
+@pytest.mark.parametrize("name", ["TCResNet8", "TCResNet14"])
+def test_k4_at_width_125_matches_plain(cuda_device, name):
+    """Widths 20/30/40/60 (padded to 4 on the host) through K4 against its
+    plain version, two calls bit-equal."""
+    cfg = get_preset(f"{name}-1.0")
+    model = dataclasses.replace(cfg.model, width_multiplier=1.25)
+    v = _variables(model, cfg.audio, cuda_device)
+    plan = k4.build_fused_infer(model, cfg.audio, v["params"], v["batch_stats"],
+                                device=cuda_device)
+    for batch in (1, 8):
+        wavs = torch.tensor(np.random.default_rng(batch).uniform(
+            -1, 1, (batch, cfg.audio.desired_samples)).astype(np.float32), device=cuda_device)
+        got = k4.fused_infer(wavs, plan)
+        assert torch.equal(got, k4.fused_infer(wavs, plan))
+        want = k4.fused_infer_reference(wavs, plan)
+        torch.testing.assert_close(got, want, **LOGIT_TOL)
+        assert (torch.softmax(got, -1) - torch.softmax(want, -1)).abs().max() <= SOFTMAX_ATOL
+
+
+def test_compile_inference_graph_and_moved_artifact(cuda_device):
+    """The CUDA graph of the xla path equals the uncaptured call, also
+    after the memory the process freed since the capture is filled with
+    NaN (the graph reads the weights in place: they must stay alive), and
+    refuses another batch; an artifact traced on the CPU, loaded onto the
+    card, meets the card's xla path (TF32 off)."""
+    import gc
+
+    from tcresnet_tpu_torch.serve.export import (
+        compile_inference, export_serialized, load_serialized)
+
+    cfg = get_preset("TCResNet8-1.0")
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    compiled, shape = compile_inference(cfg, v, 4, device=cuda_device)
+    gc.collect()
+    junk = [torch.full((1 << 18,), float("nan"), device=cuda_device) for _ in range(64)]
+    eager = build_inference_fn(cfg, v, device=cuda_device)
+    x = torch.tensor(np.random.default_rng(4).uniform(-1, 1, shape).astype(np.float32),
+                     device=cuda_device)
+    assert (compiled(x) - eager(x)).abs().max() <= SOFTMAX_ATOL
+    del junk
+    with pytest.raises(ValueError, match="compiled for input"):
+        compiled(x[:2])
+    data = export_serialized(cfg, _variables(cfg.model, cfg.audio, "cpu"), 4, device="cpu")
+    moved = load_serialized(data, device=cuda_device)(x)
+    assert moved.device == x.device and (moved - eager(x)).abs().max() <= SOFTMAX_ATOL
+
+
+def test_streaming_on_the_card_matches_the_batch_model(cuda_device):
+    from tcresnet_tpu_torch.models import build_model
+    from tcresnet_tpu_torch.serve import streaming
+
+    cfg = ModelConfig(name="KWS", kws_architecture="low_latency_svdf", num_classes=12)
+    shape = (49, 40, 1)
+    v = variables_from_jax(cfg, **seeded_variables(cfg, shape, 0))
+    params = {n: t.to(cuda_device) for n, t in v["params"].items()}
+    model = build_model(cfg, shape, device=cuda_device)
+    model.load_state_dict({**v["params"], **v["batch_stats"]})
+    frames = torch.tensor(np.random.default_rng(0).normal(size=shape[:2]).astype(np.float32),
+                          device=cuda_device)
+    with torch.no_grad():
+        want = torch.softmax(model(frames[None, :, :, None])[0], -1)
+    mem = streaming.init_state(49, device=cuda_device)
+    for i in range(0, 49, 7):
+        probs, mem = streaming.streaming_step(params, mem, frames[i:i + 7])
+    assert (probs - want).abs().max() <= 1e-4

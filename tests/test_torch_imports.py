@@ -54,7 +54,10 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.models.convert",
     "tcresnet_tpu_torch.serve.export",
     "tcresnet_tpu_torch.serve.benchmark",
+    "tcresnet_tpu_torch.serve.streaming",
     "tcresnet_tpu_torch.tools.latency_bench",
+    "tcresnet_tpu_torch.tools.export",
+    "tcresnet_tpu_torch.tools.run_experiment",
 ]
 
 

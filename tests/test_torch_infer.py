@@ -95,8 +95,8 @@ def test_availability_gates():
         good, preprocess_method="log_mel_spectrogram"))
     assert k4.fused_infer_available(ModelConfig(), dataclasses.replace(
         good, window_size_ms=40.0, window_stride_ms=20.0))
-    # conv widths 12 / 18 at width 0.75: the kernel reads 4 channels at a time
-    assert not k4.fused_infer_available(ModelConfig(width_multiplier=0.75), good)
+    # conv widths 12 / 18 at width 0.75: padded to 12 / 20 for the kernel
+    assert k4.fused_infer_available(ModelConfig(width_multiplier=0.75), good)
     assert k4.fused_infer_available(ModelConfig(width_multiplier=0.5), good)
     assert not k4.fused_infer_available(ModelConfig(name="Res8"), good)
     assert not k4.fused_infer_available(ModelConfig(name="ResNet2D8"), good)
@@ -109,6 +109,73 @@ def test_availability_gates():
         k4.build_fused_infer(ModelConfig(name="TCResNet8"),
                              dataclasses.replace(good, window_size_ms=25.0), {}, {},
                              device="cpu")
+
+
+WIDTHS = (0.5, 0.75, 1.0, 1.25, 1.5)
+
+
+@pytest.mark.parametrize("wm", WIDTHS)
+@pytest.mark.parametrize("name", ["TCResNet8", "TCResNet14"])
+def test_availability_equals_jax_at_every_width(name, wm):
+    """The kernel serves every width the JAX kernel serves, at the presets'
+    1 s MFCC-40 and at the tests' 160 ms geometry."""
+    model = ModelConfig(name=name, width_multiplier=wm)
+    for audio in (AudioConfig(), _setup(name, wm)[1]):
+        want = jinfer.fused_infer_available(to_jax_config(model), to_jax_config(audio))
+        assert k4.fused_infer_available(model, audio) == want
+
+
+@pytest.mark.parametrize("name,wm", [("TCResNet8", 1.25), ("TCResNet14", 1.25),
+                                     ("TCResNet8", 0.4)])
+def test_widths_padded_to_four(name, wm):
+    """Widths that are not multiples of 4 (20/30/40/60 at 1.25; 6/9/12/19 at
+    0.4, where 9 and 12 pad alike across a down conv) are laid out padded
+    with zeros: every conv's weights and bias beyond the model's widths are
+    0, the shapes are `_conv_shapes`', and the plain version over them
+    matches JAX's K4 in interpret mode (logits, softmax 1e-5)."""
+    model, audio, seeded = _setup(name, wm=wm)
+    v = variables_from_jax(model, **seeded)
+    plan = k4.build_fused_infer(model, audio, v["params"], v["batch_stats"], device="cpu")
+    spec, fc = k4.build_layer_spec(model, v["params"], v["batch_stats"])
+    shapes = k4._conv_shapes(model, plan.geom.fe.frames)
+    assert [c.w.shape[1] for c in plan.convs] == [c for _, c in shapes]
+    assert all(c.w.shape[1] % 4 == 0 and c.w.shape[1] - 4 < e["wb"][0].shape[1]
+               for c, e in zip(plan.convs, spec))
+    for c, e in zip(plan.convs, spec):
+        w, b = e["wb"]
+        k, co = c.k, w.shape[1]
+        ci = w.shape[0] // k
+        pw = c.w.numpy().reshape(k, -1, c.w.shape[1])
+        np.testing.assert_array_equal(pw[:, :ci, :co], w.reshape(k, ci, co))
+        assert not pw[:, ci:].any() and not pw[:, :, co:].any() and not c.b[co:].any()
+    np.testing.assert_array_equal(plan.fc.numpy()[:fc.shape[0]], fc)
+    assert not plan.fc[fc.shape[0]:].any()
+    jfn = jinfer.build_fused_infer(to_jax_config(model), to_jax_config(audio), seeded["params"],
+                                   seeded["batch_stats"], tb=4, interpret=True)
+    wavs = _wavs(3, audio.desired_samples)
+    want, got = np.asarray(jax.device_get(jfn(wavs))), plan(torch.tensor(wavs)).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+    sm = lambda a: np.asarray(jax.nn.softmax(a, axis=-1))  # noqa: E731
+    np.testing.assert_allclose(sm(got), sm(want), rtol=0, atol=SOFTMAX_ATOL)
+
+
+@pytest.mark.parametrize("name", ["TCResNet8", "TCResNet14"])
+def test_fused_backend_at_width_125_matches_jax(name):
+    """backend="fused" at width 1.25 (K4's plain version on the CPU) within
+    1e-5 in softmax of JAX's fused backend in interpret mode, as
+    tests/test_torch_serve.py::test_backends_match_jax holds width 1.0."""
+    from tcresnet_tpu.serve.export import build_inference_fn as jax_build_inference_fn
+    from tcresnet_tpu_torch.config import ExperimentConfig
+    from tcresnet_tpu_torch.serve.export import build_inference_fn
+
+    model, audio, seeded = _setup(name, wm=1.25)
+    cfg = ExperimentConfig(audio=audio, model=model)
+    wavs = _wavs(5, audio.desired_samples)
+    jfn = jax_build_inference_fn(to_jax_config(cfg), seeded, backend="fused", _interpret=True)
+    fn = build_inference_fn(cfg, variables_from_jax(model, **seeded), backend="fused",
+                            device="cpu")
+    np.testing.assert_allclose(fn(torch.tensor(wavs)).numpy(), np.asarray(jfn(wavs)),
+                               rtol=0, atol=SOFTMAX_ATOL)
 
 
 def test_cpu_tensor_takes_the_plain_version_only():

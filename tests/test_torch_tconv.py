@@ -239,7 +239,7 @@ def test_pallas_routes_every_conv_through_k7_and_matches_xla(monkeypatch):
 
 
 def test_conv_backend_im2col_and_unknown_values_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Not carried over"):
         build_model(ModelConfig(conv_backend="im2col"), SHAPE, device="cpu")
     with pytest.raises(ValueError, match="conv_backend"):
         build_model(ModelConfig(conv_backend="cudnn"), SHAPE, device="cpu")
