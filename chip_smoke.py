@@ -192,6 +192,22 @@ print their lines:
               full window (1e-4) and the batch model (1e-5), its µs per chunk
               and real-time factor; the adaptive benchmark_on_device at
               batch 1 for K4 and the xla path
+ 28. dp       data parallelism (parallel/mesh.py, tools/dp_check.py), the
+              ranks spawned after every kernel was built, each returning
+              its readings and launch counters: 28.1 two gloo ranks sharing
+              the card against one process, TCResNet8-1.0 at batch 256 in
+              float32, K3 + K7 and K1 + K2 + K7, 3 steps (losses within
+              1e-5, params within 1e-5 of max|p|, params and BN statistics
+              bit-equal on both ranks, every kernel launched on every
+              rank); 28.2 the evaluator over the 3,012 valid rows on 2 ranks
+              (accuracy equal, loss within 1e-6); 28.3 one NCCL rank, the
+              bf16 step at batch 1536, 20 steps, ms/step and utt/s beside
+              the step without a mesh; 28.4 the parity and the step's
+              times (1536 rows in all, and 1536 a card) over NCCL across 2
+              and 4 cards where the machine has them (a line that says so
+              where not); 28.5 graft_entry.entry() (K4, softmax
+              within 1e-5 of the xla path) and dryrun_multichip(2) on the
+              card (two cards over NCCL, else two gloo ranks sharing one)
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
@@ -615,6 +631,7 @@ def main() -> int:
         if e["name"] in dataset:
             e["launches_dataset"] = dataset[e["name"]]
     deploy = deploy_phase(dev, card)
+    dp_phase(dev, card)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -1132,7 +1149,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
     t0 = time.perf_counter()
     evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
-                       "--valid-type", "loop"])
+                       "--valid-type", "loop", "--cfg", "mesh.data=1"])
     torch.cuda.synchronize()
     eval_wall = time.perf_counter() - t0
     eval_launches = k7.fwd_launches
@@ -1148,7 +1165,8 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     best_step = CheckpointManager(f"{run}/best/valid/accuracy").latest_step()
     check(best_step in scored, f"evaluate: best/valid/accuracy holds {best_step}")
     again = evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
-                               "--valid-type", "once", "--best-metric", "accuracy"])
+                               "--valid-type", "once", "--best-metric", "accuracy",
+                               "--cfg", "mesh.data=1"])
     for key in ("accuracy", "loss", "mAP_macro"):
         check(again[key] == scored[best_step][key],
               f"evaluate once: {key} {again[key]} != {scored[best_step][key]}")
@@ -1869,7 +1887,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
         before = k2.radix4_launches
         t0 = time.perf_counter()
         evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
-                           "--valid-type", "loop"])
+                           "--valid-type", "loop", "--cfg", "mesh.data=1"])
         torch.cuda.synchronize()
         eval_wall = time.perf_counter() - t0
         eval_launches = k2.radix4_launches - before
@@ -2217,12 +2235,14 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
           f"dataset: prepare_dataset placed {sizes} of {n_words} word files")
 
     # the run's config: TCResNet8-1.0 at batch 100 in float32, oversampling on,
-    # K3 (frontend_fuse on; K1 + K2 with off), K7 (conv_backend pallas)
+    # K3 (frontend_fuse on; K1 + K2 with off), K7 (conv_backend pallas), on
+    # one card in this process whatever the machine has (phase 28 drives the
+    # mesh)
     base = ["--dataset-root", tree, "--cache-dir", cache, "--batch-size", "100",
             "--compute-dtype", "float32", "--seed", "0",
             "--cfg", "augment.backend=pallas", "--cfg", "audio.dsp_backend=pallas",
             "--cfg", "model.conv_backend=pallas", "--cfg", "data.oversampling_ratio=0.5",
-            "--cfg", "train.step_evaluation=10"]
+            "--cfg", "train.step_evaluation=10", "--cfg", "mesh.data=1"]
     cfg = train_cli.build_config(train_cli.parse_args(base + ["--cfg", "audio.frontend_fuse=on"]))
     check(native_loader.available(), "dataset: the C++ wav decoder did not build or load")
     hosts, load_s = {}, {}
@@ -2433,7 +2453,8 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
     # ---- score the promoted best on test with tools/evaluate.py ----
     zero()
     again = evaluate_cli.main(["--train-dir", run, "--split", "test", "--valid-type", "once",
-                               "--best-metric", "accuracy", "--best-split", "test"])
+                               "--best-metric", "accuracy", "--best-split", "test",
+                               "--cfg", "mesh.data=1"])
     torch.cuda.synchronize()
     eval_counts = counts()
     for key in ("accuracy", "loss", "mAP_macro"):
@@ -2473,6 +2494,169 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
     return {"k1_gather_augment": warm_counts["k1"], "k2_mfcc": warm_counts["k2"],
             "k3_frontend": main_counts["k3"], "k7_tconv_fwd": main_counts["fwd"],
             "k7_tconv_dx": main_counts["dx"], "k7_tconv_dw": main_counts["dw"]}
+
+
+# phase 28's parity bounds: a DP step against one process's, the same draws,
+# in float32: the losses, and the params relative to the largest |p| of
+# any param (the sums over ranks and over the batch in another order)
+DP_LOSS_ATOL = 1e-5
+DP_PARAM_REL = 1e-5
+
+
+def dp_parity(label: str, ranks: list, one: dict, route: tuple) -> str:
+    """Phase 28's checks of a DP run's ranks against one process: losses
+    and params within the bounds, params and BN statistics bit-equal on
+    every rank, every kernel of `route` launched on every rank and no
+    batch routed to the plain feature; the line's readings."""
+    loss_err = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one["losses"]))
+    check(loss_err <= DP_LOSS_ATOL, f"{label}: losses differ from one process by {loss_err}")
+    scale = max(float(np.abs(want).max()) for want in one["params"].values())
+    rel = max(float(np.abs(ranks[0]["params"][k] - want).max())
+              for k, want in one["params"].items()) / scale
+    check(rel <= DP_PARAM_REL, f"{label}: params differ from one process by {rel} of max|p|")
+    for r in ranks[1:]:
+        for field in ("params", "batch_stats"):
+            for k, v in r[field].items():
+                check(np.array_equal(v, ranks[0][field][k]),
+                      f"{label}: {field} {k} differs between ranks")
+    for i, r in enumerate(ranks):
+        check(all(r["launches"][k] > 0 for k in route),
+              f"{label}: rank {i} launched {r['launches']}, not every one of {route}")
+        check(r["launches"]["plain_routes"] == 0, f"{label}: rank {i} took the plain feature")
+    counts = "; ".join(f"rank {i} " + " ".join(f"{k} {r['launches'][k]}" for k in route)
+                       for i, r in enumerate(ranks))
+    return (f"losses {['%.6f' % x for x in ranks[0]['losses']]} (one process "
+            f"{['%.6f' % x for x in one['losses']]}, max diff {loss_err:.1e}, limit "
+            f"{DP_LOSS_ATOL}); params within {rel:.1e} of max|p| of one process (limit "
+            f"{DP_PARAM_REL}); params and BN statistics bit-equal on every rank; {counts}")
+
+
+def dp_phase(dev: torch.device, card: str) -> None:
+    """Phase 28: data parallelism on the card (parallel/mesh.py), the
+    ranks spawned after every kernel was built (phase 2), each returning
+    its readings and launch counters."""
+    import tempfile
+
+    from tcresnet_tpu_torch import graft_entry
+    from tcresnet_tpu_torch.ops.kernels import infer as k4
+    from tcresnet_tpu_torch.parallel import mesh as meshlib
+    from tcresnet_tpu_torch.serve.export import build_inference_fn
+    from tcresnet_tpu_torch.tools import dp_check
+
+    # ---- 28.1 two gloo ranks sharing the card against one process ----
+    one_k3 = None
+    for fuse, route in (("on", ("k3", "k7_fwd", "k7_dx", "k7_dw")),
+                        ("off", ("k1", "k2", "k7_fwd", "k7_dx", "k7_dw"))):
+        cfg = dp_check.train_cfg(256, fuse, "float32", data=2)
+        label = f"28.1 B=256 f32 {'K3' if fuse == 'on' else 'K1 + K2'} + K7"
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = meshlib.launch(dp_check.parity_rank, cfg, 3, f"{tmp}/dp", cfg=cfg.mesh,
+                                   devices=[dev, dev], timeout=600)
+            took = time.perf_counter() - t0
+            one = dp_check.parity_rank(None, cfg, 3, f"{tmp}/one", device=dev)
+        one_k3 = one_k3 or one
+        print(f"[dp] {label}, 2 gloo ranks on {dev} (collectives staged through the host) "
+              f"against one process, 3 steps: {dp_parity(label, ranks, one, route)}; the "
+              f"launch in {took:.1f} s | {card}")
+
+    # ---- 28.2 the sharded evaluator ----
+    cfg = dp_check.train_cfg(256, "on", "float32", data=2)
+    variables = {"params": one_k3["params"], "batch_stats": one_k3["batch_stats"]}
+    ranks = meshlib.launch(dp_check.evaluate_rank, cfg, variables, cfg=cfg.mesh,
+                           devices=[dev, dev], timeout=600)
+    want = dp_check.evaluate_rank(None, cfg, variables, device=dev)
+    for i, got in enumerate(ranks):
+        check(got["accuracy"] == want["accuracy"],
+              f"28.2: rank {i} accuracy {got['accuracy']} != one process {want['accuracy']}")
+        check(abs(got["loss"] - want["loss"]) <= 1e-6,
+              f"28.2: rank {i} loss {got['loss']} vs one process {want['loss']}")
+        check(got["num_samples"] == want["num_samples"] == 3012, "28.2: rows scored")
+        check(got["launches"]["k2"] > 0 and got["launches"]["k7_fwd"] > 0,
+              f"28.2: rank {i} launches {got['launches']}")
+    print(f"[dp] 28.2 the evaluator over 2 ranks on {dev}: {int(want['num_samples'])} valid "
+          f"rows in batches of {cfg.data.eval_batch_size} split 2 ways, accuracy "
+          f"{ranks[0]['accuracy']:.6f} (one process {want['accuracy']:.6f}), loss "
+          f"{ranks[0]['loss']:.8f} (one process {want['loss']:.8f}, limit 1e-6); launches a "
+          f"rank K2 {ranks[0]['launches']['k2']} K7 fwd {ranks[0]['launches']['k7_fwd']} "
+          f"| {card}")
+
+    # ---- 28.3 NCCL, one rank: what the collectives and BN reductions cost ----
+    cfg = dp_check.train_cfg(1536, "on", "bfloat16", data=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = meshlib.launch(dp_check.step_times_rank, cfg, 20, tmp, True, cfg=cfg.mesh,
+                           devices=[dev], timeout=600)[0]
+    dp_ms, plain_ms = t["dp"]["ms_per_step"], t["plain"]["ms_per_step"]
+    print(f"[dp] 28.3 NCCL, 1 rank on {dev}, TCResNet8-1.0 B=1536 bf16 K3 + K7, 20 steps a "
+          f"reading (host clock, synchronised; turns plain, DP, DP, plain): DP "
+          f"{dp_ms:.3f} ms/step {t['dp']['utt_per_s']:,.0f} utt/s (readings "
+          f"{['%.3f' % x for x in t['dp']['readings_ms']]}), no mesh {plain_ms:.3f} ms/step "
+          f"{t['plain']['utt_per_s']:,.0f} utt/s (readings "
+          f"{['%.3f' % x for x in t['plain']['readings_ms']]}); the collectives and BN "
+          f"reductions add {dp_ms - plain_ms:.3f} ms/step; a step dispatches (torch.profiler) "
+          f"DP {t['dp']['counts']} against no mesh {t['plain']['counts']} | {card}")
+
+    # ---- 28.4 NCCL across cards ----
+    dp_across_cards(card, one_k3, plain_ms)
+
+    # ---- 28.5 graft_entry ----
+    cfg, variables = graft_entry.flagship_variables()
+    forward, (wavs,) = graft_entry.entry(dev)
+    before = k4.launches
+    probs = forward(wavs)
+    torch.cuda.synchronize()
+    launched = k4.launches - before
+    ref = build_inference_fn(cfg, variables, backend="xla", precision="highest", device=dev)
+    err = (probs - ref(wavs)).abs().max().item()
+    check(launched == 1, f"28.5: entry() launched K4 {launched} times")
+    check(probs.shape == (8, 12) and err <= SOFTMAX_ATOL,
+          f"28.5: entry() softmax differs from xla/highest by {err}")
+    print(f"[dp] 28.5 entry() on {dev}: B=8 through K4 ({launched} launch), softmax within "
+          f"{err:.2e} of the xla path at precision highest (limit {SOFTMAX_ATOL}) | {card}")
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(2, device="cuda", timeout=600)
+    check(all(d.startswith("cuda") for d in res["devices"]),
+          f"28.5: the dry run ran on {res['devices']}")
+    print(f"[dp] 28.5 dryrun_multichip(2) on {', '.join(res['devices'])} ({res['backend']}"
+          f"{', collectives staged through the host' if res['backend'] == 'gloo' else ''}), "
+          f"the four legs in {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def dp_across_cards(card: str, one: dict, plain_ms: float) -> None:
+    """Phase 28.4: over NCCL on 2 and 4 cards where the machine has them,
+    the 28.1 parity (B=256 f32 K3 + K7, 3 steps, against one process's
+    `one`) and the B=1536 bf16 step's times at a fixed global batch (1536
+    over the cards) and at 1536 rows a card, beside one card's step with
+    no mesh (`plain_ms`)."""
+    import tempfile
+
+    from tcresnet_tpu_torch.parallel import mesh as meshlib
+    from tcresnet_tpu_torch.tools import dp_check
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[dp] 28.4 NCCL across cards needs 2 cards; this machine has {cards} | {card}")
+    for n in (2, 4):
+        if cards < n:
+            continue
+        devices = [torch.device("cuda", i) for i in range(n)]
+        cfg = dp_check.train_cfg(256, "on", "float32", data=n)
+        label = f"28.4 {n} cards B=256 f32 K3 + K7"
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = meshlib.launch(dp_check.parity_rank, cfg, 3, f"{tmp}/dp", cfg=cfg.mesh,
+                                   devices=devices, timeout=600)
+        print(f"[dp] {label}, NCCL, against one process: "
+              f"{dp_parity(label, ranks, one, ('k3', 'k7_fwd', 'k7_dx', 'k7_dw'))} | {card}")
+        for batch in (1536, 1536 * n):
+            cfg = dp_check.train_cfg(batch, "on", "bfloat16", data=n)
+            with tempfile.TemporaryDirectory() as tmp:
+                t = meshlib.launch(dp_check.step_times_rank, cfg, 20, tmp, cfg=cfg.mesh,
+                                   devices=devices, timeout=600)[0]
+            print(f"[dp] 28.4 NCCL, {n} cards, B={batch} bf16 K3 + K7 ({batch // n} rows a "
+                  f"card, 20 steps a reading): {t['dp']['ms_per_step']:.3f} ms/step "
+                  f"{t['dp']['utt_per_s']:,.0f} utt/s (readings "
+                  f"{['%.3f' % x for x in t['dp']['readings_ms']]}); one card at B=1536 with "
+                  f"no mesh {plain_ms:.3f} ms/step {1536 / plain_ms * 1e3:,.0f} utt/s | {card}")
 
 
 def seeded_variables_on(cfg, seed: int, dev: torch.device) -> dict:
@@ -2519,7 +2703,7 @@ def deploy_phase(dev: torch.device, card: str) -> dict:
            "--preset", "TCResNet8-1.0", "--synthetic", "--batch-size", "100",
            "--compute-dtype", "float32", "--max-step", "30", "--step-save-checkpoint", "10",
            "--cfg", "model.conv_backend=pallas", "--cfg", "audio.frontend_fuse=on",
-           "--eval-poll-timeout", "120", "--train-dir", run]
+           "--cfg", "mesh.data=1", "--eval-poll-timeout", "120", "--train-dir", run]
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=400)

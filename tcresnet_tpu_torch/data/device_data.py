@@ -18,6 +18,10 @@ Sampling: uniform with replacement per step, through the oversampling map
 on the dataset's device; the trainer seeds it from (seed, step), so a
 resumed run draws what an uninterrupted one would. Eval streams are
 deterministic index ranges with a pad+mask final batch.
+
+Under data parallelism every rank holds the whole split on its own device
+(the JAX package's replicated dataset) and draws the global batch's
+indices, keeping its rows (`parallel.mesh.ShardedGenerator`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from tcresnet_tpu_torch.data.speech_commands import HostDataset
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 from tcresnet_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Arrays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -89,15 +94,19 @@ class DeviceDataset:
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Uniform-with-replacement batch INDICES, drawn on the device:
         (idx [B] int32, labels [B], is_silent [B]). With `sample_row` the
-        draw is uniform over the logical axis and mapped to physical rows."""
+        draw is uniform over the logical axis and mapped to physical rows.
+        From a `ShardedGenerator` that keeps rows, `batch_size` is this
+        rank's row count and the rows are those of the global draw."""
         wavs, labels, is_silent = arrays
         if sample_row is not None:
-            li = torch.randint(0, sample_row.shape[0], (batch_size,),
-                               generator=generator, device=wavs.device)
+            li = meshlib.draw(generator, lambda m: torch.randint(
+                0, sample_row.shape[0], (m,), generator=generator, device=wavs.device),
+                batch_size)
             idx = sample_row[li].to(torch.int32)
         else:
-            idx = torch.randint(0, wavs.shape[0], (batch_size,), generator=generator,
-                                device=wavs.device, dtype=torch.int32)
+            idx = meshlib.draw(generator, lambda m: torch.randint(
+                0, wavs.shape[0], (m,), generator=generator, device=wavs.device,
+                dtype=torch.int32), batch_size)
         rows = idx.long()
         return idx, labels[rows], is_silent[rows]
 

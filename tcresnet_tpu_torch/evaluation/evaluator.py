@@ -18,6 +18,11 @@
   batch left out; they are not device times.
 - Scores come from the numpy metric battery (`metrics/host_metrics.py`),
   with `data.exclude_metric_names` removed.
+- Under data parallelism (`mesh`) each padded batch is split over the data
+  axis (`parallel.mesh.batch_rows`), each rank scores its rows (its
+  draws those rows of the batch's global draws), and the rows are
+  all-gathered in order, so every rank's metric battery sees the arrays
+  of one process. "auto" routes on the whole batch, as JAX's jit does.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from tcresnet_tpu_torch.metrics.host_metrics import compute_classification_metri
 from tcresnet_tpu_torch.models import build_model
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops import dsp
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 from tcresnet_tpu_torch.train import loss as losslib
 from tcresnet_tpu_torch.train.state import TrainState
 from tcresnet_tpu_torch.train.trainer import step_seed
@@ -44,20 +50,28 @@ _EVAL_STREAM = 3  # generator stream of eval batches (the trainer's are 0-2)
 
 
 class Evaluator:
-    def __init__(self, cfg: ExperimentConfig, data: DeviceDataset):
+    def __init__(self, cfg: ExperimentConfig, data: DeviceDataset,
+                 mesh: Optional[meshlib.Mesh] = None):
         self.cfg = cfg
         self.data = data
         self.device = data.device
+        self.mesh = mesh
         self.feature_shape = dsp.feature_shape(cfg.audio)
+        self.audio = dsp.resolve_for_batch(cfg.audio, self.device, cfg.data.eval_batch_size)
         self.model = build_model(cfg.model, self.feature_shape, cfg.train.compute_dtype,
                                  device=self.device)
-        self._generator = torch.Generator(device=self.device)
+        self._generator = meshlib.ShardedGenerator(device=self.device)
 
     @torch.no_grad()
     def _eval_batch(self, idx: torch.Tensor, ordinal: int):
+        """One padded batch -> (softmax, labels, per-example losses) of all
+        its rows; under a mesh this rank scores its rows and the rows of
+        the data axis are gathered."""
         cfg = self.cfg
+        batch = idx.shape[0]
+        rows = meshlib.batch_rows(self.mesh, batch)
         wavs, labels, silent = DeviceDataset.gather_batch(
-            self.data.arrays, idx, clip_len=cfg.audio.desired_samples)
+            self.data.arrays, idx[rows], clip_len=cfg.audio.desired_samples)
         noise = self.data.noise_bank
         if getattr(cfg.augment, "naive_background_mix", True) or noise is None:
             wavs = aug.zero_silence(wavs, silent)
@@ -66,12 +80,20 @@ class Evaluator:
                                            background_frequency=0.0,
                                            background_max_volume=0.0)
             gen = self._generator.manual_seed(step_seed(cfg.train.seed, ordinal, _EVAL_STREAM))
+            gen.keep(rows, batch)
             wavs = aug.augment_batch(wavs, silent, gen, eval_aug, noise, is_training=False)
-        logits = self.model(dsp.preprocess(wavs, cfg.audio))
+        logits = self.model(dsp.preprocess(wavs, self.audio))
         onehot = F.one_hot(labels, cfg.model.num_classes).to(torch.float32)
         losses = losslib.per_example_softmax_cross_entropy(logits, onehot,
                                                            cfg.model.label_smoothing)
-        return torch.softmax(logits, dim=-1), labels, losses
+        scores = torch.softmax(logits, dim=-1)
+        if not meshlib.in_group(self.mesh):
+            return scores, labels, losses
+        # one gather of [softmax | label | loss] rows (labels < 2^24 are exact)
+        rows_all = meshlib.all_gather_rows(self.mesh, torch.cat(
+            [scores, labels[:, None].to(torch.float32), losses[:, None]], dim=1), batch)
+        c = scores.shape[1]
+        return rows_all[:, :c], rows_all[:, c].to(labels.dtype), rows_all[:, c + 1]
 
     def evaluate(self, state_or_params, batch_stats: Optional[Mapping[str, torch.Tensor]] = None,
                  include_report: bool = True) -> Dict[str, float]:

@@ -87,6 +87,22 @@ class MetricWriter:
             self._tb.close()
 
 
+class NullWriter:
+    """MetricWriter's interface, writing nothing: the writer of every rank
+    but rank 0 under data parallelism, whose metrics are rank 0's."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+    write_text = write_audio = flush = close = write
+
+
+def metric_writer(directory, name: str = "train", chief: bool = True):
+    """A MetricWriter for the one process that writes (`chief`), else a
+    NullWriter."""
+    return MetricWriter(directory, name) if chief else NullWriter()
+
+
 def crossed_boundary(prev_step: int, step: int, every: int) -> bool:
     """True if advancing prev_step -> step crossed a multiple of `every`.
 

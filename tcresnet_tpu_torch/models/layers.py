@@ -25,6 +25,12 @@ keeps the JAX layout [B, T, C(, 1)] / [B, T, F, 1].
   parameters stay float32.
 - slim.dropout(keep_prob) keeps each unit with probability keep_prob and
   scales it by 1 / keep_prob.
+- Data parallelism (parallel/mesh.py): under `sync_batch_norm(model,
+  mesh)` a batch norm in training mode takes the moments of the global
+  batch, its rows' sums reduced over the data axis, as the JAX package's
+  do under jit's global view; a dropout mask drawn from a
+  `ShardedGenerator` is the global batch's mask, of which this rank keeps
+  its rows.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 
 BN_EPS = 1e-3  # slim.batch_norm default
 
@@ -206,6 +214,21 @@ class SlimBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device)) if center else None
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.mesh: Optional[meshlib.Mesh] = None  # set by sync_batch_norm
+
+    def _moments(self, xf: torch.Tensor):
+        """(E[x], E[x^2]) per channel over the batch: this process's rows,
+        or under a mesh in a process group the global batch's ([sum x,
+        sum x^2, rows] of every rank summed in one differentiable
+        all-reduce over the data axis)."""
+        axes = [0] + list(range(2, xf.dim()))
+        if not meshlib.in_group(self.mesh):
+            return xf.mean(axes), (xf * xf).mean(axes)
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                          xf.new_full((1,), float(xf.numel() // c))])
+        sums = meshlib.sum_over_data(self.mesh, sums)
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -215,9 +238,8 @@ class SlimBatchNorm(nn.Module):
             # clip is jnp.maximum's: at a tie (a channel that is all zeros,
             # as after a ReLU) its gradient splits in halves, where a clamp
             # would pass all of it
-            axes = [0] + list(range(2, x.dim()))
-            mean = xf.mean(axes)
-            var = torch.maximum((xf * xf).mean(axes) - mean * mean, torch.zeros_like(mean))
+            mean, mean_sq = self._moments(xf)
+            var = torch.maximum(mean_sq - mean * mean, torch.zeros_like(mean))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -233,14 +255,25 @@ class SlimBatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+def sync_batch_norm(model: nn.Module, mesh: Optional[meshlib.Mesh]) -> nn.Module:
+    """Point every SlimBatchNorm of `model` at `mesh` (None: per-process
+    moments again); returns the model."""
+    for m in model.modules():
+        if isinstance(m, SlimBatchNorm):
+            m.mesh = mesh
+    return model
+
+
 def dropout(x: torch.Tensor, keep_prob: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """slim.dropout: in training keep each unit with probability keep_prob
     and scale it by 1 / keep_prob; the identity otherwise (or at 1.0).
-    The mask is drawn from `generator` (torch's default one when None)."""
+    The mask is drawn from `generator` (torch's default one when None;
+    a `ShardedGenerator` draws the global batch's mask and keeps x's rows)."""
     if not training or keep_prob >= 1.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = meshlib.draw(generator, lambda m: torch.rand(
+        (m,) + tuple(x.shape[1:]), generator=generator, device=x.device), x.shape[0]) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

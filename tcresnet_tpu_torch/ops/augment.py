@@ -22,6 +22,10 @@ Backends (`AugmentConfig.backend`): "pallas" names the port's kernels
 (K1 `fused_gather_augment`, K6 `fused_augment`, ops/kernels/augment.py),
 "auto" takes them on a CUDA device, "xla" is the plain apply. A kernel
 wrapper handed a CPU tensor runs its plain version.
+
+Under data parallelism every draw is the global batch's: a
+`parallel.mesh.ShardedGenerator` draws all of the batch's rows and keeps
+this rank's, so a rank's scalars are its rows of one process's.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from tcresnet_tpu_torch.ops.kernels.augment import (
     augment_reference,
     time_shift,
 )
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 
 ANCHORED = ("anchored_slice_or_pad", "anchored_slice_or_pad_with_shift")
 METHODS = ANCHORED + ("no_augmentation_audio",)
@@ -48,7 +53,14 @@ def _check_method(cfg: AugmentConfig) -> None:
 
 
 def _uniform(generator: torch.Generator, batch: int, device) -> torch.Tensor:
-    return torch.rand((batch,), generator=generator, device=device)
+    return meshlib.draw(generator, lambda m: torch.rand((m,), generator=generator,
+                                                        device=device), batch)
+
+
+def _randint(generator: torch.Generator, low: int, high: int, batch: int,
+             device) -> torch.Tensor:
+    return meshlib.draw(generator, lambda m: torch.randint(
+        low, high, (m,), generator=generator, device=device, dtype=torch.int32), batch)
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +73,7 @@ def draw_shifts(generator: torch.Generator, batch: int, n: int, cfg: AugmentConf
     """[B] int32 signed shifts, U[-T, T) for the shifting method, else 0."""
     max_shift = int(n * cfg.shift_ratio)
     if cfg.method == "anchored_slice_or_pad_with_shift" and max_shift > 0:
-        return torch.randint(-max_shift, max_shift, (batch,), generator=generator,
-                             device=device, dtype=torch.int32)
+        return _randint(generator, -max_shift, max_shift, batch, device)
     return torch.zeros((batch,), dtype=torch.int32, device=device)
 
 
@@ -93,10 +104,8 @@ def draw_scalars(generator: torch.Generator, is_silent: torch.Tensor,
             f"noise clips ({clip_len} samples) shorter than wavs ({n}); "
             "crops require clip_len >= num_samples")
     shifts = draw_shifts(generator, batch, n, cfg, device)
-    clips = torch.randint(0, num_clips, (batch,), generator=generator, device=device,
-                          dtype=torch.int32)
-    offs = torch.randint(0, clip_len - n + 1, (batch,), generator=generator,
-                         device=device, dtype=torch.int32)
+    clips = _randint(generator, 0, num_clips, batch, device)
+    offs = _randint(generator, 0, clip_len - n + 1, batch, device)
     vols = draw_background_volumes(generator, is_silent, cfg, is_training)
     keeps = torch.where(is_silent, 0.0, 1.0).to(torch.float32)
     return AugmentScalars(shifts, clips, offs, vols, keeps)

@@ -25,6 +25,7 @@ versions.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -427,6 +428,18 @@ def resolve_dsp_backend(cfg: AudioConfig, audio: torch.Tensor) -> str:
             cfg, audio.device, audio.shape[0], audio.shape[-1])
         backend = "pallas" if fused else "xla"
     return backend
+
+
+def resolve_for_batch(cfg: AudioConfig, device: torch.device, batch: int) -> AudioConfig:
+    """`cfg` with dsp_backend "auto" resolved for a global batch of `batch`
+    rows on `device`: the rule JAX applies under jit, which sees the
+    global shape, where a data-parallel rank holds only its rows."""
+    if getattr(cfg, "dsp_backend", "xla") != "auto":
+        return cfg
+    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+
+    fused = k2.auto_takes_kernel(cfg, device, batch, cfg.desired_samples)
+    return dataclasses.replace(cfg, dsp_backend="pallas" if fused else "xla")
 
 
 def preprocess(audio: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:

@@ -18,8 +18,10 @@ train CLI's `load_split`; `--dataset-root` and `--cache-dir` point at
 another tree or cache.
 `--seed`, `--compute-dtype`, `--num-silent` and `--clip-duration-ms` set
 the same fields as the train CLI's flags (tools/run_experiment.py forwards
-them to both). `--device auto` evaluates on the first CUDA card; `--device
-cpu` on the CPU, through the plain versions.
+them to both). `--device auto` evaluates on the CUDA cards; `--device
+cpu` on the CPU, through the plain versions. The run's `mesh` section (or
+`--cfg mesh.data=N`) lays the evaluation over ranks as the train CLI lays
+training: each batch split over the data axis, rank 0 keeping the bests.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import dataclasses
 import logging
 from pathlib import Path
 
-from tcresnet_tpu_torch.tools.train import build_config, load_run_config, load_split
+from tcresnet_tpu_torch.tools.train import build_config, load_run_config, load_split_on
+from tcresnet_tpu_torch.tools.train import run_on_mesh, setup_logging
 
 
 def parse_args(argv=None):
@@ -64,15 +67,18 @@ def parse_args(argv=None):
     p.add_argument("--best-split", default="valid",
                    help="the split whose promoted best --best-metric loads")
     p.add_argument("--device", choices=["auto", "cpu"], default="auto",
-                   help="auto: the first CUDA card; cpu: the host (plain versions)")
+                   help="auto: the CUDA cards (mesh.data of them); cpu: the host (plain "
+                        "versions; mesh.data gloo ranks)")
     p.add_argument("--cfg", action="append", default=[], metavar="SECTION.FIELD=VALUE",
                    help="config override on top of the run's config.json")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    """Evaluate; the scores (of rank 0 under a mesh: every rank's are
+    equal)."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    setup_logging()
     log = logging.getLogger("tcresnet_tpu_torch.eval_cli")
     base = load_run_config(args.train_dir)
     if args.synthetic_samples is None:
@@ -83,15 +89,26 @@ def main(argv=None):
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, eval_batch_size=args.batch_size))
     if base is not None:
         log.info(f"config base: {args.train_dir}/config.json (run config)")
-    host = load_split(cfg, args.split)
+    scores = run_on_mesh(_evaluate, args, cfg, args.device)
+    return scores[0] if isinstance(scores, list) else scores
+
+
+def _evaluate(mesh, args, cfg):
+    """Score as one rank of `mesh` (alone with mesh None)."""
+    setup_logging(mesh)
+    log = logging.getLogger("tcresnet_tpu_torch.eval_cli")
+    host = load_split_on(mesh, cfg, args.split)
 
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.evaluation.best_keeper import BestKeeper
     from tcresnet_tpu_torch.evaluation.watcher import WatchingEvaluator
     from tcresnet_tpu_torch.train.checkpoint import CheckpointManager
 
-    device = "cuda" if args.device == "auto" else "cpu"
-    watcher = WatchingEvaluator(cfg, DeviceDataset(host, device), args.train_dir)
+    if mesh is not None:
+        device = mesh.device
+    else:
+        device = "cuda" if args.device == "auto" else "cpu"
+    watcher = WatchingEvaluator(cfg, DeviceDataset(host, device), args.train_dir, mesh=mesh)
     if args.valid_type == "loop":
         scores = watcher.watch(max_step=args.max_step, timeout=args.timeout)
     else:

@@ -12,6 +12,10 @@
     python -m tcresnet_tpu_torch.tools.train --dataset-root <tree> --train-dir runs/ft \
         --checkpoint-path runs/tc8/ckpt --checkpoint-exclude-scopes fc \
         --cfg 'optim.trainable_scopes=["fc"]'
+    # data parallel: 4 cards (mesh.data=-1, the default, takes every card)
+    python -m tcresnet_tpu_torch.tools.train --synthetic --cfg mesh.data=4
+    # 2 gloo ranks on the CPU
+    python -m tcresnet_tpu_torch.tools.train --synthetic --device cpu --cfg mesh.data=2
 
 Every preset trains (the 2D families too), from a `<root>/<split>/<label>/*.wav`
 tree (`--dataset-root`, one root or several with the same labels; the
@@ -26,11 +30,20 @@ applies to the train split only) or from the synthetic dataset
 values for names the checkpoint lacks or holds in another shape).
 `--cfg SECTION.FIELD=VALUE` overrides any config field (JSON values;
 unknown fields and values of the wrong type raise). `--train-dir` expands
-%DATE%, %USER% and %<CONFIG_FIELD>%. `--device auto` trains on the first
-CUDA card (and fails without one); `--device cpu` runs on the CPU, where
-every kernel wrapper runs its plain version. The resolved config is
-written to `<train-dir>/config.json`, which the evaluator
+%DATE%, %USER% and %<CONFIG_FIELD>%. `--device auto` trains on the CUDA
+cards (and fails without one); `--device cpu` runs on the CPU, where every
+kernel wrapper runs its plain version. The resolved config is written to
+`<train-dir>/config.json`, which the evaluator
 (`tcresnet_tpu_torch.tools.evaluate`) builds its model and data from.
+
+Data parallelism (parallel/mesh.py): `mesh.data` x `mesh.model` ranks, as
+the JAX CLI's make_mesh lays them out. With `--device auto` a rank a card
+(mesh.data=-1, the default, takes every visible card: one card trains in
+this process, as before); with `--device cpu` mesh.data=N runs N gloo
+ranks on the CPU (-1: one). The CLI spawns its ranks itself, or is one
+rank of a torchrun launch. Rank 0 writes the run's files and logs; a
+rank's failure fails the command. `--profile-dir` writes a torch.profiler
+trace of rank 0's training there.
 """
 
 from __future__ import annotations
@@ -97,7 +110,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-exclude-scopes", nargs="*", default=None)
     p.add_argument("--ignore-missing-vars", action="store_true")
     p.add_argument("--device", choices=["auto", "cpu"], default="auto",
-                   help="auto: the first CUDA card; cpu: the host")
+                   help="auto: the CUDA cards (mesh.data of them); cpu: the host "
+                        "(mesh.data gloo ranks)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of rank 0's training here")
     p.add_argument("--cfg", action="append", default=[], metavar="SECTION.FIELD=VALUE",
                    help="config override, e.g. --cfg model.conv_backend=pallas "
                         "--cfg optim.lr_list='[0.1,0.01]' (JSON values)")
@@ -226,39 +242,114 @@ def load_split(cfg, split: str):
         sample_rate=cfg.audio.sample_rate, add_null_class=cfg.data.add_null_class)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+def mesh_devices(mesh_cfg, device: str) -> list:
+    """The devices the mesh of `mesh_cfg` is laid over for `--device`:
+    every visible card for "auto"; for "cpu" one CPU device a rank
+    (mesh.data x mesh.model of them, or one for mesh.data=-1)."""
+    import torch
+
+    from tcresnet_tpu_torch.parallel import mesh as meshlib
+
+    if device == "cpu":
+        n = mesh_cfg.data * max(mesh_cfg.model, 1) if mesh_cfg.data > 0 else 1
+        return [torch.device("cpu")] * n
+    return meshlib.visible_devices()
+
+
+def run_on_mesh(rank_fn, args, cfg, device: str):
+    """rank_fn(mesh, args, cfg) on every rank of cfg.mesh over
+    `mesh_devices`; a one-rank mesh runs in this process with no process
+    group (mesh None, the device "cuda" or "cpu"). The result of a
+    one-rank run, else the ranks' results in rank order."""
+    from tcresnet_tpu_torch.parallel import mesh as meshlib
+
+    devices = mesh_devices(cfg.mesh, device)
+    data, model = meshlib.mesh_shape(cfg.mesh, len(devices))
+    if data * model == 1 and meshlib.torchrun_rank() is None:
+        return rank_fn(None, args, cfg)
+    logging.getLogger("tcresnet_tpu_torch.cli").info(
+        f"mesh: data={data} model={model} on {', '.join(map(str, devices[:data * model]))}")
+    return meshlib.launch(rank_fn, args, cfg, cfg=cfg.mesh, devices=devices)
+
+
+def setup_logging(mesh=None) -> None:
+    """INFO on rank 0 (or without a mesh), warnings only on other ranks."""
+    rank = "" if mesh is None else f"[rank {mesh.rank}] "
+    logging.basicConfig(level=logging.INFO if mesh is None or mesh.is_chief else logging.WARNING,
+                        format=f"%(asctime)s {rank}%(name)s: %(message)s",
+                        force=mesh is not None)
+
+
+def load_split_on(mesh, cfg, split: str):
+    """`load_split` on every rank, rank 0 first: it fills the decode cache,
+    which the other ranks then read. A split that cannot be loaded raises
+    on every rank, after the barrier."""
+    from tcresnet_tpu_torch.parallel import mesh as meshlib
+
+    first = mesh is None or mesh.is_chief
+    host = failed = None
+    if first:
+        try:
+            host = load_split(cfg, split)
+        except (FileNotFoundError, SystemExit) as e:
+            failed = e
+    meshlib.barrier(mesh)
+    if failed is not None:
+        raise failed
+    return host if first else load_split(cfg, split)
+
+
+def _train(mesh, args, cfg):
+    """Train (and score `--eval-split`) as one rank of `mesh`, or alone
+    with mesh None; the trainer alone, or {"step", "scores"} from a rank."""
+    setup_logging(mesh)
     log = logging.getLogger("tcresnet_tpu_torch.train_cli")
-    cfg = build_config(args)
-    host = load_split(cfg, "train")
 
     from tcresnet_tpu_torch.data.device_data import DeviceDataset
     from tcresnet_tpu_torch.evaluation.watcher import WatchingEvaluator
     from tcresnet_tpu_torch.train.trainer import Trainer
+    from tcresnet_tpu_torch.utils.profiling import trace
 
-    device = "cuda" if args.device == "auto" else "cpu"
+    if mesh is not None:
+        device = mesh.device
+    else:
+        device = "cuda" if args.device == "auto" else "cpu"
+    host = load_split_on(mesh, cfg, "train")
     trainer = Trainer(cfg, DeviceDataset(host, device), workdir=cfg.train.train_dir,
-                      steps_per_call=args.steps_per_call)
+                      steps_per_call=args.steps_per_call, mesh=mesh)
     if args.checkpoint_path:
         trainer.warm_start(args.checkpoint_path,
                            include_scopes=args.checkpoint_include_scopes,
                            exclude_scopes=args.checkpoint_exclude_scopes,
                            ignore_missing=args.ignore_missing_vars)
-    state = trainer.train(cfg.train.max_step)
+    with trace(args.profile_dir if trainer.chief else None):
+        state = trainer.train(cfg.train.max_step)
     log.info(f"training done at step {int(state.step)}")
 
+    scores = None
     if args.eval_split:
         try:
-            eval_host = load_split(cfg, args.eval_split)
+            eval_host = load_split_on(mesh, cfg, args.eval_split)
         except (FileNotFoundError, SystemExit) as e:
             log.warning(f"skipping eval: {e}")
-            return trainer
-        watcher = WatchingEvaluator(cfg, DeviceDataset(eval_host, device), trainer.workdir)
-        scores = watcher.evaluate_once(int(state.step))
-        log.info(f"{args.eval_split}: accuracy {scores['accuracy']:.4f} "
-                 f"loss {scores['loss']:.4f}")
-    return trainer
+            eval_host = None
+        if eval_host is not None:
+            watcher = WatchingEvaluator(cfg, DeviceDataset(eval_host, device), trainer.workdir,
+                                        mesh=mesh)
+            scores = watcher.evaluate_once(int(state.step))
+            log.info(f"{args.eval_split}: accuracy {scores['accuracy']:.4f} "
+                     f"loss {scores['loss']:.4f}")
+    if mesh is None:
+        return trainer
+    return {"step": int(state.step), "scores": scores}
+
+
+def main(argv=None):
+    """Train; returns the Trainer of a one-rank run, else the ranks'
+    {"step", "scores"} in rank order."""
+    args = parse_args(argv)
+    setup_logging()
+    return run_on_mesh(_train, args, build_config(args), args.device)
 
 
 if __name__ == "__main__":

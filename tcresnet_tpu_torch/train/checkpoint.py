@@ -8,6 +8,10 @@ an existing state's tensors; `restore_raw` reads a checkpoint with no
 state to fit, so that one of another architecture can be read, and
 `restore_params_partial` merges it into a state's tensors by name under
 include / exclude scope regexes (the trainer's warm start).
+
+Under data parallelism (`mesh`) the state is replicated, so rank 0 alone
+writes and every rank waits for it (a barrier after each save); every
+rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 from tcresnet_tpu_torch.train.state import TrainState
 
 log = logging.getLogger("tcresnet_tpu_torch.ckpt")
@@ -28,10 +33,11 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory, max_to_keep: int = 5):
+    def __init__(self, directory, max_to_keep: int = 5, mesh: Optional[meshlib.Mesh] = None):
         self._dir = Path(directory).resolve()
         self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
 
     @property
     def directory(self) -> Path:
@@ -41,13 +47,15 @@ class CheckpointManager:
         return self._dir / f"ckpt_{int(step)}.pt"
 
     def save(self, step: int, state: TrainState) -> None:
-        final = self.path(step)
-        tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, final)
-        if self.max_to_keep > 0:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                self.path(old).unlink(missing_ok=True)
+        if self.mesh is None or self.mesh.is_chief:
+            final = self.path(step)
+            tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, final)
+            if self.max_to_keep > 0:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    self.path(old).unlink(missing_ok=True)
+        meshlib.barrier(self.mesh)
 
     def all_steps(self) -> List[int]:
         """Saved steps, ascending (re-read from the directory every call)."""

@@ -33,8 +33,19 @@ Differences from the JAX trainer, and why:
   means the same in both packages; `optim.trainable_scopes` freezes the
   same way. With `optim.relative_schedule` the LR boundaries shift by the
   restored step; the schedule is a host closure, so it is just rebuilt.
-
-Not ported yet: data parallelism.
+- Data parallelism (`mesh`, parallel/mesh.py) is one process a rank, with
+  the semantics JAX's global view gives: each rank draws the global batch
+  from the (seed, step) generator and keeps its rows (`batch_rows`, XLA's
+  layout, so a batch that does not divide is allowed, as in JAX), batch
+  norms take global-batch moments, and the gradients of the trainable
+  params are summed over the data axis in one flat all-reduce a step. A
+  rank's loss is its rows' share of the global mean (their sum over the
+  global batch; the L2 term rides on data index 0 alone), so the summed
+  gradient is the 1-process gradient and the optimizer and EMA then run
+  identically on every rank: the state stays bit-equal. "auto" routes on
+  the global batch, as JAX's jit sees it. Summaries are summed over ranks
+  before they are logged; rank 0 alone writes config.json, checkpoints,
+  metrics and TRAIN_DONE.
 """
 
 from __future__ import annotations
@@ -50,18 +61,20 @@ import torch
 import torch.nn.functional as F
 
 from tcresnet_tpu_torch.config import ExperimentConfig
-from tcresnet_tpu_torch.metrics.writers import MetricWriter, crossed_boundary, should_write_summary
+from tcresnet_tpu_torch.metrics.writers import crossed_boundary, metric_writer, should_write_summary
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
-from tcresnet_tpu_torch.models import build_model, param_count
+from tcresnet_tpu_torch.models import build_model, layers, param_count
 from tcresnet_tpu_torch.models.convert import jax_path
 from tcresnet_tpu_torch.ops import augment as aug
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import frontend
 from tcresnet_tpu_torch.ops.kernels import mfcc as k2
+from tcresnet_tpu_torch.parallel import mesh as meshlib
 from tcresnet_tpu_torch.train import loss as losslib
 from tcresnet_tpu_torch.train import optim as optimlib
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager, restore_params_partial
 from tcresnet_tpu_torch.train.state import TrainState, create_train_state
+from tcresnet_tpu_torch.utils.profiling import annotate
 
 # generator streams of one (seed, step)
 _TRAIN, _EVAL, _AUDIO = 0, 1, 2
@@ -80,22 +93,29 @@ class Trainer:
         train_data: DeviceDataset,
         workdir: Optional[str] = None,
         steps_per_call: Optional[int] = None,
+        mesh: Optional[meshlib.Mesh] = None,
     ):
         cfg_as_given = cfg
         self.data = train_data
         self.device = train_data.device
-        if cfg.audio.dsp_backend == "auto":
-            # resolved here, where the device and batch are known; not
-            # written into config.json (other processes resolve their own)
-            fused = k2.auto_takes_kernel(cfg.audio, self.device, cfg.train.batch_size,
-                                         cfg.audio.desired_samples)
-            cfg = cfg.replace(audio=dataclasses.replace(
-                cfg.audio, dsp_backend="pallas" if fused else "xla"))
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.is_chief
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the dataset is on {self.device}, this rank's device is "
+                             f"{mesh.device}")
+        if mesh is not None and mesh.world_size > 1 and not meshlib.in_group(mesh):
+            raise ValueError("a mesh of several ranks trains inside a process group "
+                             "(parallel.mesh.launch)")
+        # resolved here, where the device and the global batch are known;
+        # not written into config.json (other processes resolve their own)
+        cfg = cfg.replace(audio=dsp.resolve_for_batch(cfg.audio, self.device,
+                                                      cfg.train.batch_size))
         self.cfg = cfg
         self.log = logging.getLogger("tcresnet_tpu_torch.trainer")
         self.workdir = Path(workdir or cfg.train.train_dir)
         self.workdir.mkdir(parents=True, exist_ok=True)
-        (self.workdir / "config.json").write_text(cfg_as_given.to_json())
+        if self.chief:
+            (self.workdir / "config.json").write_text(cfg_as_given.to_json())
 
         if train_data.num_classes != cfg.model.num_classes:
             raise ValueError(
@@ -106,7 +126,7 @@ class Trainer:
             torch.manual_seed(cfg.train.seed)
             model = build_model(cfg.model, self.feature_shape, cfg.train.compute_dtype,
                                 device="cpu")
-        self.model = model.to(self.device).train()
+        self.model = layers.sync_batch_norm(model.to(self.device).train(), mesh)
         # epoch size counts LOGICAL samples (oversampling duplicates count)
         self._num_samples = train_data.num_logical_samples
         self._steps_per_epoch = max(self._num_samples // cfg.train.batch_size, 1)
@@ -120,15 +140,23 @@ class Trainer:
             params=dict(self.model.named_parameters()), path_of=self.path_of)
         self.state: TrainState = create_train_state(
             self.model, self.optimizer, use_ema=cfg.optim.use_ema)
-        self._generator = torch.Generator(device=self.device)
+        self._generator = meshlib.ShardedGenerator(device=self.device)
+        # the trainable params, whose gradients are summed over the data axis
+        self._trained = [k for k in self.state.params
+                         if self.optimizer.trainable is None or k in self.optimizer.trainable]
 
-        self.ckpt = CheckpointManager(self.workdir / "ckpt", cfg.train.max_to_keep)
-        self.writer = MetricWriter(self.workdir, "train")
+        self.ckpt = CheckpointManager(self.workdir / "ckpt", cfg.train.max_to_keep, mesh=mesh)
+        self.writer = metric_writer(self.workdir, "train", self.chief)
         self.writer.write_text(0, "experiment_config", cfg.to_json())
         self.log.info(
             f"model={cfg.model.name} params={param_count(self.model):,} "
             f"features={self.feature_shape} batch={cfg.train.batch_size} "
-            f"steps_per_call={self.steps_per_call} device={self.device}")
+            f"steps_per_call={self.steps_per_call} device={self.device}"
+            + (f" mesh={mesh.shape}" if mesh is not None else ""))
+
+    @property
+    def _sharded(self) -> bool:
+        return meshlib.in_group(self.mesh)
 
     # ------------------------------------------------------------------
     # restore
@@ -195,9 +223,19 @@ class Trainer:
     # the step
     # ------------------------------------------------------------------
 
-    def generator(self, step: int, stream: int = _TRAIN) -> torch.Generator:
-        """The device generator, seeded for (cfg.train.seed, step, stream)."""
-        return self._generator.manual_seed(step_seed(self.cfg.train.seed, step, stream))
+    def generator(self, step: int, stream: int = _TRAIN,
+                  batch: Optional[int] = None) -> meshlib.ShardedGenerator:
+        """The device generator, seeded for (cfg.train.seed, step, stream);
+        with `batch` it draws that global batch and keeps this rank's rows
+        (`batch_rows`: all of them without a mesh)."""
+        gen = self._generator.manual_seed(step_seed(self.cfg.train.seed, step, stream))
+        if batch is None:
+            return gen.keep(None)
+        return gen.keep(meshlib.batch_rows(self.mesh, batch), batch)
+
+    def _local_rows(self, batch: int) -> int:
+        rows = meshlib.batch_rows(self.mesh, batch)
+        return rows.stop - rows.start
 
     def _input_features(self, idx: torch.Tensor, silent: torch.Tensor,
                         generator: torch.Generator) -> torch.Tensor:
@@ -214,7 +252,7 @@ class Trainer:
         want_fuse = mode == "on" or (
             mode == "auto"
             and self.device.type == "cuda"
-            and idx.shape[0] >= k2.AUTO_MIN_BATCH
+            and cfg.train.batch_size >= k2.AUTO_MIN_BATCH  # the global batch
             and getattr(cfg.augment, "backend", "auto") in ("auto", "pallas")
         )
         fusable = frontend.frontend_fusable(dataset, cfg.augment, cfg.audio, noise, n)
@@ -233,26 +271,38 @@ class Trainer:
         return dsp.preprocess(wavs, cfg.audio)
 
     def _loss(self, logits: torch.Tensor, labels: torch.Tensor):
+        """(the loss this process differentiates, its model loss, L2). Under
+        a sharded mesh a rank's model loss is its rows' share of the global
+        batch's mean, and L2 enters data index 0's loss alone, so that the
+        losses summed over the data axis are the 1-process loss."""
         cfg = self.cfg
         onehot = F.one_hot(labels, cfg.model.num_classes).to(torch.float32)
-        model_loss = losslib.smoothed_softmax_cross_entropy(
-            logits, onehot, cfg.model.label_smoothing)
         l2 = losslib.l2_regularization(self.state.params, cfg.model.weight_decay)
-        return model_loss + l2, model_loss, l2
+        if not self._sharded:
+            model_loss = losslib.smoothed_softmax_cross_entropy(
+                logits, onehot, cfg.model.label_smoothing)
+            return model_loss + l2, model_loss, l2
+        model_loss = losslib.per_example_softmax_cross_entropy(
+            logits, onehot, cfg.model.label_smoothing).sum() / cfg.train.batch_size
+        return (model_loss + l2 if self.mesh.data_index == 0 else model_loss), model_loss, l2
 
     def _one_step(self, step: int) -> Dict[str, torch.Tensor]:
         """One training step at host step `step`; reads nothing back."""
         cfg, state = self.cfg, self.state
-        gen = self.generator(step)
+        batch = cfg.train.batch_size
+        gen = self.generator(step, batch=batch)
         idx, labels, silent = DeviceDataset.sample_indices(
-            self.data.arrays, gen, cfg.train.batch_size, self.data.sample_row)
+            self.data.arrays, gen, self._local_rows(batch), self.data.sample_row)
         feats = self._input_features(idx, silent, gen)
         logits = self.model(feats, generator=gen)
         total, model_loss, l2 = self._loss(logits, labels)
         names = list(state.params)
-        grads = torch.autograd.grad(total, [state.params[k] for k in names])
-        updates, state.opt_state = self.optimizer.update(dict(zip(names, grads)),
-                                                         state.opt_state)
+        grads = dict(zip(names, torch.autograd.grad(total, [state.params[k] for k in names])))
+        if self._sharded:  # frozen params (trainable_scopes) take no update: not summed
+            with annotate("grad_all_reduce"):
+                grads.update(zip(self._trained, meshlib.all_reduce_grads(
+                    self.mesh, [grads[k] for k in self._trained])))
+        updates, state.opt_state = self.optimizer.update(grads, state.opt_state)
         updates = optimlib.scale_updates(updates, self.lr_schedule(step))
         with torch.no_grad():
             for k, u in updates.items():  # frozen params (trainable_scopes) get none
@@ -261,7 +311,8 @@ class Trainer:
                 state.ema_params = optimlib.ema_update(
                     state.ema_params, state.params, cfg.optim.ema_decay)
             state.step += 1
-            acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+            correct = (logits.argmax(-1) == labels).to(torch.float32)
+            acc = correct.sum() / batch if self._sharded else correct.mean()
         return {"total_loss": total.detach(), "model_loss": model_loss.detach(),
                 "l2_loss": l2.detach(), "accuracy": acc}
 
@@ -275,6 +326,10 @@ class Trainer:
         for i in range(n_steps):
             for k, v in self._one_step(start + i).items():
                 sums[k] = v if k not in sums else sums[k] + v
+        if self._sharded:  # the ranks' shares of the global metrics
+            keys = ("total_loss", "model_loss", "accuracy")
+            summed = meshlib.all_reduce_(self.mesh, torch.stack([sums[k] for k in keys]))
+            sums.update(zip(keys, summed.unbind()))
         summary: Dict[str, object] = {k: v / n_steps for k, v in sums.items()}
         summary["learning_rate"] = self.lr_schedule(start + n_steps - 1)
         return summary
@@ -304,10 +359,12 @@ class Trainer:
         done_file = self.ckpt.directory / "TRAIN_DONE"
         if start >= max_step:
             self.log.info(f"Already at step {start} >= {max_step}")
-            done_file.write_text(str(start))
+            if self.chief:
+                done_file.write_text(str(start))
             return self.state
         # a sentinel from a completed run must not stop a watcher of this one
-        done_file.unlink(missing_ok=True)
+        if self.chief:
+            done_file.unlink(missing_ok=True)
         self.log.info(f"Training from step {start} to {max_step}")
 
         step = start
@@ -340,7 +397,7 @@ class Trainer:
 
             if crossed_boundary(prev_step, step, cfg.step_evaluation):
                 self._train_stream_eval(step)
-            if crossed_boundary(prev_step, step, cfg.summary_step_verbose):
+            if crossed_boundary(prev_step, step, cfg.summary_step_verbose) and self.chief:
                 self._write_audio_summary(step)
             if crossed_boundary(prev_step, step, cfg.step_save_checkpoint) or step >= max_step:
                 if step >= cfg.step_minimum_save:
@@ -351,7 +408,8 @@ class Trainer:
         self.writer.flush()
         # completion sentinel: a loop watcher exits even when the effective
         # final step (epoch / from-restore caps) is below cfg.train.max_step
-        done_file.write_text(str(step))
+        if self.chief:
+            done_file.write_text(str(step))
         return self.state
 
     def _write_summary(self, step: int, summary, n: int, elapsed: float) -> None:
@@ -384,26 +442,36 @@ class Trainer:
         """In-training sanity eval on the TRAINING stream (reference
         helper/trainer.py:416-417,436-460): eval-mode forward (no dropout,
         running BN statistics, no augmentation) on a sampled batch of
-        class_sampling_factor * num_classes rows."""
+        class_sampling_factor * num_classes rows (padded up to a multiple of
+        the data axis under a mesh, as JAX pads it), each rank scoring its
+        rows and the sums reduced over the data axis."""
         cfg = self.cfg
         n_eval = max(cfg.train.class_sampling_factor * cfg.model.num_classes, 1)
-        gen = self.generator(step, _EVAL)
+        if self.mesh is not None:
+            n_eval += (-n_eval) % self.mesh.data
+        gen = self.generator(step, _EVAL, batch=n_eval)
         wavs, labels, silent = DeviceDataset.sample_batch(
-            self.data.arrays, gen, n_eval, clip_len=cfg.audio.desired_samples)
+            self.data.arrays, gen, self._local_rows(n_eval), clip_len=cfg.audio.desired_samples)
         wavs = aug.zero_silence(wavs, silent)
         # re-resolve "auto" for this (small) batch
-        feats = dsp.preprocess(wavs, dataclasses.replace(cfg.audio, dsp_backend="auto"))
+        audio = dsp.resolve_for_batch(dataclasses.replace(cfg.audio, dsp_backend="auto"),
+                                      self.device, n_eval)
+        feats = dsp.preprocess(wavs, audio)
         self.model.eval()
         try:
             logits = self.model(feats)
         finally:
             self.model.train()
         onehot = F.one_hot(labels, cfg.model.num_classes).to(torch.float32)
-        metrics = {
-            "train_stream/accuracy": float((logits.argmax(-1) == labels).float().mean()),
-            "train_stream/loss": float(losslib.smoothed_softmax_cross_entropy(
-                logits, onehot, cfg.model.label_smoothing)),
-        }
+        correct = (logits.argmax(-1) == labels).float()
+        losses = losslib.per_example_softmax_cross_entropy(logits, onehot,
+                                                           cfg.model.label_smoothing)
+        if self._sharded:
+            acc, loss = meshlib.all_reduce_(
+                self.mesh, torch.stack([correct.sum(), losses.sum()])) / n_eval
+        else:
+            acc, loss = correct.mean(), losses.mean()
+        metrics = {"train_stream/accuracy": float(acc), "train_stream/loss": float(loss)}
         self.writer.write(step, metrics)
         self.log.info(
             f"step {step}: train-stream-eval acc {metrics['train_stream/accuracy']:.4f} "

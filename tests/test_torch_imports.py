@@ -58,6 +58,10 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.tools.latency_bench",
     "tcresnet_tpu_torch.tools.export",
     "tcresnet_tpu_torch.tools.run_experiment",
+    "tcresnet_tpu_torch.parallel",
+    "tcresnet_tpu_torch.parallel.mesh",
+    "tcresnet_tpu_torch.graft_entry",
+    "tcresnet_tpu_torch.utils.profiling",
 ]
 
 

@@ -28,10 +28,11 @@ ARGV = [
      "--cfg", "audio.frontend_fuse=on"],
     ["--train-dir", "/tmp/x", "--preset", "DSCNNL", "--dataset-root", "/data/gsc",
      "--cache-dir", "/data/cache", "--num-silent-test", "7"],
+    ["--train-dir", "/tmp/x", "--synthetic", "--cfg", "mesh.data=2", "--cfg", "mesh.model=2"],
 ]
 
 
-@pytest.mark.parametrize("argv", ARGV, ids=["defaults", "every-flag", "tree"])
+@pytest.mark.parametrize("argv", ARGV, ids=["defaults", "every-flag", "tree", "mesh"])
 def test_commands_match_jax(argv):
     """Each child gets the JAX orchestrator's flags, in its order; only the
     program (`python -m` the port's tool) and --eval-device's default, the

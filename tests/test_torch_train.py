@@ -194,16 +194,7 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
     every conv through K7's plain version, against JAX "pallas-interpret"."""
     cfg = _step_cfg(tmp_path, fuse, conv_backend)
     host = make_synthetic_dataset(num_samples=40, num_classes=4, desired_samples=N, seed=6)
-    rng = np.random.default_rng(8)
-    draws = []
-    for _ in range(3):
-        draws.append(dict(
-            idx=rng.integers(0, 40, BATCH).astype(np.int32),
-            scalars=(rng.integers(-320, 320, BATCH).astype(np.int32),
-                     rng.integers(0, 4, BATCH).astype(np.int32),
-                     rng.integers(0, 2 * N - N + 1, BATCH).astype(np.int32),
-                     np.where(rng.uniform(size=BATCH) < 0.8,
-                              rng.uniform(0, 0.3, BATCH), 0).astype(np.float32))))
+    draws = step_draws(3, BATCH)
 
     ds = DeviceDataset(host, "cpu")
     trainer = Trainer(cfg, ds, workdir=tmp_path)
@@ -226,7 +217,34 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
     got = [float(trainer.train_steps(1)["total_loss"]) for _ in range(3)]
     assert calls["n"] == 3 and int(trainer.state.step) == 3
 
-    # the JAX step
+    want = jax_step_losses(cfg, host, draws, init)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert want[2] != want[0]
+
+
+def step_draws(n_steps: int, batch: int, seed: int = 8) -> list:
+    """Injected draws of `n_steps` steps: batch indices into a 40-row
+    dataset and the augmentation scalars (shift, clip, offset, volume)."""
+    rng = np.random.default_rng(seed)
+    draws = []
+    for _ in range(n_steps):
+        draws.append(dict(
+            idx=rng.integers(0, 40, batch).astype(np.int32),
+            scalars=(rng.integers(-320, 320, batch).astype(np.int32),
+                     rng.integers(0, 4, batch).astype(np.int32),
+                     rng.integers(0, 2 * N - N + 1, batch).astype(np.int32),
+                     np.where(rng.uniform(size=batch) < 0.8,
+                              rng.uniform(0, 0.3, batch), 0).astype(np.float32))))
+    return draws
+
+
+def jax_step_losses(cfg, host, draws, init, conv_backend=None) -> list:
+    """The total loss of each JAX step composed from the JAX package with
+    the injected `draws`, from the Flax variables `init`: decode_rows ->
+    the JAX gather+augment kernel (interpret) -> dsp.preprocess ->
+    model.apply -> loss -> tx.update -> scale_updates. The convs are the
+    config's (`conv_backend` names another)."""
+    conv_backend = conv_backend or cfg.model.conv_backend
     jconv = "pallas-interpret" if conv_backend == "pallas" else conv_backend
     jmodel = jax_build_model(to_jax_config(dataclasses.replace(cfg.model, conv_backend=jconv)),
                              jdsp.feature_shape(to_jax_config(cfg.audio)))
@@ -258,5 +276,4 @@ def test_three_steps_match_a_jax_step(tmp_path, monkeypatch, fuse, conv_backend)
         updates = joptim.scale_updates(updates, sched(step))
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         want.append(float(total))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    assert want[2] != want[0]
+    return want
