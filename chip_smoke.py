@@ -208,6 +208,20 @@ print their lines:
               where not); 28.5 graft_entry.entry() (K4, softmax
               within 1e-5 of the xla path) and dryrun_multichip(2) on the
               card (two cards over NCCL, else two gloo ranks sharing one)
+ 29. tools    the preset sweep (tools/benchmark.py::bench_preset) at
+              TCResNet8-1.0 (batch 1536, bf16, conv_backend "pallas") and
+              DSCNNL (batch 100, float32): every field finite, the device
+              latency at most the host's, K1 launched once a step and K7
+              dx / dw 9 / 10 times, the step's FLOP count (the meta
+              device's, utils/profiling.py::step_flops) equal to the count
+              of the Trainer's plain step on the card at the same batch, and
+              its rate below the card's peak for the dtype; the stage profiler (tools/profile_scaling.py) at
+              batch 1536 and 2048 with dsp_backend "pallas", all eight
+              stages, n1 5 and n2 20: every time positive, each stage's
+              launches exactly those of the kernels it names (K6, K1, K2;
+              the step K1 + K2, and K3 from 2048); Res15's device-bound
+              step at batch 1024 in bf16: host clock, CUDA events and the
+              device's time by kind (torch.profiler)
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
@@ -236,6 +250,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tcresnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from tcresnet_tpu_torch.tools.frontend_times import graph_of, hops_times, queued_ms  # noqa: E402
 from tcresnet_tpu_torch.tools.infer_times import crossover, k4_times  # noqa: E402
 from tcresnet_tpu_torch.tools.tconv_times import conv_cases, conv_geometries, conv_ops  # noqa: E402
@@ -277,6 +292,9 @@ SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# the H100 SXM's published dense bf16 tensor-core peak (phase 29's ceiling
+# for a bf16 step's FLOP rate; a float32 step's is FP32_FLOPS, TF32 off)
+BF16_FLOPS = 989e12
 # K5's, K7's, K8's and K9's bound rate: the float32-exact tensor-core rate.
 # K5 computes its convs and dense layers, K7 its three passes, K8 and K9
 # their DFT products, as 3xTF32 (three TF32 products per float32 product,
@@ -529,7 +547,7 @@ def main() -> int:
     requests = [torch.tensor(seeded_wavs(1000 + i, 1, n), device=dev) for i in range(20)]
     big = torch.tensor(seeded_wavs(2000, 64, n), device=dev)
     torch.cuda.synchronize()
-    k4.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     answers = [auto(x) for x in requests]
     big_answer = auto(big)
@@ -632,6 +650,7 @@ def main() -> int:
             e["launches_dataset"] = dataset[e["name"]]
     deploy = deploy_phase(dev, card)
     dp_phase(dev, card)
+    tools_phase(dev, card, ds)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -856,7 +875,7 @@ def training_phases(dev: torch.device, card: str):
         return smoke_train_cfg(flagship, batch, fuse, dtype, **kw)
 
     steps = 30
-    k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = k2.plain_routes = 0
+    reset_launch_counts()
     legs = {}
     for fuse in ("on", "off"):
         before = (k16.k1_launches, k2.launches, k3.launches, k16.k6_launches)
@@ -1090,7 +1109,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
     run = f"{workdir}/run"
     steps = 30
     cfg = smoke_train_cfg(flagship, 1536, "on", conv_backend="pallas", step_save_checkpoint=10)
-    k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, ds, workdir=run, steps_per_call=10)
     trainer.train(steps)
@@ -1146,7 +1165,7 @@ def tconv_phases(dev: torch.device, card: str, ds) -> list:
 
     # ---- 15. evaluate: the loop evaluator over the run ----
     run_cfg = load_run_config(run)
-    k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     evaluate_cli.main(["--train-dir", run, "--synthetic", "--split", "valid",
                        "--valid-type", "loop", "--cfg", "mesh.data=1"])
@@ -1442,7 +1461,7 @@ def infer2d_phases(dev: torch.device, card: str) -> list:
     requests = {p: [wavs_for(c, 1100 + i, 1) for i in range(20)] + [wavs_for(c, 2100, 64)]
                 for p, (c, _, _) in served.items()}
     torch.cuda.synchronize()
-    k5.launches = k2.launches = k2.plain_routes = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     answers = {p: [auto(x) for x in requests[p]] for p, (_, auto, _) in served.items()}
     torch.cuda.synchronize()
@@ -1841,9 +1860,7 @@ def dft_variant_phases(dev: torch.device, card: str, ds) -> list:
                                       summary_step_default=10),
             data=dataclasses.replace(cfg.data, use_synthetic=True, synthetic_num_samples=24_100))
 
-    for module in (k2, k3):
-        module.launches = module.phases_launches = module.radix4_launches = 0
-    k5.launches = k2.plain_routes = 0
+    reset_launch_counts()
     path_launches = {}
     cudnn_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # exact resume
@@ -2213,8 +2230,6 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
     from tcresnet_tpu_torch.ops import augment as aug
     from tcresnet_tpu_torch.ops.kernels import augment as k16
     from tcresnet_tpu_torch.ops.kernels import frontend as k3
-    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
-    from tcresnet_tpu_torch.ops.kernels import tconv as k7
     from tcresnet_tpu_torch.tools import evaluate as evaluate_cli
     from tcresnet_tpu_torch.tools import prepare_dataset
     from tcresnet_tpu_torch.tools import train as train_cli
@@ -2354,13 +2369,11 @@ def dataset_phase(dev: torch.device, card: str, synthetic) -> dict:
           f"{k7_err['dx']:.2e}, dw {k7_err['dw']:.2e}")
 
     def counts():
-        return {"k1": k16.k1_launches, "k2": k2.launches, "k3": k3.launches,
-                "k6": k16.k6_launches, "fwd": k7.fwd_launches, "dx": k7.dx_launches,
-                "dw": k7.dw_launches, "plain_routes": k2.plain_routes}
+        c = launch_counts()
+        return {"k1": c["k1"], "k2": c["k2"], "k3": c["k3"], "k6": c["k6"], "fwd": c["k7_fwd"],
+                "dx": c["k7_dx"], "dw": c["k7_dw"], "plain_routes": c["plain_routes"]}
 
-    def zero():
-        k16.k1_launches = k16.k6_launches = k2.launches = k3.launches = k2.plain_routes = 0
-        k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
+    zero = reset_launch_counts
 
     # ---- the main path: tools/train.py's main on the tree, scored on test ----
     run, steps = f"{root}/run", 30
@@ -2871,6 +2884,123 @@ def deploy_phase(dev: torch.device, card: str) -> dict:
               f"{bool(d['converged'])} | {card}")
     shutil.rmtree(root, ignore_errors=True)
     return {"max_abs_err": w_err, "launches": k4.launches - k4_launches}
+
+def finite_fields(row: dict) -> bool:
+    """Every number of a sweep row, nested ones too, finite."""
+    nums = [v for v in row.values() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    for v in row.values():
+        if isinstance(v, dict):
+            nums += [x for x in v.values() if isinstance(x, (int, float))]
+    return bool(nums) and all(math.isfinite(x) for x in nums)
+
+
+def tools_phase(dev: torch.device, card: str, ds) -> None:
+    """Phase 29: the preset sweep (tools/benchmark.py) and the stage
+    profiler (tools/profile_scaling.py) on the card, over the 24,100-row
+    synthetic dataset of phase 10, with every launch counter set to 0
+    before each leg and read after it."""
+    import tempfile
+
+    from tcresnet_tpu_torch.config import get_preset, plain_config
+    from tcresnet_tpu_torch.tools import benchmark, profile_scaling
+    from tcresnet_tpu_torch.train.trainer import Trainer
+    from tcresnet_tpu_torch.utils.profiling import compiled_flops
+
+    check(ds.device == dev, f"29: the dataset is on {ds.device}, not {dev}")
+    t_phase = time.perf_counter()
+    # ---- 29.1 the sweep: bench_preset, the card's FLOP rate and latency ----
+    spc = 10
+    steps = spc * (1 + benchmark.TIMED_CALLS)
+    legs = (("TCResNet8-1.0", 1536, "bfloat16", "pallas", BF16_FLOPS),
+            ("DSCNNL", 100, "float32", None, FP32_FLOPS))
+    for name, batch, dtype, conv, peak in legs:
+        reset_launch_counts()
+        row = benchmark.bench_preset(name, batch, spc, dtype, ds, conv)
+        got = {k: v for k, v in launch_counts().items() if v}
+        check(finite_fields(row) and row["device_us"] is not None,
+              f"29.1 {name}: a field is not finite: {row}")
+        check(row["device_us"]["median"] <= row["host_e2e_us"]["median"],
+              f"29.1 {name}: device_us {row['device_us']['median']} > host_e2e_us "
+              f"{row['host_e2e_us']['median']}")
+        check(got.get("k1") == steps, f"29.1 {name}: K1 launched {got.get('k1')}, not {steps}")
+        if conv == "pallas":
+            check(got.get("k7_dx") == 9 * steps and got.get("k7_dw") == 10 * steps
+                  and got.get("k7_fwd", 0) >= 10 * steps,
+                  f"29.1 {name}: K7 launched {got}, {steps} steps")
+        # the count the row took on the meta device is that of the step run
+        # here: the Trainer's step on the plain path, on the card at this batch
+        cfg = get_preset(name)
+        plain = plain_config(cfg).replace(train=dataclasses.replace(
+            cfg.train, batch_size=batch, max_step=10**9, compute_dtype=dtype))
+        with tempfile.TemporaryDirectory() as tmp:
+            counted = compiled_flops(Trainer(plain, ds, workdir=tmp).train_steps, 1)
+        check(row["flops_per_step"] == counted,
+              f"29.1 {name}: step_flops {row['flops_per_step']:,} on the meta device, the "
+              f"Trainer's plain step on the card {counted:,}")
+        check(0 < row["train_tflops_per_sec"] < peak / 1e12,
+              f"29.1 {name}: {row['train_tflops_per_sec']} TFLOP/s, the peak is {peak / 1e12}")
+        rate = row["train_tflops_per_sec"]
+        print(f"[tools] 29.1 sweep {name} B={batch} {dtype} conv {conv or 'preset'}: "
+              f"{row['train_ms_per_step']:.3f} ms/step {row['train_utt_per_sec']:,.0f} utt/s "
+              f"(host clock, 3 calls of {spc} steps), {row['flops_per_step']:,} FLOPs/step "
+              f"(the meta device's count of the plain path, equal to the count of the "
+              f"Trainer's plain step on the card) = "
+              f"{rate:.3f} TFLOP/s ({rate * 1e12 / peak:.2%} "
+              f"of the {peak / 1e12:g} TFLOP/s peak); batch-1 compiled serving host_e2e_us "
+              f"median {row['host_e2e_us']['median']:.1f}, device_us median "
+              f"{row['device_us']['median']:.1f} avg {row['device_us']['avg']:.1f}; launches "
+              f"{got} | {card}")
+
+    # ---- 29.2 the stage profiler, dsp_backend pallas, every stage ----
+    n1, n2 = 5, 20
+    args = profile_scaling.parse_args([
+        "--batches", "1536", "2048", "--dsp-backend", "pallas", "--n1", str(n1),
+        "--n2", str(n2), "--dataset-size", str(ds.num_samples),
+        "--stages", *profile_scaling.STAGES])
+    reset_launch_counts()
+    rows = profile_scaling.run(args, ds)
+    iters = 2 + n1 + n2
+    step_iters = (1 + 1 + profile_scaling.STEP_CALLS) * profile_scaling.STEP_STEPS
+    expect = {"sample": {}, "augment": {"k6": iters}, "augment_xla": {},
+              "mfcc": {"k6": iters, "k2": iters}, "mfcc_pallas": {"k6": iters, "k2": iters},
+              "gather_augment": {"k1": iters}, "gather_augment_mfcc": {"k1": iters, "k2": iters}}
+    for r in rows:
+        want = expect.get(r["stage"]) if r["stage"] != "step" else (
+            {"k3": step_iters} if r["batch"] >= 2048 else {"k1": step_iters, "k2": step_iters})
+        check(r["us_per_iter"] > 0 and r["host_us_per_iter"] > 0 and r["enqueue_us_per_iter"] > 0,
+              f"29.2: {r['stage']} at {r['batch']}: a time is not positive: {r}")
+        check(r["launches"] == want,
+              f"29.2: {r['stage']} at {r['batch']} launched {r['launches']}, not {want}")
+    print(f"[tools] 29.2 profile_scaling B=1536, 2048, dsp pallas, n1 {n1} n2 {n2}: every "
+          f"row positive, launches as each stage names (K6 augment, K1 gather, K2 mfcc, "
+          f"the step K1 + K2 / K3) | {card}")
+
+    # ---- 29.3 where a device-bound step's time goes: Res15, B=1024 bf16 ----
+    cfg = get_preset("Res15")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=1024, max_step=10**9,
+                                                compute_dtype="bfloat16"))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, ds, workdir=tmp, steps_per_call=3)
+        float(trainer.train_steps(3)["total_loss"])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        float(trainer.train_steps(3)["total_loss"])
+        end.record()
+        torch.cuda.synchronize()
+        host_ms, event_ms = (time.perf_counter() - t0) / 3 * 1e3, start.elapsed_time(end) / 3
+        kinds, top = step_kernels(device_spans(lambda: float(trainer.train_steps(3)["total_loss"])),
+                                  3)
+    busy = sum(ms for ms, _ in kinds.values())
+    print(f"[tools] 29.3 Res15 B=1024 bf16 step: {host_ms:.3f} ms/step host clock, "
+          f"{event_ms:.3f} CUDA events, device busy {busy:.3f} ms/step "
+          f"({busy / event_ms:.1%}; torch.profiler over 3 steps); by kind "
+          + ", ".join(f"{k} {ms:.3f} ms / {n:.0f}" for k, (ms, n) in kinds.items())
+          + "; costliest " + "; ".join(f"{name[:48]} {ms:.3f} ms x{n:.0f}"
+                                       for ms, n, name in top[:5]) + f" | {card}")
+    print(f"[tools] phase 29 in {time.perf_counter() - t_phase:.1f} s | {card}")
+
 
 if __name__ == "__main__":
     sys.exit(main())

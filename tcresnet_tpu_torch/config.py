@@ -2,8 +2,8 @@
 
 The port's own copy of tcresnet_tpu/config.py: the port imports nothing
 of the JAX package. tests/test_torch_config.py holds the two equal,
-preset for preset. Comments that name `ops/pallas/...` or the TPU speak
-of the JAX package, whose settings these are.
+preset for preset. The comments say what each value selects in the port;
+the card's times of each choice are in PERF.md.
 
 Replaces the reference's distributed-argparse flag tree
 (reference train_audio.py:46-67, each layer's `add_arguments`) with
@@ -38,35 +38,34 @@ class AudioConfig:
     # "mfcc" | "log_mel_spectrogram" | "no_preprocessing"
     # (reference: datasets/preprocessor_factory.py:6-12)
     preprocess_method: str = "mfcc"
-    # "xla": framing gather + MXU matmuls; "pallas": fused single-kernel
-    # front end (ops/pallas/mfcc.py). Measured equal on v5e (both
-    # compute-bound fp32, bit-exact agreement); pallas costs one extra
-    # ~2.5-min kernel compile, so xla is the default.
+    # "xla": the plain front end (framing gather + matmuls; cuBLAS on the
+    # card); "pallas": the fused MFCC kernel of the DFT variant (K2, K8 or
+    # K9, ops/kernels/mfcc.py; its plain version on the CPU); "auto": the
+    # kernel on the card from `ops/kernels/mfcc.AUTO_MIN_BATCH` rows. The
+    # card's times of both are in PERF.md.
     dsp_backend: str = "xla"
     # Single-kernel training input path: dataset-row gather + int16
-    # decode + augmentation + MFCC in ONE Pallas pass
-    # (ops/pallas/frontend.py) — the augmented waveform never exists in
-    # HBM. "auto": on TPU at batch >= 2048 whenever geometry/config allow
-    # (MFCC preprocessing, hop-decomposable window, lane-aligned clip;
-    # below 2048 rows the XLA framing DSP still wins — see
-    # docs/BENCH_RESULTS.md); "off"/"on" force. Train-path only; eval
-    # keeps the shared dsp.preprocess front end.
+    # decode + augmentation + MFCC in one kernel, K3
+    # (ops/kernels/frontend.py), so the augmented waveform never reaches
+    # device memory. "auto": on the card from `AUTO_MIN_BATCH` rows
+    # whenever the geometry and config allow (MFCC or log-mel, a
+    # hop-decomposable window, a noise bank; train/trainer.py); "off"/"on"
+    # force. Train path only; eval keeps the shared dsp.preprocess front
+    # end. The threshold is the JAX package's; the card's crossover is
+    # measured in PERF.md.
     frontend_fuse: str = "auto"
-    # dtype of the windowed-DFT matmul operands — the front end's FLOP
+    # dtype of the windowed-DFT matmul operands, the front end's FLOP
     # bulk. "float32" reproduces tf.signal numerics exactly (golden
-    # tests); "bfloat16" runs the DFT as a single native MXU pass
-    # (accumulation stays f32): ~3x front-end throughput for ~3e-3
-    # relative feature error. Training accuracy is unaffected (see
-    # tests/test_train.py::test_overfit_bf16_dsp); exports keep f32
-    # unless the training config opted in.
+    # tests); "bfloat16" rounds the DFT's operands to bf16 and keeps the
+    # sums in float32 (~3e-3 relative feature error; the kernels' gate is
+    # 5e-3). Exports keep float32 unless the training config opted in.
     dsp_matmul_dtype: str = "float32"
-    # In-kernel windowed-DFT decomposition (fused mfcc/frontend kernels):
-    # "hops" = hop-blocked matmul + shifted-add epilogue; "phases" =
-    # phase-grouped canonical-lane matmuls (ops/pallas/mfcc.py
-    # phase_dft_plan — no per-frame slice assembly, no K-dim padding).
-    # "auto" resolves to hops (measured faster on v5e at every batch
-    # size; phases is kept as a parity-tested recorded negative result,
-    # docs/BENCH_RESULTS.md).
+    # The fused front end's DFT variant: "hops" (K2; K3-hops), "phases"
+    # (K8; on the card K2's tensor-core stage serves both), "radix4" (K9;
+    # K3-radix4); a geometry that does not allow the variant takes hops.
+    # "auto" resolves to hops, the JAX package's rule
+    # (ops/kernels/mfcc.py::resolve_dft_variant); the card's times of each
+    # are in PERF.md.
     dft_variant: str = "auto"
 
     @property
@@ -104,13 +103,15 @@ class AugmentConfig:
     # -1: auto = num_samples // num_labels
     # (reference: datasets/audio_data_wrapper.py:164-174)
     num_silent: int = -1
-    # "auto": fused Pallas kernel on TPU (3.7x faster, bit-identical
-    # given the same draws), XLA path elsewhere; or force "xla"/"pallas".
+    # "auto": the augmentation kernels (K1 on dataset rows, K6 on decoded
+    # wavs; ops/kernels/augment.py, bit-identical to the plain version
+    # given the same draws) on the card, the plain version elsewhere; or
+    # force "xla" (plain) / "pallas" (the kernels; their plain version on
+    # the CPU). The card's times of both are in PERF.md.
     backend: str = "auto"
-    # Quantize noise-crop start offsets to 1024 samples (64 ms) in the
-    # fused kernel. With the v4 2D-roll kernel the sample-exact path is
-    # the FASTER one (1.8ms vs 2.6ms per 2048-batch), so exact reference
-    # crop offsets are the default.
+    # Quantize noise-crop start offsets down to a multiple of 1024
+    # samples (64 ms), in the kernels and the plain version alike. Off by
+    # default: the reference's crop offsets are sample-exact.
     noise_crop_quantize: bool = False
 
 
@@ -136,14 +137,11 @@ class ModelConfig:
     # (e.g. convergence tests) need a faster decay for usable eval stats.
     bn_momentum: "float | None" = None
     # Temporal (k x 1) conv implementation for the TC-ResNet family:
-    # "xla" (default) or "pallas" — custom fwd+bwd kernels
-    # (ops/pallas/tconv.py, the BASELINE.json north-star capability,
-    # exact fwd/bwd parity with XLA). For TRAINING the XLA path is ~10x
-    # faster (per-conv pallas_calls break XLA's BN/ReLU epilogue fusion
-    # and run true f32 — docs/BENCH_RESULTS.md), so "pallas" is a parity
-    # surface, not a perf default; the perf-winning fusions live at the
-    # pipeline level (ops/pallas/frontend.py, ops/pallas/infer.py).
-    # "pallas-interpret" runs the kernels interpreted (tests).
+    # "xla" (default: cuDNN on the card) or "pallas", the hand-written
+    # forward and backward kernels K7 (ops/kernels/tconv.py; their plain
+    # version on the CPU). "pallas-interpret" runs the plain version on
+    # any device (tests); "im2col" raises (not carried over). The card's
+    # times of both are in PERF.md.
     conv_backend: str = "xla"
 
 
@@ -202,8 +200,9 @@ class TrainConfig:
     # DEFAULT-tier summaries start at this step (reference
     # --step_min_summaries, helper/trainer.py:377,503; default 0 = ungated)
     summary_step_min: int = 0
-    # Compute dtype for conv/matmul inside the model ("bfloat16" uses the
-    # MXU's native precision; params/batch-stats stay fp32).
+    # Compute dtype for conv/matmul inside the model ("bfloat16" runs
+    # them in bf16, on the card's tensor cores; params/batch-stats stay
+    # fp32).
     compute_dtype: str = "float32"
     # Train-stream sanity-eval sample count = this * num_classes
     # (reference --class_sampling_factor, helper/trainer.py:507,589-592).
@@ -290,6 +289,19 @@ class ExperimentConfig:
             data=mk(DataConfig, "data"),
             mesh=mk(MeshConfig, "mesh"),
         )
+
+
+def plain_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """`cfg` on its plain path, the same function: the per-op convs and
+    front end, the plain augmentation and no fused front end, so that
+    every operation is a PyTorch operator. It is what torch.export traces
+    and `utils.profiling`'s FLOP count sees (a kernel's ctypes launch is
+    neither)."""
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, conv_backend="xla"),
+        audio=dataclasses.replace(cfg.audio, dsp_backend="xla", frontend_fuse="off"),
+        augment=dataclasses.replace(cfg.augment, backend="xla"),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -35,14 +35,13 @@ the same function.
 
 from __future__ import annotations
 
-import dataclasses
 import io
 from typing import Any, Callable, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
-from tcresnet_tpu_torch.config import ExperimentConfig
+from tcresnet_tpu_torch.config import ExperimentConfig, plain_config
 from tcresnet_tpu_torch.models import build_model
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.utils.device import resolve_device
@@ -218,17 +217,8 @@ def _input_shape(cfg: ExperimentConfig, batch_size: int,
     return (batch_size,) + dsp.feature_shape(cfg.audio)
 
 
-def _plain(cfg: ExperimentConfig) -> ExperimentConfig:
-    """`cfg` with the per-op convs and front end that torch.export traces
-    (a ctypes launch is not a PyTorch op): the same function."""
-    return cfg.replace(
-        model=dataclasses.replace(cfg.model, conv_backend="xla"),
-        audio=dataclasses.replace(cfg.audio, dsp_backend="xla"),
-    )
-
-
 def _export(cfg, variables, batch_size, include_preprocess, use_ema, device):
-    module = _XlaInfer(_plain(cfg), *_weights(variables, use_ema), include_preprocess, device)
+    module = _XlaInfer(plain_config(cfg), *_weights(variables, use_ema), include_preprocess, device)
     example = torch.zeros(_input_shape(cfg, batch_size, include_preprocess), device=device)
     return torch.export.export(module, (example,))
 

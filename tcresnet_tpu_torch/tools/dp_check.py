@@ -10,9 +10,8 @@ process. Kernels are built by the caller before any rank starts
 (`ops/kernels/_build.build_all`); a rank only loads them.
 
   parity    a few steps of a Trainer over the mesh (`parity_rank`), or in
-            one process with mesh None, with the launch counters of K1
-            (augment), K2 (mfcc), K3 (frontend) and K7 (tconv) each rank
-            counted from 0
+            one process with mesh None, with every kernel's launch counter
+            (`ops.kernels.launch_counts`) each rank counted from 0
   evaluate  the Evaluator's scores of given variables (`evaluate_rank`)
   times     ms a step and utterances a second of the DP step, and (with
             `plain`) of the same step with no mesh in the same process,
@@ -32,6 +31,7 @@ from typing import Optional
 import torch
 
 from tcresnet_tpu_torch.config import ExperimentConfig, MeshConfig, get_preset
+from tcresnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from tcresnet_tpu_torch.parallel import mesh as meshlib
 
 DATA_ROWS = 2048  # synthetic train rows each rank makes (any count gives the same step)
@@ -65,28 +65,6 @@ def synthetic(cfg: ExperimentConfig, split: str = "train"):
     return load_split(cfg, split)
 
 
-def counters() -> dict:
-    """This process's kernel launch counters (module globals)."""
-    from tcresnet_tpu_torch.ops.kernels import augment as k1
-    from tcresnet_tpu_torch.ops.kernels import frontend as k3
-    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
-    from tcresnet_tpu_torch.ops.kernels import tconv as k7
-
-    return {"k1": k1.k1_launches, "k2": k2.launches, "k3": k3.launches,
-            "k7_fwd": k7.fwd_launches, "k7_dx": k7.dx_launches, "k7_dw": k7.dw_launches,
-            "plain_routes": k2.plain_routes}
-
-
-def reset_counters() -> None:
-    from tcresnet_tpu_torch.ops.kernels import augment as k1
-    from tcresnet_tpu_torch.ops.kernels import frontend as k3
-    from tcresnet_tpu_torch.ops.kernels import mfcc as k2
-    from tcresnet_tpu_torch.ops.kernels import tconv as k7
-
-    k1.k1_launches = k2.launches = k3.launches = k2.plain_routes = 0
-    k7.fwd_launches = k7.dx_launches = k7.dw_launches = 0
-
-
 def _host(d) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in d.items()}
 
@@ -106,10 +84,10 @@ def parity_rank(mesh: Optional[meshlib.Mesh], cfg: ExperimentConfig, steps: int,
     `device`): each step's logged loss, the params and BN statistics, and
     the kernel launches of the steps."""
     trainer = _trainer(mesh, cfg, workdir, mesh.device if mesh is not None else device)
-    reset_counters()
+    reset_launch_counts()
     losses = [float(trainer.train_steps(1)["total_loss"]) for _ in range(steps)]
     torch.cuda.synchronize()
-    launches = counters()
+    launches = launch_counts()
     trainer.writer.close()
     return {"losses": losses, "params": _host(trainer.state.params),
             "batch_stats": _host(trainer.state.batch_stats), "launches": launches}
@@ -127,9 +105,9 @@ def evaluate_rank(mesh: Optional[meshlib.Mesh], cfg: ExperimentConfig, variables
     dev = mesh.device if mesh is not None else torch.device(device)
     ev = Evaluator(cfg, DeviceDataset(synthetic(cfg, "valid"), dev), mesh)
     t = {k: {n: torch.tensor(a, device=dev) for n, a in v.items()} for k, v in variables.items()}
-    reset_counters()
+    reset_launch_counts()
     scores = ev.evaluate(t["params"], t["batch_stats"], include_report=False)
-    scores["launches"] = counters()
+    scores["launches"] = launch_counts()
     return scores
 
 

@@ -47,3 +47,14 @@ def l2_regularization(params: Mapping[str, torch.Tensor],
         if not is_batch_norm_name(name):
             total = total + 0.5 * torch.sum(torch.square(p.to(torch.float32)))
     return weight_decay * total
+
+
+def training_loss(logits: torch.Tensor, onehot: torch.Tensor,
+                  params: Mapping[str, torch.Tensor], model_cfg):
+    """(total, model loss, L2) of a training step in one process: the
+    smoothed cross entropy, mean over the batch, plus the L2 term of
+    `model_cfg.weight_decay`. What the Trainer differentiates and
+    `utils.profiling.step_flops` counts."""
+    model_loss = smoothed_softmax_cross_entropy(logits, onehot, model_cfg.label_smoothing)
+    l2 = l2_regularization(params, model_cfg.weight_decay)
+    return model_loss + l2, model_loss, l2

@@ -277,11 +277,9 @@ class Trainer:
         losses summed over the data axis are the 1-process loss."""
         cfg = self.cfg
         onehot = F.one_hot(labels, cfg.model.num_classes).to(torch.float32)
-        l2 = losslib.l2_regularization(self.state.params, cfg.model.weight_decay)
         if not self._sharded:
-            model_loss = losslib.smoothed_softmax_cross_entropy(
-                logits, onehot, cfg.model.label_smoothing)
-            return model_loss + l2, model_loss, l2
+            return losslib.training_loss(logits, onehot, self.state.params, cfg.model)
+        l2 = losslib.l2_regularization(self.state.params, cfg.model.weight_decay)
         model_loss = losslib.per_example_softmax_cross_entropy(
             logits, onehot, cfg.model.label_smoothing).sum() / cfg.train.batch_size
         return (model_loss + l2 if self.mesh.data_index == 0 else model_loss), model_loss, l2

@@ -7,8 +7,11 @@ chrome://tracing) into `log_dir` when the block exits. `annotate(name)`
 names a region of that trace (`torch.profiler.record_function`); it costs
 a few microseconds of host time when no trace is recording.
 
-The JAX module's `compiled_flops` (XLA's static cost analysis) has no
-counterpart here yet.
+`compiled_flops(fn, *args)` counts the floating-point operations of one
+call, the counterpart of the JAX module's count from XLA's cost analysis;
+`step_flops(cfg, batch)` and `inference_flops(cfg, batch)` count a
+training step and a served batch on the configuration's plain path, the
+denominators of an achieved FLOP rate.
 """
 
 from __future__ import annotations
@@ -48,3 +51,178 @@ def trace(log_dir: Optional[str]):
 def annotate(name: str):
     """A named region of the trace (torch.profiler.record_function)."""
     return torch.profiler.record_function(name)
+
+
+# ---------------------------------------------------------------------------
+# FLOP counts
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+
+
+def valid_taps(n: int, k: int, stride: int, dilation: int, lo: int, out: int) -> int:
+    """The (output row, tap) pairs of a k-tap conv along one axis whose tap
+    lands on one of the n input rows (not on the padding): output row o's
+    tap j reads row o * stride + j * dilation - lo."""
+    return sum(1 for o in range(out) for j in range(k)
+               if 0 <= o * stride + j * dilation - lo < n)
+
+
+class _ConvCount:
+    """The custom formulas of `compiled_flops`. A conv counts 2 x (Ci /
+    groups) x Co FLOPs for every (sample, output position, tap) whose tap
+    lands on the input: XLA's convention, which puts no tap on the padding.
+    The port pads explicitly (TF-SAME, `models/layers.py`), so the zero
+    padding a conv reads is read off the `constant_pad_nd` that made its
+    input, recorded by identity while the count runs."""
+
+    def __init__(self):
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        self.padded = WeakIdKeyDictionary()  # tensor -> (zero pads, unpadded shape)
+
+    def pad(self, x, pad, value=0.0, out_val=None) -> int:
+        if value == 0 and all(p >= 0 for p in pad):
+            self.padded[out_val] = (tuple(pad), tuple(x.shape))
+        return 0
+
+    def macs(self, x, w, out_shape, stride, padding, dilation, transposed) -> int:
+        """Multiply-adds of one pass of the conv over the taps that land on
+        the input."""
+        if transposed:
+            raise NotImplementedError("compiled_flops counts no transposed conv")
+        spatial = x.dim() - 2
+        explicit, shape = self.padded.get(x, ((0,) * (2 * spatial), tuple(x.shape)))
+        taps = 1
+        for d in range(spatial):
+            # F.pad's pads run from the last axis: (lo_last, hi_last, lo_prev, ...)
+            lo = explicit[2 * (spatial - 1 - d)] if 2 * (spatial - 1 - d) < len(explicit) else 0
+            taps *= valid_taps(shape[2 + d], w.shape[2 + d], stride[d], dilation[d],
+                               lo + padding[d], out_shape[2 + d])
+        return x.shape[0] * taps * w.shape[0] * w.shape[1]
+
+    def forward(self, x, w, bias, stride, padding, dilation, transposed, output_padding,
+                groups, out_val=None) -> int:
+        return 2 * self.macs(x, w, out_val.shape, stride, padding, dilation, transposed)
+
+    def backward(self, grad_out, x, w, bias_sizes, stride, padding, dilation, transposed,
+                 output_padding, groups, output_mask, out_val=None) -> int:
+        """dx and dw, each as many multiply-adds as the forward, where
+        autograd asks for them (no dx into an input that needs no gradient)."""
+        one = 2 * self.macs(x, w, grad_out.shape, stride, padding, dilation, transposed)
+        return one * (int(output_mask[0]) + int(output_mask[1]))
+
+    def mapping(self) -> dict:
+        """`FlopCounterMode`'s custom mapping: each formula takes the raw
+        arguments and output (`_get_raw`), not their shapes. The other
+        conv operators PyTorch counts raise: nothing here reaches them, and
+        their formula counts the padding."""
+        def refuse(*args, **kwargs):
+            raise NotImplementedError("compiled_flops counts convs at aten.convolution only")
+
+        formulas = {_aten.constant_pad_nd: self.pad, _aten.convolution: self.forward,
+                    _aten.convolution_backward: self.backward}
+        for op in (_aten._convolution, _aten.cudnn_convolution, _aten.convolution_overrideable,
+                   _aten._slow_conv2d_forward):
+            formulas[op] = refuse
+        return {op: _raw(f) for op, f in formulas.items()}
+
+
+def _raw(f):
+    def formula(*args, **kwargs):
+        return f(*args, **kwargs)
+
+    formula._get_raw = True
+    return formula
+
+
+def compiled_flops(fn, *example_args) -> int:
+    """FLOPs of one call `fn(*example_args)`, counted by PyTorch's
+    `FlopCounterMode` as the call runs (on the `meta` device no value is
+    computed): matmuls (mm, addmm, bmm, baddbmm) 2 x M x K x N, convs and
+    their gradients by `_ConvCount` (only the taps that land on the input,
+    as XLA counts them; PyTorch's own formula counts the padding too).
+    Elementwise operations, reductions and a conv's bias count nothing;
+    XLA's cost analysis, which the JAX package's `compiled_flops` reads,
+    counts them too, so a whole model's count here is a little below
+    JAX's.
+
+    `FlopCounterMode` sees only PyTorch operators: a hand-written kernel,
+    launched through ctypes, is invisible to it. A kernel launched during
+    the call therefore raises, as does anything `fn` raises; there is no
+    "unavailable" (the JAX function returns None where XLA gives no
+    analysis). Count a configuration's plain path (`step_flops`,
+    `inference_flops`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tcresnet_tpu_torch.ops.kernels import launch_counts, launches_since
+
+    before = launch_counts()
+    with FlopCounterMode(display=False, custom_mapping=_ConvCount().mapping()) as counter:
+        fn(*example_args)
+    launched = launches_since(before)
+    if launched:
+        raise RuntimeError(f"kernels launched inside the count, which cannot see them: {launched}")
+    return int(counter.get_total_flops())
+
+
+_META = torch.device("meta")
+
+
+def _meta_model(cfg, training: bool):
+    from tcresnet_tpu_torch.models import build_model
+    from tcresnet_tpu_torch.ops import dsp
+
+    model = build_model(cfg.model, dsp.feature_shape(cfg.audio), cfg.train.compute_dtype,
+                        device=_META)
+    return model.train(training)
+
+
+def _meta_wavs(cfg, batch: int) -> torch.Tensor:
+    return torch.empty(batch, cfg.audio.desired_samples, device=_META)
+
+
+def step_flops(cfg, batch: int) -> int:
+    """FLOPs of one training step of `cfg` at `batch` rows, counted on the
+    plain path (`config.plain_config`) on the `meta` device, the same
+    number whatever backend `cfg` names: the front end (`dsp.preprocess`),
+    the model's forward in training mode, the loss (the Trainer's,
+    `train.loss.training_loss`) and the gradient of every parameter, as
+    `Trainer._one_step` takes them (dx wherever autograd needs it, so none
+    into the features). The draws, the augmentation, batch norm, the
+    optimizer and the EMA are gathers and elementwise work, which count
+    nothing, as does fusing the front end with the augmentation (K3).
+    Counting the Trainer's own step on the plain path gives the same
+    number."""
+    from tcresnet_tpu_torch.config import plain_config
+    from tcresnet_tpu_torch.ops import dsp
+    from tcresnet_tpu_torch.train.loss import training_loss
+
+    cfg = plain_config(cfg)
+    model = _meta_model(cfg, training=True)
+    params = dict(model.named_parameters())
+
+    def step(wavs, onehot):
+        total, _, _ = training_loss(model(dsp.preprocess(wavs, cfg.audio)), onehot, params,
+                                    cfg.model)
+        return torch.autograd.grad(total, list(params.values()))
+
+    onehot = torch.empty(batch, cfg.model.num_classes, device=_META)
+    return compiled_flops(step, _meta_wavs(cfg, batch), onehot)
+
+
+def inference_flops(cfg, batch: int) -> int:
+    """FLOPs of serving `batch` wavs of `cfg` (wav -> softmax, the function
+    `serve.export.compile_inference` compiles), counted on the plain path
+    on the `meta` device."""
+    from tcresnet_tpu_torch.config import plain_config
+    from tcresnet_tpu_torch.ops import dsp
+
+    cfg = plain_config(cfg)
+    model = _meta_model(cfg, training=False)
+
+    @torch.no_grad()
+    def infer(wavs):
+        return torch.softmax(model(dsp.preprocess(wavs, cfg.audio)), dim=-1)
+
+    return compiled_flops(infer, _meta_wavs(cfg, batch))

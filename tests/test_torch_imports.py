@@ -62,6 +62,9 @@ PORT_MODULES = [
     "tcresnet_tpu_torch.parallel.mesh",
     "tcresnet_tpu_torch.graft_entry",
     "tcresnet_tpu_torch.utils.profiling",
+    "tcresnet_tpu_torch.utils.timing",
+    "tcresnet_tpu_torch.tools.benchmark",
+    "tcresnet_tpu_torch.tools.profile_scaling",
 ]
 
 
