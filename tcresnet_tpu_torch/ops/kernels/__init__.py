@@ -16,7 +16,8 @@ import importlib
 from typing import Dict
 
 # kernel -> (module of this package, its launch counter); "plain_routes"
-# counts the CUDA batches K2's wrapper sent to the plain feature instead
+# counts the CUDA batches K2's wrapper sent to the plain feature instead,
+# "k5_tables" the op tables K5's plan built (`FusedInfer2D._table`)
 COUNTERS = {
     "k1": ("augment", "k1_launches"),
     "k6": ("augment", "k6_launches"),
@@ -32,6 +33,7 @@ COUNTERS = {
     "k4": ("infer", "launches"),
     "k5": ("infer2d", "launches"),
     "plain_routes": ("mfcc", "plain_routes"),
+    "k5_tables": ("infer2d", "k5_tables"),
 }
 
 

@@ -61,9 +61,12 @@ from tcresnet_tpu_torch.models.res import RES_SHAPES
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import _build, mfcc
 from tcresnet_tpu_torch.utils.device import resolve_device
+from tcresnet_tpu_torch.utils.profiling import span
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
+# op tables built (`FusedInfer2D._table`), each a `k5.plan` span
+k5_tables = 0
 
 FAMILIES = ("ResNet2D8", "ResNet2D8Pool", *RES_SHAPES, *NET_DEFS, "KWS")
 
@@ -791,13 +794,16 @@ class FusedInfer2D:
         return self._table(batch)[1]
 
     def _table(self, batch: int) -> Tuple[torch.Tensor, int]:
+        global k5_tables
         entry = self._tables.pop(batch, None)
         if entry is None:
-            rows, partial = op_rows(self.program, batch, self.grid_blocks())
-            host = torch.tensor(rows, dtype=torch.int32)
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            entry = (host.to(self.device, non_blocking=True), partial)
+            with span("k5.plan", batch=batch):
+                rows, partial = op_rows(self.program, batch, self.grid_blocks())
+                host = torch.tensor(rows, dtype=torch.int32)
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                entry = (host.to(self.device, non_blocking=True), partial)
+            k5_tables += 1
         self._tables[batch] = entry
         if len(self._tables) > MAX_TABLES:
             self._tables.popitem(last=False)

@@ -45,6 +45,7 @@ from tcresnet_tpu_torch.config import ExperimentConfig, plain_config
 from tcresnet_tpu_torch.models import build_model
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.utils.device import resolve_device
+from tcresnet_tpu_torch.utils.profiling import span
 
 # Largest batch "auto" serves through the fused kernel, per family. These
 # values are the JAX package's routing table, copied as they are; the
@@ -106,7 +107,9 @@ def build_inference_fn(
 
     `variables` is the port's {"params", "batch_stats"[, "ema_params"]}
     mapping (models/convert.py). The weights move to `device` once; inputs
-    must already be there."""
+    must already be there. Each call is a `serve.request` span (`batch`, and
+    `route`: "fused", or "xla" for the plain path; for "auto" the route it
+    took)."""
     device = resolve_device(device)
     params, batch_stats = _weights(variables, use_ema)
 
@@ -114,7 +117,8 @@ def build_inference_fn(
         raise ValueError(f"Unknown backend {backend!r}")
     if backend == "xla":
         return _with_matmul_precision(
-            _build_xla_infer(cfg, params, batch_stats, include_preprocess, device),
+            _request(_build_xla_infer(cfg, params, batch_stats, include_preprocess, device),
+                     "xla"),
             precision,
         )
 
@@ -134,7 +138,8 @@ def build_inference_fn(
                 f"model/feature geometry (model={cfg.model.name})"
             )
         return _with_matmul_precision(
-            _build_xla_infer(cfg, params, batch_stats, include_preprocess, device),
+            _request(_build_xla_infer(cfg, params, batch_stats, include_preprocess, device),
+                     "xla"),
             precision,
         )
 
@@ -146,17 +151,26 @@ def build_inference_fn(
         return torch.softmax(fused(x), dim=-1)
 
     if backend == "fused":
-        return _with_matmul_precision(infer_fused, precision)
+        return _with_matmul_precision(_request(infer_fused, "fused"), precision)
 
     max_fused = auto_fused_max_batch(cfg.model.name)
     xla_fn = _build_xla_infer(cfg, params, batch_stats, include_preprocess, device)
 
     def infer_auto(x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda and x.shape[0] <= max_fused:
-            return infer_fused(x)
-        return xla_fn(x)
+        fused_route = x.is_cuda and x.shape[0] <= max_fused
+        with span("serve.request", batch=x.shape[0], route="fused" if fused_route else "xla"):
+            return infer_fused(x) if fused_route else xla_fn(x)
 
     return _with_matmul_precision(infer_auto, precision)
+
+
+def _request(fn: Callable, route: str) -> Callable:
+    """`fn`, each call a `serve.request` span on `route`."""
+    def served(x: torch.Tensor) -> torch.Tensor:
+        with span("serve.request", batch=x.shape[0], route=route):
+            return fn(x)
+
+    return served
 
 
 def _weights(variables: Mapping[str, Any], use_ema: bool):

@@ -43,7 +43,10 @@ this process, as before); with `--device cpu` mesh.data=N runs N gloo
 ranks on the CPU (-1: one). The CLI spawns its ranks itself, or is one
 rank of a torchrun launch. Rank 0 writes the run's files and logs; a
 rank's failure fails the command. `--profile-dir` writes a torch.profiler
-trace of rank 0's training there.
+trace of rank 0's training there, which carries the program's spans
+(`utils/profiling.py`): `train.call` > `train.step` > `train.draw`,
+`train.input`, `train.forward`, `train.backward` (with `train.all_reduce`
+under a mesh), `train.optimizer`.
 """
 
 from __future__ import annotations
@@ -113,7 +116,8 @@ def parse_args(argv=None):
                    help="auto: the CUDA cards (mesh.data of them); cpu: the host "
                         "(mesh.data gloo ranks)")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of rank 0's training here")
+                   help="write a torch.profiler trace of rank 0's training here, with "
+                        "the program's spans")
     p.add_argument("--cfg", action="append", default=[], metavar="SECTION.FIELD=VALUE",
                    help="config override, e.g. --cfg model.conv_backend=pallas "
                         "--cfg optim.lr_list='[0.1,0.01]' (JSON values)")

@@ -74,7 +74,7 @@ from tcresnet_tpu_torch.train import loss as losslib
 from tcresnet_tpu_torch.train import optim as optimlib
 from tcresnet_tpu_torch.train.checkpoint import CheckpointManager, restore_params_partial
 from tcresnet_tpu_torch.train.state import TrainState, create_train_state
-from tcresnet_tpu_torch.utils.profiling import annotate
+from tcresnet_tpu_torch.utils.profiling import span
 
 # generator streams of one (seed, step)
 _TRAIN, _EVAL, _AUDIO = 0, 1, 2
@@ -262,13 +262,16 @@ class Trainer:
                 "MFCC or log-mel with a hop-decomposable window, an anchored "
                 "augmentation method and a noise bank); use 'auto' to allow fallback")
         if want_fuse and fusable:
-            feats = frontend.fused_gather_augment_mfcc(
-                dataset, idx, silent, generator, cfg.augment, cfg.audio, noise,
-                is_training=True, n=n)
-            return feats[..., None]
-        wavs = aug.augment_gathered(dataset, idx, silent, generator, cfg.augment, noise,
-                                    is_training=True, clip_len=n)
-        return dsp.preprocess(wavs, cfg.audio)
+            with span("train.input", route="k3"):
+                feats = frontend.fused_gather_augment_mfcc(
+                    dataset, idx, silent, generator, cfg.augment, cfg.audio, noise,
+                    is_training=True, n=n)
+                return feats[..., None]
+        kernels = aug.use_kernels(cfg.augment, self.device) or cfg.audio.dsp_backend == "pallas"
+        with span("train.input", route="kernels" if kernels else "plain"):
+            wavs = aug.augment_gathered(dataset, idx, silent, generator, cfg.augment, noise,
+                                        is_training=True, clip_len=n)
+            return dsp.preprocess(wavs, cfg.audio)
 
     def _loss(self, logits: torch.Tensor, labels: torch.Tensor):
         """(the loss this process differentiates, its model loss, L2). Under
@@ -285,32 +288,40 @@ class Trainer:
         return (model_loss + l2 if self.mesh.data_index == 0 else model_loss), model_loss, l2
 
     def _one_step(self, step: int) -> Dict[str, torch.Tensor]:
-        """One training step at host step `step`; reads nothing back."""
+        """One training step at host step `step`; reads nothing back. Its
+        phases are the spans `train.draw`, `train.input`, `train.forward`,
+        `train.backward` and `train.optimizer` inside `train.step`."""
         cfg, state = self.cfg, self.state
         batch = cfg.train.batch_size
-        gen = self.generator(step, batch=batch)
-        idx, labels, silent = DeviceDataset.sample_indices(
-            self.data.arrays, gen, self._local_rows(batch), self.data.sample_row)
-        feats = self._input_features(idx, silent, gen)
-        logits = self.model(feats, generator=gen)
-        total, model_loss, l2 = self._loss(logits, labels)
-        names = list(state.params)
-        grads = dict(zip(names, torch.autograd.grad(total, [state.params[k] for k in names])))
-        if self._sharded:  # frozen params (trainable_scopes) take no update: not summed
-            with annotate("grad_all_reduce"):
-                grads.update(zip(self._trained, meshlib.all_reduce_grads(
-                    self.mesh, [grads[k] for k in self._trained])))
-        updates, state.opt_state = self.optimizer.update(grads, state.opt_state)
-        updates = optimlib.scale_updates(updates, self.lr_schedule(step))
-        with torch.no_grad():
-            for k, u in updates.items():  # frozen params (trainable_scopes) get none
-                state.params[k].add_(u)
-            if state.ema_params is not None:
-                state.ema_params = optimlib.ema_update(
-                    state.ema_params, state.params, cfg.optim.ema_decay)
-            state.step += 1
-            correct = (logits.argmax(-1) == labels).to(torch.float32)
-            acc = correct.sum() / batch if self._sharded else correct.mean()
+        with span("train.step", step=step):
+            with span("train.draw"):
+                gen = self.generator(step, batch=batch)
+                idx, labels, silent = DeviceDataset.sample_indices(
+                    self.data.arrays, gen, self._local_rows(batch), self.data.sample_row)
+            feats = self._input_features(idx, silent, gen)
+            with span("train.forward"):
+                logits = self.model(feats, generator=gen)
+                total, model_loss, l2 = self._loss(logits, labels)
+            with span("train.backward"):
+                names = list(state.params)
+                grads = dict(zip(names, torch.autograd.grad(
+                    total, [state.params[k] for k in names])))
+                if self._sharded:  # frozen params (trainable_scopes) take no update: not summed
+                    with span("train.all_reduce"):
+                        grads.update(zip(self._trained, meshlib.all_reduce_grads(
+                            self.mesh, [grads[k] for k in self._trained])))
+            with span("train.optimizer"):
+                updates, state.opt_state = self.optimizer.update(grads, state.opt_state)
+                updates = optimlib.scale_updates(updates, self.lr_schedule(step))
+                with torch.no_grad():
+                    for k, u in updates.items():  # frozen params (trainable_scopes) get none
+                        state.params[k].add_(u)
+                    if state.ema_params is not None:
+                        state.ema_params = optimlib.ema_update(
+                            state.ema_params, state.params, cfg.optim.ema_decay)
+                    state.step += 1
+                    correct = (logits.argmax(-1) == labels).to(torch.float32)
+                    acc = correct.sum() / batch if self._sharded else correct.mean()
         return {"total_loss": total.detach(), "model_loss": model_loss.detach(),
                 "l2_loss": l2.detach(), "accuracy": acc}
 
@@ -321,9 +332,10 @@ class Trainer:
         if start is None:
             start = int(self.state.step)
         sums: Dict[str, torch.Tensor] = {}
-        for i in range(n_steps):
-            for k, v in self._one_step(start + i).items():
-                sums[k] = v if k not in sums else sums[k] + v
+        with span("train.call", start=start, n_steps=n_steps):
+            for i in range(n_steps):
+                for k, v in self._one_step(start + i).items():
+                    sums[k] = v if k not in sums else sums[k] + v
         if self._sharded:  # the ranks' shares of the global metrics
             keys = ("total_loss", "model_loss", "accuracy")
             summed = meshlib.all_reduce_(self.mesh, torch.stack([sums[k] for k in keys]))

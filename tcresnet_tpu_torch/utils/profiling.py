@@ -1,11 +1,31 @@
 """Profiling hooks (counterpart of tcresnet_tpu/utils/profiling.py).
 
+The tracer. `span(name, **attrs)` names a region of the program: the
+training step's phases (`train.call` > `train.step` > `train.draw`,
+`train.input`, `train.forward`, `train.backward` (with `train.all_reduce`
+under a mesh), `train.optimizer`), a served request (`serve.request`) and
+K5's host plan (`k5.plan`). With the tracer off a span is one shared no-op
+context: one flag test, no clock read, no `record_function`, no CUDA event.
+Inside `tracing(device_events)` each span is kept as a record: its name, an
+id, the id of the span that encloses it, its attributes and its host start
+and end on the spans' clock, and, with `device_events` on a CUDA process,
+a CUDA event at its entry and at its exit on the current stream, whose
+device milliseconds are read only by `drain()`. The records sit in memory,
+at most `CAPACITY`, the oldest dropped first (`dropped()` counts them).
+While a `torch.profiler` records, each span is also a `record_function`.
+
+The spans' clock is Unix nanoseconds: `time.perf_counter_ns()` plus an
+offset read when the tracer is turned on (`clock_ns()`). A profile's event
+lies at `trace_start_ns(prof)` plus its `time_range` (microseconds) on the
+same clock, so an idle gap of the device in a profile can be put down to
+the innermost span open on the host at that moment.
+
 `trace(log_dir)` records a `torch.profiler` trace of the code it wraps,
-the host's operators and, on a card, its kernels and copies, and writes it
-as a Chrome trace (`trace_<pid>.json`, readable in Perfetto or
-chrome://tracing) into `log_dir` when the block exits. `annotate(name)`
-names a region of that trace (`torch.profiler.record_function`); it costs
-a few microseconds of host time when no trace is recording.
+the host's operators and, on a card, its kernels and copies, with the
+tracer on (device events off), and writes it as a Chrome trace
+(`trace_<pid>.json`, readable in Perfetto or chrome://tracing) into
+`log_dir` when the block exits: the program's spans lie on the kernels'
+timeline.
 
 `compiled_flops(fn, *args)` counts the floating-point operations of one
 call, the counterpart of the JAX module's count from XLA's cost analysis;
@@ -16,19 +36,177 @@ denominators of an achieved FLOP rate.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import os
+import threading
+import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+CAPACITY = 1 << 15  # records kept; past it the oldest are dropped and counted
+
+
+class _Tracer:
+    """The process's tracer: whether it is on, its records and its clock."""
+
+    def __init__(self):
+        self.on = False
+        self.device_events = False
+        self.depth = 0  # nested `tracing` blocks
+        self.offset_ns = 0
+        self.records: collections.deque = collections.deque(maxlen=CAPACITY)
+        self.dropped = 0
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def keep(self, record: "_Span") -> None:
+        if len(self.records) == self.records.maxlen:
+            self.dropped += 1
+        self.records.append(record)
+
+
+_TRACER = _Tracer()
+
+
+class _Off:
+    """The span of a tracer that is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "attrs", "start_ns", "end_ns", "events", "stream",
+                 "function")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.events = self.function = None
+
+    def __enter__(self):
+        t = _TRACER
+        stack = t.stack()
+        self.id = next(t.ids)
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        if torch.autograd._profiler_enabled():
+            self.function = torch.profiler.record_function(self.name)
+            self.function.__enter__()
+        if t.device_events and torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.stream = torch.cuda.current_stream()  # looked up once: ~6 us a call
+            self.events[0].record(self.stream)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record(self.stream)
+        if self.function is not None:
+            self.function.__exit__(*exc)
+        _TRACER.stack().pop()
+        _TRACER.keep(self)
+        return False
+
+
+def span(name: str, **attrs):
+    """A named region of the program (see the module's notes): a context
+    manager, the shared no-op one while the tracer is off."""
+    if not _TRACER.on:
+        return _OFF
+    return _Span(name, attrs)
+
+
+@contextmanager
+def tracing(device_events: bool = True):
+    """Turn the tracer on for the block. The outermost block starts with an
+    empty buffer and sets the clock's offset, and drops what is left of the
+    records at its exit: read them with `drain()` inside it. An inner block
+    sets `device_events` for its own extent."""
+    t = _TRACER
+    outer = t.depth == 0
+    if outer:
+        t.records = collections.deque(maxlen=CAPACITY)
+        t.dropped = 0
+        before = time.perf_counter_ns()
+        unix = time.time_ns()
+        t.offset_ns = unix - (before + time.perf_counter_ns()) // 2
+    was = (t.on, t.device_events)
+    t.on, t.device_events = True, device_events
+    t.depth += 1
+    try:
+        yield
+    finally:
+        t.depth -= 1
+        t.on, t.device_events = was
+        if outer:
+            t.records = collections.deque(maxlen=CAPACITY)
+
+
+def clock_ns() -> int:
+    """Now on the spans' clock (Unix nanoseconds)."""
+    return time.perf_counter_ns() + _TRACER.offset_ns
+
+
+def drain() -> List[Dict[str, object]]:
+    """The finished spans' records, oldest first, and an empty buffer. Each
+    is {name, id, parent (None outside any span), attrs, start_ns, end_ns
+    (the spans' clock), device_ms (from its CUDA events, None without)};
+    a record with events waits for its exit event here."""
+    t = _TRACER
+    records, t.records = t.records, collections.deque(maxlen=CAPACITY)
+    out = []
+    for r in records:
+        device_ms = None
+        if r.events is not None:
+            r.events[1].synchronize()
+            device_ms = r.events[0].elapsed_time(r.events[1])
+        out.append({"name": r.name, "id": r.id, "parent": r.parent, "attrs": r.attrs,
+                    "start_ns": r.start_ns + t.offset_ns, "end_ns": r.end_ns + t.offset_ns,
+                    "device_ms": device_ms})
+    return out
+
+
+def dropped() -> int:
+    """Records dropped at the cap since the outermost `tracing` began."""
+    return _TRACER.dropped
+
+
+def trace_start_ns(prof) -> int:
+    """The time origin of a `torch.profiler` profile on the spans' clock: an
+    event lies at this plus its `time_range` in microseconds."""
+    return int(prof.profiler.kineto_results.trace_start_ns())
 
 
 @contextmanager
 def trace(log_dir: Optional[str]):
-    """A torch.profiler trace of the block, written to `log_dir` on exit
-    (also when the block raises); does nothing when log_dir is falsy.
-    Yields the profiler, or None."""
+    """A torch.profiler trace of the block, with the tracer on (device
+    events off), written to `log_dir` on exit (also when the block raises);
+    does nothing when log_dir is falsy. Yields the profiler, or None."""
     if not log_dir:
         yield None
         return
@@ -40,17 +218,13 @@ def trace(log_dir: Optional[str]):
     prof = profile(activities=activities)
     prof.start()
     try:
-        yield prof
+        with tracing(device_events=False):
+            yield prof
     finally:
         prof.stop()
         out = Path(log_dir)
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / f"trace_{os.getpid()}.json"))
-
-
-def annotate(name: str):
-    """A named region of the trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
 
 
 # ---------------------------------------------------------------------------

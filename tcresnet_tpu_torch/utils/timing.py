@@ -2,8 +2,7 @@
 tcresnet_tpu/utils/timing.py).
 
 `Timer` is a context manager whose `.elapsed` holds the seconds of its
-block, `timeit` the same as a `with` helper that logs, and `RateTracker`
-the items a second over a sliding window of updates. They read the host
+block, and `timeit` the same as a `with` helper that logs. They read the host
 clock (`time.perf_counter`) and nothing else: PyTorch returns before the
 card finishes, so a block that times work on the card ends with
 `torch.cuda.synchronize()` or a read of a result on the host.
@@ -41,25 +40,3 @@ def timeit(logger, message: str):
     with t:
         yield t
 
-
-class RateTracker:
-    """Items a second over the last `window` updates: the items of every
-    update but the oldest over the time from the oldest to the newest."""
-
-    def __init__(self, window: int = 50):
-        self._window = window
-        self._times = []
-
-    def update(self, n_items: int) -> None:
-        self._times.append((time.perf_counter(), n_items))
-        if len(self._times) > self._window:
-            self._times.pop(0)
-
-    def rate(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        t0, _ = self._times[0]
-        t1, _ = self._times[-1]
-        items = sum(n for _, n in self._times[1:])
-        dt = t1 - t0
-        return items / dt if dt > 0 else 0.0

@@ -39,28 +39,6 @@ def test_timer_elapsed_and_log(monkeypatch, caplog, module):
                                                          "eval took 0.00 ms"]
 
 
-def _trace(module, monkeypatch, steps, items, window):
-    _patch(monkeypatch, module, steps)
-    tracker = module.RateTracker(window)
-    rates = [tracker.rate()]
-    for n in items:
-        tracker.update(n)
-        rates.append(tracker.rate())
-    return rates
-
-
-def test_rate_tracker_equals_jax(monkeypatch):
-    """The same clock and updates give the same rates at every update,
-    across the window's eviction and a zero interval."""
-    steps = [0.5, 0.1, 0.2, 0.0, 0.4, 0.3, 0.05, 0.0, 0.7, 0.2]
-    items = [10, 20, 30, 40, 50, 60, 70, 80, 90, 100]
-    want = _trace(jax_timing, monkeypatch, steps, items, window=4)
-    got = _trace(timing, monkeypatch, steps, items, window=4)
-    assert got == want
-    assert got[0] == got[1] == 0.0
-    assert got[4] == pytest.approx((20 + 30 + 40) / 0.3)
-
-
 def test_timer_leaves_exceptions_alone(monkeypatch):
     _patch(monkeypatch, timing, [0.0, 1.0])
     with pytest.raises(KeyError):
