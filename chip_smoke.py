@@ -406,13 +406,14 @@ def ptxas_line(name: str) -> str:
     """ptxas's registers and spills of csrc/<name>.cu, each labelled with
     its kernel (K7's by name and template arguments; the front ends' by DFT
     variant, the tensor-core products with their rows: <MI, WM> is WM * MI *
-    16 rows)."""
+    16 rows; the *_wg_kernel ones the 128-row wgmma product)."""
     from tcresnet_tpu_torch.ops.kernels import _build
 
     log = _build.library_path(name).with_suffix(".log")
     variants = {"frames_kernel": "hops+phases", "k3_frames_kernel": "hops+phases",
+                "frames_wg_kernel": "hops+phases", "k3_frames_wg_kernel": "hops+phases",
                 "k9_kernel": "radix4", "k3_radix4_kernel": "radix4", "k4_kernel": "k4",
-                "k4_conv_kernel": "k4 convs"}
+                "k4_wg_kernel": "k4", "k4_conv_kernel": "k4 convs"}
     entry, parts = "", []
     for line in log.read_text().splitlines() if log.exists() else []:
         fn = re.search(r"_Z(\d+)(\w+)", line)
@@ -423,6 +424,8 @@ def ptxas_line(name: str) -> str:
                 entry = f"{kernel}<{','.join(map(str, params))}>: " if params else f"{kernel}: "
             elif kernel in variants:
                 rows = f" {params[1] * params[0] * 16}-row" if params else ""
+                if kernel.endswith("_wg_kernel"):  # the 128-row product (dft_wgmma.cuh)
+                    rows = " 128-row"
                 entry = f"{variants[kernel]}{rows}: "
             else:
                 entry = ""
@@ -2967,13 +2970,15 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
     for r in rows:
         want = expect.get(r["stage"]) if r["stage"] != "step" else (
             {"k3": step_iters} if r["batch"] >= 2048 else {"k1": step_iters, "k2": step_iters})
+        if "k2" in want or "k3" in want:  # 1536 and 2048 clips take the 128-row product
+            want = {**want, "dft_wgmma": want.get("k2", 0) + want.get("k3", 0)}
         check(r["us_per_iter"] > 0 and r["host_us_per_iter"] > 0 and r["enqueue_us_per_iter"] > 0,
               f"29.2: {r['stage']} at {r['batch']}: a time is not positive: {r}")
         check(r["launches"] == want,
               f"29.2: {r['stage']} at {r['batch']} launched {r['launches']}, not {want}")
     print(f"[tools] 29.2 profile_scaling B=1536, 2048, dsp pallas, n1 {n1} n2 {n2}: every "
           f"row positive, launches as each stage names (K6 augment, K1 gather, K2 mfcc, "
-          f"the step K1 + K2 / K3) | {card}")
+          f"the step K1 + K2 / K3, each K2 / K3 launch on the 128-row product) | {card}")
 
     # ---- 29.3 where a device-bound step's time goes: Res15, B=1024 bf16 ----
     cfg = get_preset("Res15")

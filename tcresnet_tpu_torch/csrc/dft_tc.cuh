@@ -35,9 +35,12 @@
 //    takes v.rows consecutive rows (128, 64, or 16 and fewer: the host
 //    plan, ops/kernels/mfcc.py::tc_tile_plan, takes the largest whose
 //    tiles fill every SM at least once) and reads the DFT constant from L2
-//    once for all of them. A small batch's tiles of 16 rows or fewer split
-//    their column units over blocks as well (tc_frames_features), so that
-//    batch 1 runs on 28 (480/160), 32 (640/320) or 20 (400/200) blocks.
+//    once for all of them. The 128-row tile runs on wgmma with the
+//    constant split on the host (dft_wgmma.cuh); the 64- and 16-row ones
+//    on the mma.sync product below. A small batch's tiles of 16 rows or
+//    fewer split their column units over blocks as well
+//    (tc_frames_features), so that batch 1 runs on 28 (480/160), 32
+//    (640/320) or 20 (400/200) blocks.
 //  - A is read in place from the staged samples; nothing is rebuilt. A
 //    tile's rows touch a few utterances ("pieces"); each piece's samples
 //    from hop fa on are staged in chunks, chunk c of the tile at c * stride
@@ -67,8 +70,9 @@
 // What bounds the stage on the H100: its products, window x fft
 // multiply-adds a frame (245,760 at 480/160, 655,360 at 640/320, 204,800
 // at 400/200) at the tensor cores' float32-exact rate (3xTF32), and the L2
-// reads of the DFT constant (0.98 / 2.6 MB a block) that feed them: the
-// tile's rows set how often it is read.
+// reads of the DFT constant (0.98 / 2.6 MB a block; the 128-row product's
+// split parts 1.97 MB) that feed them: the tile's rows set how often it is
+// read.
 //
 // Numerics (K9's, K5's and K7's): both parts of each operand rounded to the
 // nearest TF32 value (split_tf32_rn); per k8 step a tile's lo*hi, hi*lo,
@@ -77,9 +81,10 @@
 // chained, it drifts past the float64 gate on loud dataset rows). An
 // element's sum depends only on its row's A, its column and the fixed k
 // order, never on the tile, the batch or the staged layout: the stage of
-// one utterance equals its row of any batch bit for bit, K2 equals K8
-// where both serve a geometry, and k3_frontend equals k2_mfcc(K1(x)) in
-// either variant. The zero rows' steps add exact zeros.
+// one utterance equals its row of any batch bit for bit (the 128-row
+// product's wgmma too: tests/test_torch_cuda.py), K2 equals K8 where both
+// serve a geometry, and k3_frontend equals k2_mfcc(K1(x)) in either
+// variant. The zero rows' steps add exact zeros.
 // With dsp_matmul_dtype="bfloat16" A and B are bf16 values, exact in TF32:
 // their lo parts are zero, and the same three products give the exact
 // bf16 products summed in float32 (one would do; the code path is shared).
@@ -299,8 +304,8 @@ struct TcTile {
   int tile, r0, nrows, b0, f0, u0, u1;
 };
 
-// The product a tile of v.rows rows (the host plan's) runs on: 128 (8
-// warps over the columns, 8 m16 tiles each), 64 (2 x 4 warps, 2 m16 tiles
+// The product a tile of v.rows rows (the host plan's) runs on: 128
+// (dft_wgmma.cuh: two warpgroups on wgmma), 64 (2 x 4 warps, 2 m16 tiles
 // each), or, for 16 rows or fewer, 16 (8 warps, 1 m16 tile; the only one
 // with the split bookkeeping); 0 for any other count
 static inline int tc_product(int rows) {

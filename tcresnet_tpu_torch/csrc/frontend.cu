@@ -18,11 +18,17 @@
 // microseconds of memory traffic per block. The design is mfcc.cu's (hops
 // and phases: a tile of the batch's frames, whose utterances each augment
 // with their own scalars; radix4: one block per utterance) with the sample
-// load replaced by the augment.
+// load replaced by the augment. The training batch (8,192 clips, 6,272
+// tiles of 128 frames) takes the 128-row product, dft_wgmma.cuh: the
+// constant split on the host and streamed by TMA, wgmma on two consumer
+// warpgroups; on the H100 it took K3 from 10.19 to 6.39 ms at that batch
+// (PERF.md), its bound at 3xTF32 2.42 ms.
 //
 // Numerics: the augmented samples are bit-exact with K1 (augment.cuh),
 // and the features are computed by the same code as mfcc.cu's, so K3
-// equals K2(K1(x)) (K8(K1(x)), K9(K1(x))) for the same scalars.
+// equals K2(K1(x)) (K8(K1(x)), K9(K1(x))) for the same scalars, at every
+// tile the plan takes (tests/test_torch_cuda.py holds it at 1,536 and
+// 8,192 clips).
 //
 // Build: ops/kernels/_build.py (nvcc, sm_90a, plain C entry points that
 // launch on the given stream and return cudaGetLastError()).
@@ -31,6 +37,7 @@
 
 #include "augment.cuh"
 #include "dft_tc.cuh"
+#include "dft_wgmma.cuh"
 #include "frontend.cuh"
 #include "radix4.cuh"
 
@@ -60,6 +67,26 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k3_frames_kernel(const K3Args a
   tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.aug.out);
 }
 
+// the same at the 128-row tile: the augment, then
+// dft_wgmma.cuh's product
+__global__ void __launch_bounds__(WG_THREADS, 1) k3_frames_wg_kernel(const K3Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<false>(a.fe, a.v, a.aug.batch);
+  const AugArgs& aug = a.aug;
+  const FeArgs& fe = a.fe;
+  tc_wg_features(
+      a.fe, a.v, tl, smem, a.region_a, a.aug.out,
+      [&] {
+        tc_stage(a.fe, a.v, tl, smem, [&aug, &fe](int b) {
+          const AugRow<short> r = aug_row<short>(aug, b, 1.0f / 32768.0f);
+          return [&aug, &fe, r](int t, float* dst) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) dst[k] = fe_sample(fe, aug_sample(r, aug.n, t + k));
+          };
+        });
+      });
+}
+
 // radix4: the augmented samples unrounded (the butterfly rounds after the window)
 template <int MI, int WM>
 __global__ void __launch_bounds__(FE_THREADS, 1) k3_radix4_kernel(const K3Args a) {
@@ -82,7 +109,10 @@ static int k3_frames_launch(const K3Args* args, void* stream) {
 // as mfcc.cu's frames_stage: the tile rows of the host's plan
 static int k3_frames_stage(const K3Args* args, void* stream) {
   switch (tc_product(args->v.rows)) {
-    case 128: return k3_frames_launch<8, 1>(args, stream);
+    case 128:
+      if (args->v.splits != 1) return (int)cudaErrorInvalidValue;
+      return fe_launch<K3Args, k3_frames_wg_kernel, WG_THREADS>(
+          tc_grid(args->fe, args->v, args->aug.batch), args->smem_bytes, *args, stream);
     case 64: return k3_frames_launch<2, 2>(args, stream);
     case 16: return k3_frames_launch<1, 1, true>(args, stream);
   }

@@ -4,7 +4,7 @@
 //
 //   K2 (mfcc.py::_kernel, k2_mfcc), K8 (::_kernel_phases), K3's hops and
 //   phases entry point, and K4's front end (infer.cu): the frames' stage,
-//   dft_tc.cuh
+//   dft_tc.cuh, at the 128-row tile dft_wgmma.cuh
 //   K9 (::_kernel_radix4) and K3's radix4 entry point: radix4.cuh
 //
 // Numerics: float32 sums of 3xTF32 products, IEEE logf/sqrtf (the build has
@@ -39,18 +39,20 @@ struct FeVariant {
   const int* runs;    // the mel runs [units][num_mel][3] (dft_tc.cuh)
   float* part;        // frames, split tiles: the units' mel contributions
   int* done;          // frames, split tiles: per tile, its blocks that finished (0 between calls)
+  const float* wsplit;  // frames, 128-row tiles: the DFT constant's TF32 parts (dft_wgmma.cuh)
   int length;         // radix4: L
   int mel_nnz;        // the mel's nonzero weights (FeArgs.mel)
   int units;          // frames: column units of 128 (fft / 128, at least 1)
   int rows;           // frames: rows of a block's tile (the host plan's)
   int splits;         // frames: blocks a tile's units are split over (the host plan's)
   int stride, gap;    // frames: the staged samples' chunk stride and piece gap (floats)
+  int stages;         // frames, 128-row tiles: the ring's slots (the host plan's)
 };
 
 // Launches Kernel on `grid` blocks of FE_THREADS. Above 48 KB of dynamic
 // shared memory a kernel needs its limit raised first: that is done once
 // per kernel, device and larger size, not on every launch.
-template <class Args, void (*Kernel)(Args)>
+template <class Args, void (*Kernel)(Args), int THREADS = FE_THREADS>
 static int fe_launch(int grid, int smem_bytes, const Args& args, void* stream) {
   static int granted[64] = {};  // per device: the bytes this kernel may use
   int dev = 0;
@@ -62,7 +64,7 @@ static int fe_launch(int grid, int smem_bytes, const Args& args, void* stream) {
     if (e != cudaSuccess) return (int)e;
     have = smem_bytes;
   }
-  Kernel<<<grid, FE_THREADS, smem_bytes, (cudaStream_t)stream>>>(args);
+  Kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -40,8 +40,9 @@
 //    (dft_tc.cuh::tc_frames_features), so the call is one launch with no
 //    second pass and no memset.
 //  - A batch of more utterances (the host's rule,
-//    ops/kernels/infer.py::FusedInfer.two_kernels) runs its conv stacks in
-//    a second kernel, one block per utterance: in the stage's blocks, one
+//    ops/kernels/infer.py::FusedInfer.two_kernels; always on the 128-row
+//    product, dft_wgmma.cuh) runs its conv stacks in a second kernel, one
+//    block per utterance: in the stage's blocks, one
 //    whose tile ends two utterances runs both stacks in turn, and a stage
 //    block holds its SM (registers, shared memory) while other tiles
 //    wait; at batch 3-5 that took 1.2-1.8x the split's time (PERF.md). The
@@ -75,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "dft_tc.cuh"
+#include "dft_wgmma.cuh"
 #include "frontend.cuh"
 
 #define K4_MAX_CONVS 32
@@ -236,6 +238,24 @@ __global__ void __launch_bounds__(FE_THREADS, 1) k4_kernel(const __grid_constant
   if (CONVS) k4_finish<SPLIT>(a);
 }
 
+// the same at the 128-row tile: dft_wgmma.cuh's product; the conv stacks
+// always follow in k4_conv_kernel (a tile of 128 rows never holds a single
+// utterance's whole call, and both paths give the same bits)
+__global__ void __launch_bounds__(WG_THREADS, 1) k4_wg_kernel(const __grid_constant__ K4Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<false>(a.fe, a.v, a.batch);
+  const float* wavs = a.wavs;
+  const int n = a.fe.n;
+  tc_wg_features(
+      a.fe, a.v, tl, smem, a.region_a, a.feats,
+      [&] {
+        tc_stage(a.fe, a.v, tl, smem, [wavs, n](int b) {
+          const float* wav = wavs + (size_t)b * n;
+          return [wav](int t, float* dst) { cp_async16(dst, wav + t, true); };
+        });
+      });
+}
+
 // one utterance's conv stack a block, after the stage's launch (its
 // features are in the workspace: the launch boundary orders them). Min
 // blocks 1: the conv loop is latency-bound, and with the registers that
@@ -262,7 +282,13 @@ static int k4_launch(const K4Args* args, void* stream) {
 // the shared-memory limit raised once per device and larger size (fe_launch)
 extern "C" int k4_infer(const K4Args* args, void* stream) {
   switch (tc_product(args->v.rows)) {
-    case 128: return k4_launch<8, 1>(args, stream);
+    case 128: {
+      if (args->v.splits != 1) return (int)cudaErrorInvalidValue;
+      const int e = fe_launch<K4Args, k4_wg_kernel, WG_THREADS>(
+          tc_grid(args->fe, args->v, args->batch), args->smem_bytes, *args, stream);
+      if (e != 0) return e;
+      return fe_launch<K4Args, k4_conv_kernel>(args->batch, args->conv_bytes, *args, stream);
+    }
     case 64: return k4_launch<2, 2>(args, stream);
     case 16: return k4_launch<1, 1, true>(args, stream);
   }

@@ -19,8 +19,10 @@
 // every frame's product with the windowed DFT, the batch's frames one row
 // space, a block a tile of 128, 64, or 16 and fewer of them (the host's
 // plan, from the batch), read in place from the staged samples on the
-// tensor cores; they share one kernel, frames_kernel, and one entry
-// point (the host counts launches by variant). K9 (radix4.cuh): one
+// tensor cores (the 128-row tile on wgmma with the constant split on the
+// host and streamed by TMA, dft_wgmma.cuh; the others on mma.sync);
+// they share their kernels (frames_kernel, frames_wg_kernel) and one
+// entry point (the host counts launches by variant). K9 (radix4.cuh): one
 // block per utterance, all its frames one product on the tensor cores, so
 // each slice of M0-M2 is read from L2 once per utterance. All fold the mel
 // into their column loop, so that no power spectrum is stored.
@@ -31,6 +33,7 @@
 #include <cuda_runtime.h>
 
 #include "dft_tc.cuh"
+#include "dft_wgmma.cuh"
 #include "frontend.cuh"
 #include "radix4.cuh"
 
@@ -50,6 +53,23 @@ __global__ void __launch_bounds__(FE_THREADS, 1) frames_kernel(const K2Args a) {
   const TcTile tl = tc_tile<SPLIT>(a.fe, a.v, a.batch);
   tc_stage_wavs(a.fe, a.v, tl, smem, a.wavs, a.region_a);
   tc_frames_features<MI, WM, SPLIT>(a.fe, a.v, tl, smem, a.region_a, a.out);
+}
+
+// the same at the 128-row tile: the copies issued, then
+// dft_wgmma.cuh's product (which rounds them to bf16 where asked)
+__global__ void __launch_bounds__(WG_THREADS, 1) frames_wg_kernel(const K2Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const TcTile tl = tc_tile<false>(a.fe, a.v, a.batch);
+  const float* wavs = a.wavs;
+  const int n = a.fe.n;
+  tc_wg_features(
+      a.fe, a.v, tl, smem, a.region_a, a.out,
+      [&] {
+        tc_stage(a.fe, a.v, tl, smem, [wavs, n](int b) {
+          const float* wav = wavs + (size_t)b * n;
+          return [wav](int t, float* dst) { cp_async16(dst, wav + t, true); };
+        });
+      });
 }
 
 // K9: the samples unrounded (the butterfly rounds after the window), copied
@@ -72,7 +92,10 @@ static int frames_launch(const K2Args* args, void* stream) {
 // the tile rows of the host's plan (tc_product)
 static int frames_stage(const K2Args* args, void* stream) {
   switch (tc_product(args->v.rows)) {
-    case 128: return frames_launch<8, 1>(args, stream);
+    case 128:
+      if (args->v.splits != 1) return (int)cudaErrorInvalidValue;
+      return fe_launch<K2Args, frames_wg_kernel, WG_THREADS>(
+          tc_grid(args->fe, args->v, args->batch), args->smem_bytes, *args, stream);
     case 64: return frames_launch<2, 2>(args, stream);
     case 16: return frames_launch<1, 1, true>(args, stream);
   }

@@ -17,7 +17,9 @@ from typing import Dict
 
 # kernel -> (module of this package, its launch counter); "plain_routes"
 # counts the CUDA batches K2's wrapper sent to the plain feature instead,
-# "k5_tables" the op tables K5's plan built (`FusedInfer2D._table`)
+# "k5_tables" the op tables K5's plan built (`FusedInfer2D._table`),
+# "dft_wgmma" the launches of K2, K8, K3 (hops, phases) and K4 whose tile
+# plan took the 128-row product (csrc/dft_wgmma.cuh)
 COUNTERS = {
     "k1": ("augment", "k1_launches"),
     "k6": ("augment", "k6_launches"),
@@ -34,6 +36,7 @@ COUNTERS = {
     "k5": ("infer2d", "launches"),
     "plain_routes": ("mfcc", "plain_routes"),
     "k5_tables": ("infer2d", "k5_tables"),
+    "dft_wgmma": ("mfcc", "wgmma_launches"),
 }
 
 

@@ -113,6 +113,8 @@ def frontend_features(dataset: torch.Tensor, idx: torch.Tensor, scalars: Augment
                    region_a, smem)
     _build.launch(_library(), ENTRIES[variant], "k3_error_string", args, dataset.device)
     globals()[_COUNTERS[variant]] += 1
+    if variant != "radix4":
+        mfcc.count_wgmma(v)
     return out
 
 

@@ -309,7 +309,10 @@ class FusedInfer:
         runs both stacks in turn, holding its SM (registers, shared memory)
         while other tiles wait; for one utterance the second launch is all
         the split adds (measured in PERF.md; both paths give the same
-        bits). `force_two_kernels`, where set, decides instead."""
+        bits). `force_two_kernels`, where set, decides instead. A batch on
+        the 128-row product (csrc/dft_wgmma.cuh, from 172 clips at
+        480/160) runs its conv stacks in their own kernel whatever this
+        says: its tiles never hold a single utterance's whole call."""
         if self.force_two_kernels is not None:
             return self.force_two_kernels
         return batch > 1
@@ -419,4 +422,5 @@ def fused_infer(wavs: torch.Tensor, plan: FusedInfer) -> torch.Tensor:
     args, _part = plan.kernel_args(wavs, feats, out)
     _build.launch(_library(), "k4_infer", "k4_error_string", args, wavs.device)
     launches += 1
+    mfcc.count_wgmma(args.v)
     return out

@@ -49,7 +49,8 @@ what bounds each on the H100. This module:
 
 `launches`, `phases_launches` and `radix4_launches` count launches by the
 stage that ran (K2, K8, K9) and nothing else; `plain_routes` counts CUDA
-batches sent to the plain feature.
+batches sent to the plain feature; `wgmma_launches` the launches of K2, K8,
+K3 and K4 whose tile plan took the 128-row product (`count_wgmma`).
 """
 
 from __future__ import annotations
@@ -72,6 +73,9 @@ launches = 0  # K2, "hops"
 phases_launches = 0  # K8
 radix4_launches = 0  # K9
 plain_routes = 0  # CUDA batches the JAX package too sends to the plain feature
+# launches of K2, K8, K3 (hops, phases) and K4 that ran the 128-row
+# product (csrc/dft_wgmma.cuh), whichever kernel took it
+wgmma_launches = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 SMS = 132  # the H100 SXM's streaming multiprocessors
@@ -93,6 +97,16 @@ R4_PRODUCT_ROWS = (64, 112)
 TC_TILE_ROWS = (128, 64, 16, 8, 4, 2, 1)
 TC_SPLIT_ROWS = 16
 TC_PAD = 4  # floats between K2's and K8's staged chunks
+# The 128-row product (csrc/dft_wgmma.cuh): its tile's rows, a ring slot (one
+# K slice's hi or lo part of the constant for half a unit, [TC_BN / 2,
+# TC_BK]), the mel bands its consumers sum in registers, and the slots its
+# ring may have: at least WG_MIN_STAGES (80 KB: a half slice's two parts in
+# use, eight more in flight), else the tile does not fit and the plan takes
+# 64 rows
+WG_ROWS = 128
+WG_SLOT = TC_BK * TC_BN // 2
+WG_MAX_MEL = 64
+WG_MIN_STAGES, WG_MAX_STAGES = 10, 16
 VARIANTS = ("hops", "phases", "radix4")
 ENTRIES = {"hops": "k2_mfcc", "phases": "k2_mfcc", "radix4": "k9_mfcc"}  # K8 runs K2's stage
 _COUNTERS = {"hops": "launches", "phases": "phases_launches", "radix4": "radix4_launches"}
@@ -214,6 +228,42 @@ def tc_dft_matrix(window: int, hop: int, fft_length: int) -> np.ndarray:
     return out.reshape(window // hop * hs, -1)
 
 
+def tf32_split_rn(x: np.ndarray) -> tuple:
+    """(hi, lo) float32 with x = hi + lo up to lo's rounding: csrc/
+    async_mma.cuh::split_tf32_rn on the host, bit for bit. hi is x rounded
+    to the nearest TF32 value (ties away from zero: the bits plus half a
+    TF32 ulp, the low 13 cleared), lo = x - hi (exact) rounded the same
+    way."""
+    x = np.ascontiguousarray(x, np.float32)
+
+    def rn(v):
+        return ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+    hi = rn(x)
+    return hi, rn(x - hi)
+
+
+def tc_dft_split(dft: np.ndarray) -> np.ndarray:
+    """The 128-row product's constant (csrc/dft_wgmma.cuh): `dft` [Kp, 128
+    units] (`tc_dft_matrix`, rounded as the FrontEnd holds it) split into
+    TF32 hi and lo parts (`tf32_split_rn`), flat, in the order the producer
+    streams it: unit by unit, K slice by K slice, the hi part then the lo
+    part, each [128 columns, 32 K] K-major (wgmma's tf32 operand) in the
+    128-byte swizzle (16-byte chunk c of column n at chunk c ^ (n % 8))."""
+    kp, cols = dft.shape
+    hi, lo = tf32_split_rn(dft)
+    n = np.arange(TC_BN)[:, None]
+    k = np.arange(TC_BK)[None, :]
+    place = n * TC_BK + ((k // 4) ^ (n % 8)) * 4 + k % 4
+    out = np.empty((cols // TC_BN, kp // TC_BK, 2, TC_BN * TC_BK), np.float32)
+    for u in range(cols // TC_BN):
+        for s in range(kp // TC_BK):
+            for part, m in enumerate((hi, lo)):
+                block = m[s * TC_BK:(s + 1) * TC_BK, u * TC_BN:(u + 1) * TC_BN].T
+                out[u, s, part, place] = block
+    return out.ravel()
+
+
 def tc_chunk(hop: int) -> int:
     """Samples a staged chunk of K2's and K8's holds, and K rows it spans:
     the hop in whole K slices."""
@@ -249,9 +299,9 @@ class FeVariant(ctypes.Structure):
     tensor-core DFT stages, K2 and K8 (hops, phases) and K9 (radix4)."""
 
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("w", "win", "runs", "part", "done")]
+        [(f, ctypes.c_void_p) for f in ("w", "win", "runs", "part", "done", "wsplit")]
         + [(f, ctypes.c_int) for f in (
-            "length", "mel_nnz", "units", "rows", "splits", "stride", "gap")]
+            "length", "mel_nnz", "units", "rows", "splits", "stride", "gap", "stages")]
     )
 
 
@@ -403,11 +453,32 @@ def tc_layout(g: FrontEndGeometry) -> tuple:
     return stride, -(-(g.window // g.hop - 1) * stride // 32) * 32
 
 
+def tc_wg_plan(g: FrontEndGeometry, nnz: int) -> Optional[Dict[str, int]]:
+    """The 128-row product's shared memory (csrc/dft_wgmma.cuh), in floats,
+    in order: the tile's "samples" (`tc_layout`), the mel's "runs" and
+    "vals", the "power" tile (the mel sums at the end), up to 1024 bytes to
+    "align" the "ring" of `stages` slots (as many as fit, at most
+    WG_MAX_STAGES; WG_MIN_STAGES where fewer fit, so that the plan exceeds
+    a block), and its full and empty "barriers". None past WG_MAX_MEL mel
+    bands."""
+    if g.num_mel > WG_MAX_MEL:
+        return None
+    stride, gap = tc_layout(g)
+    pieces = 2 + (WG_ROWS - 2) // g.frames
+    plan = {"samples": (WG_ROWS + g.window // g.hop - 1) * stride + (pieces - 1) * gap,
+            "runs": _up4(tc_units(g.fft_length) * g.num_mel * 3), "vals": _up4(nnz),
+            "power": _up4(WG_ROWS * TC_SP), "align": 256}
+    free = SMEM_LIMIT // 4 - sum(plan.values())
+    stages = max(WG_MIN_STAGES, min(WG_MAX_STAGES, free // (WG_SLOT + 4)))
+    return {**plan, "ring": stages * WG_SLOT, "barriers": 4 * stages}
+
+
 def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0,
               rows: int = 0) -> Optional[Dict[str, int]]:
     """The regions of the variant's shared-memory plan, in floats, in their
-    order, each but the last a multiple of 4 floats. hops and phases (one
-    stage, dft_tc.cuh, for a tile of `rows` rows) and radix4 (radix4.cuh):
+    order, each but the last a multiple of 4 floats. hops and phases at 128
+    rows: `tc_wg_plan`; at fewer (one stage, dft_tc.cuh, for a tile of
+    `rows` rows) and radix4 (radix4.cuh):
     the "samples" (hops and phases: the tile's sample span in `tc_layout`,
     its rows touching at most 2 + (rows - 2) // frames utterances),
     radix4's "window" (4L), the mel's "runs" and its `nnz` nonzero weights,
@@ -417,6 +488,8 @@ def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0,
     R4_SA]), the "power" tile of a unit ([rows, TC_SP]) and the "mel" sums
     ([num_mel, rows]); radix4's rows are its product's, and the plan None
     where the frames exceed the largest product."""
+    if variant in ("hops", "phases") and rows == WG_ROWS:
+        return tc_wg_plan(g, nnz)
     if variant in ("hops", "phases"):
         stride, gap = tc_layout(g)
         pieces = 2 + (rows - 2) // g.frames
@@ -436,7 +509,10 @@ def smem_plan(g: FrontEndGeometry, variant: str, nnz: int = 0,
 
 
 def smem_bytes(g: FrontEndGeometry, variant: str, nnz: int = 0, rows: int = 0) -> int:
-    return 4 * sum(smem_plan(g, variant, nnz, rows).values())
+    """Bytes of `smem_plan`; SMEM_LIMIT + 1 (no block holds it) where the
+    variant has no plan for these rows."""
+    plan = smem_plan(g, variant, nnz, rows)
+    return SMEM_LIMIT + 1 if plan is None else 4 * sum(plan.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,7 +521,9 @@ class TcPlan:
     consecutive (utterance, frame) rows of the batch x frames row space,
     each tile's column units split over `splits` blocks (grid tiles x
     splits); a block stages its rows' samples in `span` floats
-    (`tc_layout`: chunks `stride` apart, utterances a further `gap`)."""
+    (`tc_layout`: chunks `stride` apart, utterances a further `gap`). At
+    128 rows the product is csrc/dft_wgmma.cuh's, with `stages` ring slots
+    (0 for the others)."""
 
     rows: int
     tiles: int
@@ -454,6 +532,7 @@ class TcPlan:
     gap: int
     span: int
     smem_bytes: int
+    stages: int = 0
 
     @property
     def grid(self) -> int:
@@ -481,7 +560,8 @@ def tc_tile_plan(batch: int, g: FrontEndGeometry, nnz: int) -> Optional[TcPlan]:
     splits = 1 if tiles >= SMS else next(
         (d for d in range(1, units + 1) if units % d == 0 and tiles * d >= SMS), units)
     plan = smem_plan(g, "hops", nnz, rows)
-    return TcPlan(rows, tiles, splits, *tc_layout(g), plan["samples"], 4 * sum(plan.values()))
+    return TcPlan(rows, tiles, splits, *tc_layout(g), plan["samples"], 4 * sum(plan.values()),
+                  plan["ring"] // WG_SLOT if rows == WG_ROWS else 0)
 
 
 def front_end_supported(cfg: AudioConfig, n: int) -> bool:
@@ -617,9 +697,13 @@ class FrontEnd:
         self.nnz = 0
         self._variant = v = FeVariant()
         self.win = self.runs = None
+        self.dft_split = None
         if variant in ("hops", "phases"):
             runs, vals = tc_mel_constants(*dsp.mel_args(cfg))
             self.dft = dev(tc_dft_matrix(g.window, g.hop, g.fft_length), rounded=True)
+            # the 128-row product's TF32 parts of the rounded constant, split once
+            self.dft_split = dev(tc_dft_split(self.dft.cpu().numpy()))
+            v.wsplit = self.dft_split.data_ptr()
             v.units = tc_units(g.fft_length)
             v.stride, v.gap = tc_layout(g)
             # split tiles' counters (fewer than SMS tiles: the plan's rule),
@@ -666,7 +750,7 @@ class FrontEnd:
         g = self.geom
         plan = tc_tile_plan(batch, g, self.nnz)
         v = FeVariant.from_buffer_copy(self._variant)
-        v.rows, v.splits = plan.rows, plan.splits
+        v.rows, v.splits, v.stages = plan.rows, plan.splits, plan.stages
         part = None
         if plan.splits > 1:
             part = torch.empty(plan.tiles * v.units * g.num_mel * plan.rows,
@@ -803,4 +887,13 @@ def fused_mfcc(wavs: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     args = _K2Args(fe.args(), v, wavs.data_ptr(), out.data_ptr(), wavs.shape[0], region_a, smem)
     _build.launch(_library(), ENTRIES[variant], "k2_error_string", args, wavs.device)
     globals()[_COUNTERS[variant]] += 1
+    count_wgmma(v)
     return out
+
+
+def count_wgmma(v: FeVariant) -> None:
+    """Count a launch of the frames' stage in `wgmma_launches` where its
+    tile plan (`v`, from `FrontEnd.launch_args`) took the 128-row product."""
+    global wgmma_launches
+    if v.rows == WG_ROWS:
+        wgmma_launches += 1

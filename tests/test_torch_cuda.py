@@ -690,3 +690,112 @@ def test_streaming_on_the_card_matches_the_batch_model(cuda_device):
     for i in range(0, 49, 7):
         probs, mem = streaming.streaming_step(params, mem, frames[i:i + 7])
     assert (probs - want).abs().max() <= 1e-4
+
+
+# ---- the 128-row product (csrc/dft_wgmma.cuh) ----
+
+
+def _loud_rows(device, n, batch, seed=958):
+    """Synthetic dataset rows (loud tones: MFCCs up to ~160) augmented by K1."""
+    ds = DeviceDataset(make_synthetic_dataset(num_samples=48, num_classes=12, desired_samples=n,
+                                              seed=0), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx, _, silent = DeviceDataset.sample_indices(ds.arrays, gen, batch)
+    scalars = aug.draw_scalars(gen, silent, get_preset("TCResNet8-1.0").augment, ds.noise_bank,
+                               n, True)
+    return k16.fused_gather_augment(ds.wavs, idx, scalars, ds.noise_bank, n)
+
+
+def _mfcc_float64(wavs, cfg):
+    """MFCC of float32 wavs in float64 from the port's float32 constants:
+    frames @ windowed DFT -> power -> mel -> log -> DCT."""
+    win, hop = cfg.window_size_samples, cfg.window_stride_samples
+    fft = dsp.fft_length_for(win)
+    bins = fft // 2 + 1
+
+    def const(a):
+        return torch.tensor(np.asarray(a, np.float64), device=wavs.device)
+
+    reim = wavs.double().unfold(1, win, hop) @ const(dsp.windowed_rdft_matrix(win, fft))
+    power = reim[..., :bins] ** 2 + reim[..., bins:] ** 2
+    mel = const(dsp.linear_to_mel_weight_matrix(*dsp.mel_args(cfg)))
+    return torch.log(power @ mel + 1e-6) @ const(dsp.dct_ii_matrix(cfg.num_mel_bins,
+                                                                    cfg.num_mfccs))
+
+
+WG_GEOMETRIES = {"30/10": AudioConfig(),
+                 "20/10": AudioConfig(window_size_ms=20.0, window_stride_ms=10.0)}
+
+
+@pytest.mark.parametrize("method", ["mfcc", "log_mel_spectrogram"])
+@pytest.mark.parametrize("geometry", sorted(WG_GEOMETRIES))
+def test_wgmma_product_meets_plain_and_float64(cuda_device, geometry, method):
+    """K2 at batch 1536 takes the 128-row product (counted in
+    `wgmma_launches`): within FEATURE_ATOL of the plain version on seeded
+    wavs, and on loud dataset rows within FEATURE_ATOL of a float64 MFCC
+    (3xTF32 exact to float32, not TF32 alone)."""
+    cfg = dataclasses.replace(WG_GEOMETRIES[geometry], preprocess_method=method)
+    g = k2.front_end_geometry(cfg, 16000)
+    assert k2.tc_tile_plan(1536, g, k2.front_end(cfg, 16000, cuda_device).nnz).rows == 128
+    wavs = _wavs(1536, 16000, cuda_device, seed=21)
+    before = k2.wgmma_launches
+    got = k2.fused_mfcc(wavs, cfg)
+    torch.cuda.synchronize()
+    assert k2.wgmma_launches == before + 1
+    torch.testing.assert_close(got, k2.fused_mfcc_reference(wavs, cfg), atol=FEATURE_ATOL,
+                               rtol=0)
+    if method == "mfcc":
+        loud = _loud_rows(cuda_device, 16000, 1536)
+        got = k2.fused_mfcc(loud, cfg)
+        want = _mfcc_float64(loud, cfg)
+        assert want.abs().max() > 100
+        torch.testing.assert_close(got.double(), want, atol=FEATURE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("batch", [1536, 8192])
+def test_wgmma_k3_equals_k2_of_k1_and_k2_equals_k8(cuda_device, batch):
+    """On the 128-row product K3 equals K2(K1(x)) bit for bit, in the hops
+    and phases variants, and K2 equals K8; each launch is counted once in
+    `wgmma_launches`; K3 within FEATURE_ATOL of its plain version."""
+    cfg = AudioConfig()
+    data, idx, noise, scalars = _augment_case(cuda_device, 16000, batch=batch, seed=23)
+    before = k2.wgmma_launches
+    got = k3.frontend_features(data, idx, scalars, noise, cfg, 16000)
+    wavs = k16.fused_gather_augment(data, idx, scalars, noise, 16000)
+    two = k2.fused_mfcc(wavs, cfg)
+    phases = dataclasses.replace(cfg, dft_variant="phases")
+    k8 = k2.fused_mfcc(wavs, phases)
+    k3_phases = k3.frontend_features(data, idx, scalars, noise, phases, 16000)
+    torch.cuda.synchronize()
+    assert k2.wgmma_launches == before + 4
+    assert torch.equal(got, two) and torch.equal(two, k8) and torch.equal(k3_phases, got)
+    plain = k3.frontend_reference(data, idx, scalars, noise, cfg, 16000)
+    torch.testing.assert_close(got, plain, atol=FEATURE_ATOL, rtol=0)
+
+
+def test_wgmma_one_clip_equals_its_row(cuda_device):
+    """A clip alone (a 16-row tile on the mma.sync product) equals its row
+    of a batch of 8191 (128-row tiles on wgmma) bit for bit, the last,
+    ragged tile's rows too: wgmma's in-product sums are mma.sync's."""
+    cfg = AudioConfig()
+    wavs = _wavs(8191, 16000, cuda_device, seed=24)
+    got = k2.fused_mfcc(wavs, cfg)
+    assert 8191 * 98 % 128 != 0
+    for i in (0, 1, 97, 4095, 8189, 8190):
+        assert torch.equal(k2.fused_mfcc(wavs[i:i + 1], cfg), got[i:i + 1])
+
+
+def test_wgmma_k4_counts_its_128_row_launches(cuda_device):
+    """K4's front end takes the 128-row product at batch 1024 and not at 64
+    (`wgmma_launches`), and its logits there equal each utterance's alone."""
+    cfg = get_preset("TCResNet8-1.0")
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    plan = k4.build_fused_infer(cfg.model, cfg.audio, v["params"], v["batch_stats"],
+                                device=cuda_device)
+    for batch, counted in ((64, 0), (1024, 1)):
+        wavs = _wavs(batch, 16000, cuda_device, seed=25)
+        before = k2.wgmma_launches
+        got = k4.fused_infer(wavs, plan)
+        torch.cuda.synchronize()
+        assert k2.wgmma_launches == before + counted
+        assert torch.equal(k4.fused_infer(wavs[-1:].contiguous(), plan), got[-1:])

@@ -185,7 +185,11 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
     """The plans of the three variants at 1 s: K2's and K8's (one stage)
     for a tile of the batch's frames: its sample span, the mel's runs and
     nonzero weights, the ring of three [32, 136] slices of the DFT, a
-    [rows, 65] power tile and [rows, num_mel] mel sums; K9 keeps the samples (64,000 B), the window and the
+    [rows, 65] power tile and [rows, num_mel] mel sums; at 128 rows the
+    wgmma product's (`tc_wg_plan`): the span, runs, weights and power tile
+    (the mel sums in registers), 1 KB to align the ring, as many 8 KB
+    slots of the split constant as fit (10 to 16) and two 8-byte barriers
+    a slot, or ten where fewer fit, past a block; K9 keeps the samples (64,000 B), the window and the
     mel's runs and nonzero weights, and no power spectrum: the ring, two A
     slices of its product's rows, a [frames, 65] power tile and the
     [frames, num_mel] mel sums; each within a Hopper block."""
@@ -199,10 +203,18 @@ def test_kernel_shared_memory_plans(window_ms, hop_ms, rows):
         pieces = 2 + (tile - 2) // g.frames  # utterances a tile's rows can touch
         phases = mfcc.smem_plan(g, "phases", vals.size, tile)
         assert phases == mfcc.smem_plan(g, "hops", vals.size, tile)
-        assert phases == {"samples": (tile + wh - 1) * stride + (pieces - 1) * gap,
-                          "runs": runs.size + (-runs.size % 4),
-                          "vals": vals.size + (-vals.size % 4), "ring": 3 * 32 * 136,
-                          "power": tile * 65 + (-tile * 65 % 4), "mel": tile * g.num_mel}
+        common = {"samples": (tile + wh - 1) * stride + (pieces - 1) * gap,
+                  "runs": runs.size + (-runs.size % 4), "vals": vals.size + (-vals.size % 4)}
+        if tile == 128:
+            stages = phases["ring"] // (32 * 64)
+            assert phases == {**common, "power": 128 * 65, "align": 256,
+                              "ring": stages * 32 * 64, "barriers": 4 * stages}
+            room = mfcc.SMEM_LIMIT // 4 - sum(common.values()) - 128 * 65 - 256
+            assert stages == max(10, min(16, room // (32 * 64 + 4)))
+            assert stages == (12 if g.hop == 160 else 10)
+        else:
+            assert phases == {**common, "ring": 3 * 32 * 136,
+                              "power": tile * 65 + (-tile * 65 % 4), "mel": tile * g.num_mel}
         assert all(x % 4 == 0 for x in phases.values())
         # the 128-row tile does not fit at 640/320: its span is 171 KB
         fits = mfcc.smem_bytes(g, "phases", vals.size, tile) <= mfcc.SMEM_LIMIT

@@ -26,6 +26,7 @@ from tcresnet_tpu_torch.tools.frontend_times import GEOMETRIES, geometry_cfg
 from tests.test_torch_config import to_jax_config
 from tests.test_torch_dft_variants import _dataset_rows, _tf32, mfcc_float64
 from tests.test_torch_k8_tc import emulate_stage, stage_replay
+from tests.test_torch_tconv_tc import _split
 
 torch.set_num_threads(1)
 
@@ -280,3 +281,125 @@ def test_serves_every_geometry_the_fp32_design_served():
             nnz = mfcc.tc_mel_constants(*dsp.mel_args(cfg))[1].size
             small += mfcc.tc_tile_plan(1, mfcc.front_end_geometry(cfg, n), nnz).rows < 16
     assert old > 500 and new > old and small > 0
+
+
+# ---- the 128-row product (csrc/dft_wgmma.cuh) ----
+
+WG_BATCHES = [1, 8, 171, 172, 1536, 8192]
+
+
+@pytest.mark.parametrize("batch", WG_BATCHES)
+@pytest.mark.parametrize("variant", ["hops", "phases"])
+@pytest.mark.parametrize("geometry", ["480/160", "640/320", "400/200", "320/160"])
+def test_wgmma_product_takes_the_128_row_tiles(geometry, variant, batch):
+    """The plan's rule picks the wgmma product: 128-row tiles wherever its
+    plan fits a block (a hop of 160: 480/160 and 320/160, 12 and 13 ring
+    slots; 640/320's and 400/200's sample spans leave room for fewer than
+    ten)
+    and the batch's frames fill every SM at least once (480/160 from 172
+    clips: 172 x 98 frames are 132 tiles); the other products keep their
+    tiles and no ring. hops and phases share the plan and the FrontEnd,
+    whose launch hands the kernel the split constant and the slots."""
+    cfg = dataclasses.replace(geometry_cfg(geometry, "hops"), dft_variant=variant)
+    if variant == "phases" and mfcc.resolve_dft_variant(cfg, 16000) != "phases":
+        pytest.skip("no phase plan at this geometry")
+    g = mfcc.front_end_geometry(cfg, 16000)
+    nnz = mfcc.tc_mel_constants(*dsp.mel_args(cfg))[1].size
+    plan = mfcc.tc_tile_plan(batch, g, nnz)
+    fits = g.hop == 160
+    assert (mfcc.smem_bytes(g, "hops", nnz, 128) <= mfcc.SMEM_LIMIT) == fits
+    wgmma = fits and -(-batch * g.frames // 128) >= mfcc.SMS
+    assert (plan.rows == 128) == wgmma and plan.smem_bytes <= mfcc.SMEM_LIMIT
+    assert plan.stages == ((13 if geometry == "320/160" else 12) if wgmma else 0)
+    if wgmma:
+        assert plan.splits == 1 and plan.smem_bytes == 4 * sum(mfcc.tc_wg_plan(g, nnz).values())
+    if geometry == "480/160":
+        assert (plan.rows == 128) == (batch >= 172)
+    fe = mfcc.front_end(cfg, 16000, "cpu", mfcc.kernel_variant(cfg, 16000))
+    assert fe is mfcc.front_end(cfg, 16000, "cpu", "hops")
+    v, span, smem, _ = fe.launch_args(batch)
+    assert (v.rows, v.stages, span, smem) == (plan.rows, plan.stages, plan.span, plan.smem_bytes)
+    assert v.wsplit == fe.dft_split.data_ptr() and v.w == fe.dft.data_ptr()
+
+
+@pytest.mark.parametrize("batch", [172, 173, 1536, 8191])
+@pytest.mark.parametrize("geometry", ["480/160", "320/160"])
+def test_wgmma_ragged_last_tile(geometry, batch):
+    """The last tile of a batch whose frames are no multiple of 128 holds
+    the remainder: its consumer threads' fragment rows (warp 16 + g and + 8
+    over warps 0-7) cover the tile's 128 rows once, rows past the tile read
+    its last row's samples (the span is staged there) and store nothing;
+    the mel's threads (bands warp + 8 j, rows lane + 32 i) cover each (band,
+    row) of the tile once; every tile's rows end within the span and the
+    grid covers the batch's rows once."""
+    _, g, nnz = _clip(geometry, 16000)
+    plan = mfcc.tc_tile_plan(batch, g, nnz)
+    assert plan.rows == 128
+    total = batch * g.frames
+    last = total - (plan.tiles - 1) * 128
+    assert 0 < last <= 128 and (last < 128) == (total % 128 != 0)
+    warp, lane = np.divmod(np.arange(256), 32)
+    frag = (warp * 16 + lane // 4)[:, None] + np.array([0, 8])
+    assert np.array_equal(np.bincount(frag.ravel()), np.full(128, 4))  # 4 lanes (t) a row
+    span, r0, nrows, b0 = stage_replay(plan, g, batch, plan.tiles - 1)
+    assert nrows == last and r0 == total - last
+    lr = np.minimum(frag, nrows - 1)
+    b = (r0 + lr) // g.frames
+    base = lr * plan.stride + (b - b0) * plan.gap
+    k = np.arange(mfcc.tc_kp(g.window, g.hop))
+    assert (span[base[..., None] + k + 4 * (k // mfcc.tc_chunk(g.hop))] >= 0).all()
+    stored = frag[frag < nrows]
+    assert np.array_equal(np.unique(stored), np.arange(nrows))
+    band, row = np.meshgrid(np.arange(mfcc.WG_MAX_MEL), np.arange(128), indexing="ij")
+    owner = (band % 8) * 32 + row % 32  # the consumer thread: warp band % 8, lane row % 32
+    slot = (band // 8) * 4 + row // 32  # its register mel[band // 8][row // 32]
+    assert len(set(zip(owner.ravel(), slot.ravel()))) == band.size
+    assert g.num_mel <= mfcc.WG_MAX_MEL and g.num_mel * nrows <= 128 * mfcc.TC_SP
+
+
+@pytest.mark.parametrize("dsp_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", ["480/160", "640/320", "400/200"])
+def test_wgmma_constant_is_split_once_on_the_host(geometry, dsp_dtype):
+    """The split constant (`tc_dft_split`): hi and lo are TF32 values, the
+    device's split_tf32_rn bit for bit (the CPU emulation's `_split`), hi +
+    lo within 2^-21 of each float32 element of the constant the FrontEnd
+    holds (zero lo with the bf16 DFT), each ring slot the [128 columns, 32
+    K] transpose of one K slice of one unit, hi then lo, in the 128-byte
+    swizzle (16-byte chunk c of column n at c ^ (n % 8))."""
+    cfg = dataclasses.replace(_clip(geometry, 16000)[0], dsp_matmul_dtype=dsp_dtype)
+    fe = mfcc.FrontEnd(cfg, 16000, "cpu", "hops")
+    w = fe.dft.numpy()
+    hi, lo = mfcc.tf32_split_rn(w)
+    assert not (hi.view(np.uint32) & 0x1fff).any() and not (lo.view(np.uint32) & 0x1fff).any()
+    ehi, elo = _split(torch.tensor(w))
+    np.testing.assert_array_equal(hi, ehi.float().numpy())
+    np.testing.assert_array_equal(lo, elo.float().numpy())
+    err = np.abs(hi.astype(np.float64) + lo - w)
+    assert (err <= 2.0 ** -21 * np.abs(w)).all()
+    if dsp_dtype == "bfloat16":
+        assert not lo.any() and np.array_equal(hi, w)
+    kp, cols = w.shape
+    split = fe.dft_split.numpy().reshape(cols // 128, kp // 32, 2, 128, 8, 4)
+    n = np.arange(128)[:, None]
+    chunk = np.arange(8)[None, :] ^ (n % 8)  # where chunk c of column n was put
+    for u, s in ((0, 0), (cols // 128 - 1, kp // 32 - 1), (1, 3)):
+        for part, m in enumerate((hi, lo)):
+            block = m[32 * s:32 * s + 32, 128 * u:128 * u + 128].T.reshape(128, 8, 4)
+            np.testing.assert_array_equal(split[u, s, part][n, chunk], block)
+
+
+def test_wgmma_launches_have_a_counter_of_their_own():
+    """`mfcc.wgmma_launches` is registered in COUNTERS as "dft_wgmma" and
+    counts a launch of the frames' stage only where its plan took the
+    128-row product."""
+    from tcresnet_tpu_torch.ops import kernels
+
+    assert kernels.COUNTERS["dft_wgmma"] == ("mfcc", "wgmma_launches")
+    before = kernels.launch_counts()
+    v = mfcc.FeVariant()
+    for rows in (16, 64, 128, 128):
+        v.rows = rows
+        mfcc.count_wgmma(v)
+    assert kernels.launches_since(before) == {"dft_wgmma": 2}
+    kernels.reset_launch_counts()
+    assert mfcc.wgmma_launches == 0
