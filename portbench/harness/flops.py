@@ -116,8 +116,8 @@ def _model_step(cfg: dict, batch: int, with_frontend: bool) -> int:
     for k in names:
         weights[k].requires_grad_(True)
     labels = torch.zeros(batch, dtype=torch.long, device=META)
-    keep = (torch.ones((batch, arch["channels"][-1]), dtype=torch.bool, device=META)
-            if arch["family"] == "TCResNet" else None)
+    shape = models.dropout_shape(arch, batch)
+    keep = None if shape is None else torch.ones(shape, dtype=torch.bool, device=META)
 
     def step(x):
         feats = frontend.mfcc(x, g) if with_frontend else x

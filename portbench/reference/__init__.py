@@ -10,10 +10,13 @@ hands it the dataset, the weights and the seed it made itself.
 - `draws`: the training step's draws from (seed, step): rows, augmentation
   scalars, dropout masks;
 - `augment`: gather, int16 decode, time shift, background mix, clip;
-- `models`: TC-ResNet (Choi et al. 2019) and Res (Tang & Lin 2018) as
-  functions of a {name: tensor} weight mapping;
-- `train`: the training step (smoothed cross entropy + L2, unit-LR momentum
-  scaled by the piecewise learning rate);
+- `models`: the model of a configuration's `architecture`, found by its
+  `family` in `families/<family, lower-case>.py` (TC-ResNet, Choi et al.
+  2019; Res, Tang & Lin 2018), as functions of a {name: tensor} weight
+  mapping, and the layers the families share;
+- `train`: the training step (smoothed cross entropy + L2), its update found
+  by the configuration's `optimizer` in `optimizers/<optimizer>.py`
+  (momentum, Adam) and scaled by the piecewise learning rate;
 - `serve`: wav -> softmax in inference mode.
 
 Every function takes a `dtype`, the precision its matmuls and convolutions
@@ -22,8 +25,14 @@ control).
 """
 
 import contextlib
+import importlib
+import sys
+from pathlib import Path
+from types import ModuleType
 
 import torch
+
+HERE = Path(__file__).resolve().parent
 
 
 @contextlib.contextmanager
@@ -35,3 +44,15 @@ def strict():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def find(folder: str, name: str) -> ModuleType:
+    """The module `<folder>/<name, lower-case>.py` of this package (a family
+    or an optimizer), found by name with no list to edit. A name without
+    such a file raises KeyError naming the file looked for."""
+    stem = str(name).lower()
+    module = f"{__name__}.{folder}.{stem}"
+    path = HERE / folder / f"{stem}.py"
+    if module not in sys.modules and not (stem.isidentifier() and path.is_file()):
+        raise KeyError(f"no reference {folder[:-1]} {name!r}: {path} does not exist")
+    return importlib.import_module(module)

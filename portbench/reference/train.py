@@ -1,29 +1,37 @@
-"""The training step of the TC-ResNet recipe (reference helper/trainer.py and
+"""The training step of the recipes (helper/trainer.py and
 factory/audio_nets.py of the TC-ResNet authors' code):
 
     loss = mean cross entropy (label smoothing s) + wd * sum(|v|^2 / 2)
-           over every trained weight outside batch norm
-    t <- g + momentum * t  (t starts at 0);  v <- v - lr(step) * t
+           over every convolution and fc weight
+    v <- the optimizer's update of v at lr(step)
 
 with lr(step) piecewise constant: lr_list[i] up to and including
-boundaries[i]. Batch norm normalises with the batch's moments in training.
+boundaries[i], and the update that of `optim["optimizer"]`, found by name in
+`optimizers/<optimizer>.py` (optimizers/__init__.py gives what it
+provides). Batch norm normalises with the batch's moments in training.
 """
 
 from __future__ import annotations
 
 import bisect
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 
-from portbench.reference import augment, draws, frontend, models
+from portbench.reference import augment, draws, find, frontend, models
 
 TRAINED = ("conv", "fc", "scale", "shift")
 
 
 def trained_names(arch: dict, coeffs: int) -> List[str]:
     return [k for k, (_, kind) in models.leaves(arch, coeffs).items() if kind in TRAINED]
+
+
+def optimizer(optim: dict) -> ModuleType:
+    """The module of `optim["optimizer"]`."""
+    return find("optimizers", optim["optimizer"])
 
 
 def learning_rate(optim: dict, step: int) -> float:
@@ -55,8 +63,10 @@ def run_steps(cfg: dict, weights: Dict[str, torch.Tensor], data, seed: int, step
     names = [k for k in kinds if kinds[k] in TRAINED]
     params = {k: weights[k].detach().clone().float() for k in names}
     stats = {k: weights[k] for k in kinds if kinds[k] not in TRAINED}
-    trace = {k: torch.zeros_like(v) for k, v in params.items()}
     optim = cfg["optim"]
+    opt = optimizer(optim)
+    state = opt.init(params)
+    mask = models.dropout_shape(arch, batch)
     losses, first_grad = [], None
     wavs, noise = data["wavs"], data["noise"]
     for step in range(steps):
@@ -65,21 +75,20 @@ def run_steps(cfg: dict, weights: Dict[str, torch.Tensor], data, seed: int, step
         audio = augment.augment_rows(wavs, data["silent"], noise, d.rows, d.shifts, d.clips,
                                      d.offs, d.vols, g.samples)
         feats = frontend.mfcc(audio, g, dtype)
-        keep = draws.dropout_keep(d.generator, (batch, arch["channels"][-1]),
-                                  arch["dropout_keep_prob"], wavs.device)
+        keep = (None if mask is None else
+                draws.dropout_keep(d.generator, mask, arch["dropout_keep_prob"], wavs.device))
         labels = data["labels"][d.rows.long()]
         if rows_kept:
-            feats, labels, keep = feats[:rows_kept], labels[:rows_kept], keep[:rows_kept]
+            feats, labels = feats[:rows_kept], labels[:rows_kept]
+            keep = None if keep is None else keep[:rows_kept]
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
         loss = loss_fn({**leaves, **stats}, feats, labels, keep, cfg, arch, kinds, dtype)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
         losses.append(float(loss.detach()))
         lr = lr_scale * learning_rate(optim, step)
         with torch.no_grad():
-            for k, gk in zip(names, grads):
-                trace[k] = gk + optim["momentum"] * trace[k]
-                params[k] = params[k].detach() - lr * trace[k]
+            params, state = opt.step(params, grads, state, lr, optim)
         if first_grad is None:
-            first_grad = {k: gk.detach() for k, gk in zip(names, grads)}
+            first_grad = {k: gk.detach() for k, gk in grads.items()}
     change = {k: params[k].detach() - weights[k].float() for k in names}
     return {"losses": losses, "first_grad": first_grad, "change": change}

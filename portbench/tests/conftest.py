@@ -38,7 +38,7 @@ def shrink(cell):
     """`cell` (spec.Cell) cut to a CPU test's size, in place."""
     c = cell.config
     c["dataset"] = {**c["dataset"], "clips": 64}
-    if c["architecture"]["family"] == "TCResNet":
+    if cell.traffic["kind"] == "train":
         c["train"] = {**c["train"], "batch_size": 8}
         cell.traffic.update(steps_per_call=2, warmup_calls=1, trace_calls=2, profile_calls=1,
                             probe_iters=2)

@@ -189,11 +189,16 @@ def _imports(path):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    files = sorted((spec.BENCH_DIR / "reference").glob("*.py"))
-    assert files
+    root = spec.BENCH_DIR / "reference"
+    files = sorted(root.rglob("*.py"))
+    found = {f.relative_to(root).as_posix() for f in files}
+    assert {"models.py", "train.py", "families/tcresnet.py", "families/res.py",
+            "optimizers/mom.py", "optimizers/adam.py"} <= found, found
     for f in files:
         tops = {m.split(".")[0] for m in _imports(f)}
         assert not tops & {"tcresnet_tpu_torch", "tcresnet_tpu", "jax", "jaxlib", "flax"}, f
+        # nor by a name handed to importlib: the program's name appears nowhere
+        assert "tcresnet_tpu" not in f.read_text(), f
 
 
 def test_the_harness_reads_nothing_of_the_jax_era_files():

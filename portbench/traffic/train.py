@@ -9,9 +9,10 @@ the input path and of the model timed alone with CUDA events).
 
 Set-up builds one Trainer on the configuration's synthetic split, loads the
 weights the benchmark made, runs the checked steps through `train_steps`,
-records the loss of each, the momentum trace after the first (the first
-gradient as the optimizer got it) and the weights' change after the last,
-then warms up. The window continues from there with the same Trainer.
+records the loss of each, the first gradient as the optimizer got it (read
+back from the optimizer's state after the first step by the reference
+optimizer's `first_grad`) and the weights' change after the last, then
+warms up. The window continues from there with the same Trainer.
 """
 
 from __future__ import annotations
@@ -74,11 +75,13 @@ class Driver:
         self.step = 0
         n_check = self.t["check_steps"]
         self.losses = []
+        opt = ref_train.optimizer(cfg["optim"])
         for _ in range(n_check):
             self.losses.append(float(self._call(1)["total_loss"]))
             if self.step == 1:
                 state = self.trainer.state.opt_state
-                self.first_grad = {k: state[k].detach().clone() for k in self._trained()}
+                self.first_grad = {k: opt.first_grad(state, k).detach().clone()
+                                   for k in self._trained()}
         params = self.trainer.state.params
         self.change = {k: (params[k].detach() - self.weights[k]).clone() for k in self._trained()}
         r.mark("checked_steps")
