@@ -8,7 +8,7 @@ bias; every BN a shift and no scale (center=True, scale=False), decay
 0.96. The depthwise weight is [C, 1, kh, kw] with groups=C (the Flax
 kernel [kh, kw, 1, C] transposed). Submodule names follow the Flax
 scopes (conv_1, conv_1_bn, conv_ds_1_dw, conv_ds_1_dw_bn, conv_ds_1_pw,
-..., fc1).
+..., fc1). Each depthwise conv is traced as the span `model.depthwise`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tcresnet_tpu_torch.models import layers
+from tcresnet_tpu_torch.utils.profiling import backward_span, span
 
 
 class Block(NamedTuple):
@@ -91,6 +92,14 @@ class DSCNN(nn.Module):
     def _conv_bn_relu(self, x, name):
         return F.relu(getattr(self, f"{name}_bn")(getattr(self, name)(x)))
 
+    def _depthwise_bn_relu(self, x, name):
+        """`_conv_bn_relu` with the conv inside the spans `model.depthwise`
+        (forward, and backward on its grad_fn)."""
+        with span("model.depthwise", layer=name, phase="forward"):
+            y = getattr(self, name)(x)
+        y = backward_span(y, "model.depthwise", layer=name, phase="backward")
+        return F.relu(getattr(self, f"{name}_bn")(y))
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T, F, 1] features -> [B, num_classes] f32 logits."""
@@ -99,7 +108,7 @@ class DSCNN(nn.Module):
             if block.type == "conv":
                 x = self._conv_bn_relu(x, block.name)
             else:
-                x = self._conv_bn_relu(x, f"{block.name}_dw")
+                x = self._depthwise_bn_relu(x, f"{block.name}_dw")
                 x = self._conv_bn_relu(x, f"{block.name}_pw")
         x = x.mean(dim=(2, 3))
         return F.linear(x, self.fc1.weight.to(self.dtype),

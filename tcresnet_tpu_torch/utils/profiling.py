@@ -3,9 +3,12 @@
 The tracer. `span(name, **attrs)` names a region of the program: the
 training step's phases (`train.call` > `train.step` > `train.draw`,
 `train.input`, `train.forward`, `train.backward` (with `train.all_reduce`
-under a mesh), `train.optimizer`), a served request (`serve.request`) and
-K5's host plan (`k5.plan`). With the tracer off a span is one shared no-op
-context: one flag test, no clock read, no `record_function`, no CUDA event.
+under a mesh), `train.optimizer`), a served request (`serve.request`),
+K5's host plan (`k5.plan`) and a DS-CNN's depthwise convolutions
+(`model.depthwise`, `layer` and `phase` forward or backward; the backward
+one through `backward_span`, on autograd's thread). With the tracer off a
+span is one shared no-op context: one flag test, no clock read, no
+`record_function`, no CUDA event.
 Inside `tracing(device_events)` each span is kept as a record: its name, an
 id, the id of the span that encloses it, its attributes and its host start
 and end on the spans' clock, and, with `device_events` on a CUDA process,
@@ -139,6 +142,29 @@ def span(name: str, **attrs):
     if not _TRACER.on:
         return _OFF
     return _Span(name, attrs)
+
+
+def backward_span(t: torch.Tensor, name: str, **attrs) -> torch.Tensor:
+    """`t`, with a span `name` around the backward of the operation that
+    made it: opened by a pre-hook and closed by a hook on `t.grad_fn`. The
+    span records on the thread that runs that node, on a card autograd's
+    device thread, where no span of the caller is open: it has no parent,
+    and a reader places it in a step by its host times. While the tracer
+    is off, or where `t` has no `grad_fn`, nothing is registered."""
+    if not _TRACER.on or t.grad_fn is None:
+        return t
+    opened = []
+
+    def pre(grad_outputs):
+        opened.append(span(name, **attrs).__enter__())
+
+    def post(grad_inputs, grad_outputs):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    t.grad_fn.register_prehook(pre)
+    t.grad_fn.register_hook(post)
+    return t
 
 
 @contextmanager
