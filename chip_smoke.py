@@ -222,6 +222,18 @@ print their lines:
               the step K1 + K2, and K3 from 2048); Res15's device-bound
               step at batch 1024 in bf16: host clock, CUDA events and the
               device's time by kind (torch.profiler)
+ 30. bn       batch norm in training mode + ReLU (csrc/batchnorm.cu): the
+              ptxas line; at DS-CNN L's layers at batch 4096 ([276, 13, 5]
+              and [276, 25, 10] channels-last, as cuDNN returns them, and
+              [276, 13, 5] contiguous; shift, relu) and TCResNet8-1.0's
+              four layer shapes at batch 8192 ([16, 98] to [48, 13]
+              contiguous; scale and shift, relu on and off) y, dx,
+              dscale, dshift and both running statistics against the
+              plain version within 1e-4 of their max (the backward from
+              the kernels' statistics), 6 launches a forward and
+              backward; the fused forward + backward timed against its
+              5-pass byte bound, the plain version and F.batch_norm
+              [+ F.relu] under autograd (CUDA events)
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its max error against its plain version, its time, the
@@ -288,7 +300,7 @@ TCONV_DW_REL = 1e-5
 # 62,400 (a silence row) moved the step-5 loss by 1.9e-3 relative; on the
 # H100 the legs agreed within 2e-7 (PERF.md)
 FIRST_STEP_RTOL, TRAIN_LEG_RTOL = 1e-5, 1e-2
-SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d")
+SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d", "batchnorm")
 # the H100 SXM's published peaks: float32
 # outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -654,6 +666,7 @@ def main() -> int:
     deploy = deploy_phase(dev, card)
     dp_phase(dev, card)
     tools_phase(dev, card, ds)
+    bn_kernels = batchnorm_phase(dev, card)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -675,7 +688,7 @@ def main() -> int:
         "library_ms_b1024": k4_lib[1024]["library_ms"],
         "ms_queued_b1024": k4_lib[1024]["ms"],
         "crossover_batch": crossover(k4_t),
-    }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels}
+    }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels + bn_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2906,8 +2919,11 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
 
     from tcresnet_tpu_torch.config import get_preset, plain_config
     from tcresnet_tpu_torch.tools import benchmark, profile_scaling
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tcresnet_tpu_torch.ops.kernels import launches_since
     from tcresnet_tpu_torch.train.trainer import Trainer
-    from tcresnet_tpu_torch.utils.profiling import compiled_flops
+    from tcresnet_tpu_torch.utils.profiling import _ConvCount
 
     check(ds.device == dev, f"29: the dataset is on {ds.device}, not {dev}")
     t_phase = time.perf_counter()
@@ -2931,12 +2947,22 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
                   and got.get("k7_fwd", 0) >= 10 * steps,
                   f"29.1 {name}: K7 launched {got}, {steps} steps")
         # the count the row took on the meta device is that of the step run
-        # here: the Trainer's step on the plain path, on the card at this batch
+        # here: the Trainer's step on the plain path, on the card at this
+        # batch, counted as compiled_flops counts but for batch norm's
+        # kernels, which a step on a card launches on the plain path too
+        # (elementwise work and sums, which the count takes as nothing)
         cfg = get_preset(name)
         plain = plain_config(cfg).replace(train=dataclasses.replace(
             cfg.train, batch_size=batch, max_step=10**9, compute_dtype=dtype))
         with tempfile.TemporaryDirectory() as tmp:
-            counted = compiled_flops(Trainer(plain, ds, workdir=tmp).train_steps, 1)
+            trainer = Trainer(plain, ds, workdir=tmp)
+            before = launch_counts()
+            with FlopCounterMode(display=False, custom_mapping=_ConvCount().mapping()) as fc:
+                trainer.train_steps(1)
+            launched = launches_since(before)
+        check(set(launched) == {"bn"},
+              f"29.1 {name}: the plain step launched {launched}, not batch norm's kernels alone")
+        counted = int(fc.get_total_flops())
         check(row["flops_per_step"] == counted,
               f"29.1 {name}: step_flops {row['flops_per_step']:,} on the meta device, the "
               f"Trainer's plain step on the card {counted:,}")
@@ -2972,6 +2998,8 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
             {"k3": step_iters} if r["batch"] >= 2048 else {"k1": step_iters, "k2": step_iters})
         if "k2" in want or "k3" in want:  # 1536 and 2048 clips take the 128-row product
             want = {**want, "dft_wgmma": want.get("k2", 0) + want.get("k3", 0)}
+        if r["stage"] == "step":  # TCResNet8-1.0's ten batch norms, six kernels each a step
+            want = {**want, "bn": 6 * 10 * step_iters}
         check(r["us_per_iter"] > 0 and r["host_us_per_iter"] > 0 and r["enqueue_us_per_iter"] > 0,
               f"29.2: {r['stage']} at {r['batch']}: a time is not positive: {r}")
         check(r["launches"] == want,
@@ -3006,6 +3034,117 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
                                        for ms, n, name in top[:5]) + f" | {card}")
     print(f"[tools] phase 29 in {time.perf_counter() - t_phase:.1f} s | {card}")
 
+
+
+# (shape, channels-last, scale, relu) of the batch norms the benchmarked
+# steps run. DS-CNN L's at batch 4096, shift only, each before a ReLU,
+# channels-last as cuDNN's 2D convs return them on the card: its ten
+# [276, 13, 5] maps and its first conv's [276, 25, 10] one; and [276, 13, 5]
+# contiguous. TCResNet8-1.0's at batch 8192, contiguous [B, C, T] maps with
+# scale and shift: its ten layers are four shapes, each before a ReLU
+# (conv0, a block's conv0 and down) and without one (a block's conv1).
+# [8192, 16, 98] plans 196 sample chunks of 42, the last one of 2 samples.
+BN_CASES = (((4096, 276, 13, 5), True, False, True), ((4096, 276, 25, 10), True, False, True),
+            ((4096, 276, 13, 5), False, False, True)) + tuple(
+    ((8192, c, t), False, True, relu)
+    for c, t in ((16, 98), (24, 49), (32, 25), (48, 13)) for relu in (True, False))
+BN_REL = 1e-4
+
+
+def batchnorm_phase(dev: torch.device, card: str) -> list:
+    """Phase 30: the batch-norm kernels against their plain version and
+    timed at DS-CNN L's and TCResNet8-1.0's layers; (kernel summary
+    entries)."""
+    import torch.nn.functional as F
+
+    from tcresnet_tpu_torch.ops.kernels import batchnorm as kb
+    from tcresnet_tpu_torch.ops.kernels import launch_counts, launches_since
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    print(f"[build] batchnorm.cu for sm_90a | {ptxas_line('batchnorm')}")
+    entries = []
+    for shape, last, scaled, relu in BN_CASES:
+        gen = torch.Generator(device=dev).manual_seed(30)
+        x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        x[:, 7] = 0.0  # a dead channel: the variance's tie
+        dy = torch.randn(shape, device=dev, generator=gen)
+        if last:
+            x = x.contiguous(memory_format=torch.channels_last)
+            dy = dy.contiguous(memory_format=torch.channels_last)
+        c = shape[1]
+        weight = torch.randn(c, device=dev, generator=gen) if scaled else None
+        bias = torch.randn(c, device=dev, generator=gen)
+
+        def fused(run):
+            y, st = kb.kernel_forward(x, weight, bias, *run, 0.96, relu, torch.float32, None)
+            return y, st, kb.kernel_backward(dy, x, weight, bias, st, relu, None)
+
+        def plain(run):
+            y, st = kb.plain_forward(x, weight, bias, *run, 0.96, relu, torch.float32, None)
+            return y, st, kb.plain_backward(dy, x, weight, bias, st, relu, None)
+
+        scale = weight if scaled else torch.ones(c, device=dev)  # cuDNN's backward wants one
+
+        def library():  # the timing helper runs under no_grad
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                ww = scale.detach().requires_grad_(scaled)
+                bb = bias.detach().requires_grad_(True)
+                y = F.batch_norm(xx, None, None, ww, bb, True, 0.04, kb.EPS)
+                y = F.relu(y) if relu else y
+                return torch.autograd.grad(y, (xx, bb, ww) if scaled else (xx, bb), dy)
+
+        def fresh():
+            return torch.zeros(c, device=dev), torch.ones(c, device=dev)
+
+        run_k, run_p = fresh(), fresh()
+        before = launch_counts()
+        y_k, st_k, (dx_k, dw_k, db_k) = fused(run_k)
+        torch.cuda.synchronize()
+        launched = launches_since(before)
+        check(launched == {"bn": 6}, f"batch norm {shape}: launches {launched}, not 6 bn")
+        y_p, _, _ = plain(run_p)
+        # the backward from the kernels' statistics
+        dx_p, dw_p, db_p = kb.plain_backward(dy, x, weight, bias, st_k, relu, None)
+        errs = {"y": float((y_k - y_p).abs().max()) / max(1.0, float(y_p.abs().max())),
+                "dx": rel(dx_k, dx_p), "dshift": rel(db_k, db_p),
+                "running_mean": rel(run_k[0], run_p[0]), "running_var": rel(run_k[1], run_p[1])}
+        if scaled:
+            errs["dscale"] = rel(dw_k, dw_p)
+        # float64 sums against torch's float32 ones over 266,240 to
+        # 1,024,000 elements a channel: the last bits of mean and rstd, and
+        # of dscale and dshift, sums of terms of both signs that cancel to
+        # ~1% of their size
+        check(all(e <= BN_REL for e in errs.values()) and float(st_k[2 * c + 7]) == 0.5,
+              f"batch norm {shape} scale {scaled} relu {relu}: "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f" of their max (limit {BN_REL}), tie {float(st_k[2 * c + 7])}")
+        del y_k, dx_k, y_p, dx_p
+        ms_k = device_ms(lambda: fused(fresh()))
+        ms_p = device_ms(lambda: plain(fresh()))
+        ms_l = device_ms(library)
+        nbytes = 5 * 4 * x.numel()
+        bnd = bound(0, nbytes)
+        layout = "channels-last" if last else "contiguous"
+        what = ("scale, shift" if scaled else "shift") + (", relu" if relu else "")
+        print(f"[bn] {list(shape)} {layout} f32, {what}: fused forward + backward "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, F.batch_norm{' + F.relu' if relu else ''} "
+              f"under autograd {ms_l:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+              f"x, y, dy, x, dx once: {bnd['bound_ms'] / ms_k:.1%} of it, "
+              f"{nbytes / ms_k / 1e6:.0f} GB/s); {kb._plan(x)}; max |err| of max: "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f" | {card}")
+        entries.append({"name": f"bn_train_{'x'.join(map(str, shape[1:]))}"
+                                + ("_nhwc" if last else "") + ("_scale" if scaled else "")
+                                + ("" if relu else "_norelu"),
+                        "route": "cuda", "source": "tcresnet_tpu_torch/csrc/batchnorm.cu",
+                        "replaces": None, "batch": shape[0], "launches": launched["bn"],
+                        "max_abs_err": max(errs.values()), "ms": ms_k,
+                        "plain_ms": ms_p, **bnd, "library_ms": ms_l})
+        del x, dy
+        torch.cuda.empty_cache()
+    return entries
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -296,7 +296,9 @@ def plain_config(cfg: ExperimentConfig) -> ExperimentConfig:
     front end, the plain augmentation and no fused front end, so that
     every operation is a PyTorch operator. It is what torch.export traces
     and `utils.profiling`'s FLOP count sees (a kernel's ctypes launch is
-    neither)."""
+    neither). Batch norm in training mode still runs its kernels on a card
+    (`ops/kernels/batchnorm.py`): its work counts no FLOPs, and export
+    traces eval mode."""
     return cfg.replace(
         model=dataclasses.replace(cfg.model, conv_backend="xla"),
         audio=dataclasses.replace(cfg.audio, dsp_backend="xla", frontend_fuse="off"),

@@ -90,7 +90,7 @@ class DSCNN(nn.Module):
         nn.init.zeros_(self.fc1.bias)
 
     def _conv_bn_relu(self, x, name):
-        return F.relu(getattr(self, f"{name}_bn")(getattr(self, name)(x)))
+        return getattr(self, f"{name}_bn")(getattr(self, name)(x), relu=True)
 
     def _depthwise_bn_relu(self, x, name):
         """`_conv_bn_relu` with the conv inside the spans `model.depthwise`
@@ -98,7 +98,7 @@ class DSCNN(nn.Module):
         with span("model.depthwise", layer=name, phase="forward"):
             y = getattr(self, name)(x)
         y = backward_span(y, "model.depthwise", layer=name, phase="backward")
-        return F.relu(getattr(self, f"{name}_bn")(y))
+        return getattr(self, f"{name}_bn")(y, relu=True)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tcresnet_tpu_torch.ops.kernels.batchnorm import batch_norm_train
 from tcresnet_tpu_torch.parallel import mesh as meshlib
 
 BN_EPS = 1e-3  # slim.batch_norm default
@@ -216,43 +217,29 @@ class SlimBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, device=device))
         self.mesh: Optional[meshlib.Mesh] = None  # set by sync_batch_norm
 
-    def _moments(self, xf: torch.Tensor):
-        """(E[x], E[x^2]) per channel over the batch: this process's rows,
-        or under a mesh in a process group the global batch's ([sum x,
-        sum x^2, rows] of every rank summed in one differentiable
-        all-reduce over the data axis)."""
-        axes = [0] + list(range(2, xf.dim()))
-        if not meshlib.in_group(self.mesh):
-            return xf.mean(axes), (xf * xf).mean(axes)
-        c = xf.shape[1]
-        sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes),
-                          xf.new_full((1,), float(xf.numel() // c))])
-        sums = meshlib.sum_over_data(self.mesh, sums)
-        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """y in `self.dtype`, then ReLU where `relu`. Training mode runs the
+        batch-norm Function of `ops/kernels/batchnorm.py` (its kernels on a
+        card, its plain version on the CPU): Flax's fast variance, E[x^2] -
+        E[x]^2 clipped at 0 in f32, whose clip has jnp.maximum's gradient (at
+        a tie, a channel that is all zeros as after a ReLU, it splits in
+        halves, where a clamp would pass all of it), and the running
+        statistics updated with the biased variance."""
+        if self.training:
+            return batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, self.momentum, relu, self.dtype,
+                                    self.mesh)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.to(torch.float32)
-        if self.training:
-            # Flax's fast variance, E[x^2] - E[x]^2 clipped at 0, in f32. The
-            # clip is jnp.maximum's: at a tie (a channel that is all zeros,
-            # as after a ReLU) its gradient splits in halves, where a clamp
-            # would pass all of it
-            mean, mean_sq = self._moments(xf)
-            var = torch.maximum(mean_sq - mean * mean, torch.zeros_like(mean))
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
+        mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS)
         if self.weight is not None:
             mul = mul * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
-        return y.to(self.dtype)
+        y = y.to(self.dtype)
+        return F.relu(y) if relu else y
 
 
 def sync_batch_norm(model: nn.Module, mesh: Optional[meshlib.Mesh]) -> nn.Module:

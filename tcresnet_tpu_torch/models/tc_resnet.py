@@ -83,8 +83,7 @@ class TCResNet(nn.Module):
             co, momentum=self.bn_momentum, dtype=self.dtype, device=device))
 
     def _conv_bn(self, x, name, relu=True):
-        x = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
-        return F.relu(x) if relu else x
+        return getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x), relu=relu)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -19,7 +19,8 @@ from typing import Dict
 # counts the CUDA batches K2's wrapper sent to the plain feature instead,
 # "k5_tables" the op tables K5's plan built (`FusedInfer2D._table`),
 # "dft_wgmma" the launches of K2, K8, K3 (hops, phases) and K4 whose tile
-# plan took the 128-row product (csrc/dft_wgmma.cuh)
+# plan took the 128-row product (csrc/dft_wgmma.cuh), "bn" the batch-norm
+# kernels (six a training-mode forward and backward)
 COUNTERS = {
     "k1": ("augment", "k1_launches"),
     "k6": ("augment", "k6_launches"),
@@ -37,6 +38,7 @@ COUNTERS = {
     "plain_routes": ("mfcc", "plain_routes"),
     "k5_tables": ("infer2d", "k5_tables"),
     "dft_wgmma": ("mfcc", "wgmma_launches"),
+    "bn": ("batchnorm", "launches"),
 }
 
 

@@ -11,8 +11,9 @@ the same semantics are spelled out:
          (XLA's layout: blocks of ceil(B / data) rows, so with a batch
          that does not divide, the last ranks hold fewer rows or none, as
          JAX allows). Gradients are summed over it in one flat all-reduce
-         a step (`all_reduce_grads`), BatchNorm moments in one
-         differentiable all-reduce a layer (`sum_over_data`).
+         a step (`all_reduce_grads`); a training batch norm all-reduces
+         its moments' sums, and in its backward their gradients' sums,
+         once each a layer (`all_reduce_`, ops/kernels/batchnorm.py).
   model  a replica axis, as in JAX: state is replicated over it and the
          batch is not sharded over it, so ranks with the same data index
          compute the same rows. Collectives run over the data axis only,
@@ -235,29 +236,6 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor, batch: int) -> torch.Tensor:
     parts = [torch.empty_like(padded) for _ in range(mesh.data)]
     dist.all_gather(parts, padded.contiguous(), group=mesh.data_group)
     return torch.cat(parts)[:batch].to(x.device)
-
-
-class _SumOverData(torch.autograd.Function):
-    """A SUM all-reduce whose backward is the SUM all-reduce of the
-    gradient: each rank's loss depends on every rank's input through the
-    sum, so every rank's gradient of it is summed back."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_reduce_(mesh, x.clone())
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_reduce_(ctx.mesh, grad.clone()), None
-
-
-def sum_over_data(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
-    """The differentiable sum of `x` over the data axis (x itself outside a
-    process group)."""
-    if not in_group(mesh):
-        return x
-    return _SumOverData.apply(x, mesh)
 
 
 def broadcast_object(mesh: Optional[Mesh], obj: Any) -> Any:

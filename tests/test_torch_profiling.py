@@ -279,6 +279,21 @@ def test_a_kernel_launch_inside_the_count_raises(monkeypatch):
         compiled_flops(launches, torch.empty(2, device=META))
 
 
+def test_a_batch_norm_launch_inside_the_count_raises(monkeypatch):
+    """Batch norm's kernels are no exception: a training step on a card
+    launches them, so its count runs on the meta device (`step_flops`),
+    where batch norm takes its plain version."""
+    from tcresnet_tpu_torch.ops.kernels import batchnorm
+
+    def launches(x):
+        batchnorm.launches += 6
+        return x.sum(0)
+
+    monkeypatch.setattr(batchnorm, "launches", batchnorm.launches)
+    with pytest.raises(RuntimeError, match="'bn': 6"):
+        compiled_flops(launches, torch.empty(2, 3, device=META))
+
+
 def test_failures_raise_instead_of_returning_none():
     def broken(x):
         raise ValueError("no such shape")

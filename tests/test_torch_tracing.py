@@ -14,6 +14,7 @@ from tcresnet_tpu_torch.config import (AudioConfig, AugmentConfig, ExperimentCon
 from tcresnet_tpu_torch.data.device_data import DeviceDataset
 from tcresnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from tcresnet_tpu_torch.models.convert import seeded_variables, variables_from_jax
+from tcresnet_tpu_torch.models.layers import SlimBatchNorm
 from tcresnet_tpu_torch.ops import dsp
 from tcresnet_tpu_torch.ops.kernels import infer2d as k5
 from tcresnet_tpu_torch.ops.kernels import launch_counts, launches_since
@@ -91,12 +92,19 @@ def test_off_span_is_the_shared_no_op_and_reads_nothing():
         assert drain() == []
 
 
+def _batch_norms(trainer) -> list:
+    return [m for m in trainer.model.modules() if isinstance(m, SlimBatchNorm)]
+
+
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_two_steps_make_the_span_tree(tmp_path, dataset, route):
     """`train.call` > 2 x `train.step` > the five phases in order, each
     record's parent the enclosing span, host times nested, `step`, `start`,
-    `n_steps` and the input path's `route` set."""
+    `n_steps` and the input path's `route` set; each batch norm's
+    `model.batch_norm` span inside `train.forward` and, on the CPU (autograd
+    runs the backward on this thread), inside `train.backward`."""
     trainer = Trainer(_cfg(tmp_path, route), dataset, steps_per_call=2)
+    channels = [m.running_mean.shape[0] for m in _batch_norms(trainer)]
     with tracing():
         trainer.train_steps(2, start=0)
         records = drain()
@@ -107,10 +115,15 @@ def test_two_steps_make_the_span_tree(tmp_path, dataset, route):
     steps = _children(records, calls[0])
     assert [(r["name"], r["attrs"]) for r in steps] == [("train.step", {"step": 0}),
                                                         ("train.step", {"step": 1})]
-    assert len(records) == 1 + 2 * (1 + len(PHASES))
+    assert len(records) == 1 + 2 * (1 + len(PHASES) + 2 * len(channels))
     for step in steps:
         phases = _children(records, step)
         assert [r["name"] for r in phases] == PHASES
+        for phase, direction, order in ((phases[2], "forward", channels),
+                                        (phases[3], "backward", channels[::-1])):
+            bn = _children(records, phase)
+            assert [(r["name"], r["attrs"]) for r in bn] == [
+                ("model.batch_norm", {"phase": direction, "channels": c}) for c in order]
         assert phases[1]["attrs"] == {"route": route}
         assert all(r["attrs"] == {} for i, r in enumerate(phases) if i != 1)
         assert calls[0]["start_ns"] <= step["start_ns"] <= phases[0]["start_ns"]
@@ -127,7 +140,7 @@ def test_state_after_two_steps_is_bit_equal_with_tracing_on_and_off(tmp_path, da
     want = off.train_steps(2, start=0)
     with tracing():
         got = on.train_steps(2, start=0)
-        assert len(drain()) == 13
+        assert len(drain()) == 1 + 2 * (1 + len(PHASES) + 2 * len(_batch_norms(on)))
     a, b = _state(off), _state(on)
     assert set(a) == set(b)
     for k in a:

@@ -137,11 +137,16 @@ def test_train_mode_logits_stats_and_grads_match_flax(monkeypatch, name, arch, s
                                        err_msg=f"{scope}/{leaf}")
 
 
+@pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("center,scale", [(False, False), (True, False), (True, True)])
-def test_batch_norm_of_a_dead_channel_matches_flax(center, scale):
+def test_batch_norm_of_a_dead_channel_matches_flax(center, scale, relu):
     """A channel that is all zeros (a dead ReLU, common in Res's BN after
     the ReLU at initialisation) has variance E[x^2] - E[x]^2 = 0 exactly,
-    at the clip's kink: the gradient through it is jnp.maximum's."""
+    at the clip's kink: the gradient through it is jnp.maximum's. With
+    `relu` the batch norm's own ReLU (DS-CNN, TC-ResNet) against Flax's
+    BatchNorm then nn.relu, with a shift of 0.5 where the layer has one, so
+    that the ReLU passes the dead channel's outputs (without a shift they
+    are 0 and pass no gradient, on both sides)."""
     import flax.linen as nn
 
     x = np.maximum(np.random.default_rng(6).standard_normal((4, 5, 3, 6)), 0).astype(np.float32)
@@ -152,17 +157,25 @@ def test_batch_norm_of_a_dead_channel_matches_flax(center, scale):
     bn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-3,
                       use_bias=center, use_scale=scale)
     variables = bn.init(jax.random.key(0), jnp.asarray(x))
+    shift = 0.5 if relu else 0.0
+    if center:
+        variables = {**variables, "params": {**variables["params"],
+                                             "bias": jnp.full((6,), shift, jnp.float32)}}
 
     def jfn(xx):
         y, _ = bn.apply(variables, xx, mutable=["batch_stats"])
-        return jnp.sum(y * w)
+        return jnp.sum((nn.relu(y) if relu else y) * w)
 
     want = np.asarray(jax.grad(jfn)(jnp.asarray(x)))
     port = tlayers.SlimBatchNorm(6, momentum=0.9, center=center, scale=scale).train()
+    if center:
+        with torch.no_grad():
+            port.bias.fill_(shift)
     xt = torch.tensor(x).permute(0, 3, 1, 2).requires_grad_(True)
-    (port(xt) * torch.tensor(w).permute(0, 3, 1, 2)).sum().backward()
+    (port(xt, relu=relu) * torch.tensor(w).permute(0, 3, 1, 2)).sum().backward()
     got = xt.grad.permute(0, 2, 3, 1).numpy()
-    assert np.abs(want[..., 2]).max() > 0  # the kink's half-gradient, not zero
+    if center or not relu:
+        assert np.abs(want[..., 2]).max() > 0  # the kink's half-gradient, not zero
     np.testing.assert_allclose(got, want, **TOL)
 
 
