@@ -10,7 +10,8 @@ tests/test_torch_train2d.py (a dead channel, every 2D family) and
 tests/test_torch_parallel.py (over ranks).
 
 On the card (`cuda` marker; skipped without one): the kernels against the
-plain version at DS-CNN L's and TC-ResNet's layer shapes at a small batch,
+plain version at DS-CNN L's and TC-ResNet's layer shapes, at a small batch
+and at the benchmarked steps' (DS-CNN L at 4096, TCResNet8-1.0 at 8192),
 float32 and bfloat16, with a channel of zeros; their launch count; that a
 CUDA tensor never reaches the plain version; two calls bit-equal. This file
 imports no JAX.
@@ -195,16 +196,27 @@ def cuda_device():
 # DS-CNN L's layers (its first conv returns a channels-last map) and
 # TC-ResNet8's narrowest and widest, at a small batch; and TC-ResNet8's
 # first layer at 1,024 samples, which plans 24 sample chunks of 43, the
-# last one of 35 (a contiguous map of one chunk at 16-64 samples)
+# last one of 35 (a contiguous map of one chunk at 16-64 samples). Then the
+# benchmarked steps' layers: DS-CNN L's at batch 4096, shift only, its ten
+# [276, 13, 5] maps and its first conv's [276, 25, 10] one channels-last as
+# cuDNN returns them on the card, and [276, 13, 5] contiguous; TCResNet8-1.0's
+# four layer shapes at batch 8192, contiguous, scale and shift ([16, 98]
+# plans 196 sample chunks of 42, the last one of 2 samples)
 CARD_CASES = [((16, 276, 13, 5), "contiguous", (True, False)),
               ((16, 276, 25, 10), "channels_last", (True, False)),
               ((16, 276, 25, 10), "contiguous", (True, False)),
               ((64, 16, 98), "contiguous", (True, True)),
               ((64, 48, 13), "contiguous", (True, True)),
               ((8, 45, 23, 20), "contiguous", (False, False)),
-              ((1024, 16, 98), "contiguous", (True, True))]
+              ((1024, 16, 98), "contiguous", (True, True)),
+              ((4096, 276, 13, 5), "channels_last", (True, False)),
+              ((4096, 276, 25, 10), "channels_last", (True, False)),
+              ((4096, 276, 13, 5), "contiguous", (True, False))] + [
+    ((8192, c, t), "contiguous", (True, True)) for c, t in ((16, 98), (24, 49), (32, 25), (48, 13))]
 CARD_IDS = ["dscnn_pw", "dscnn_first_nhwc", "dscnn_first", "tc_first", "tc_last", "res",
-            "tc_first_chunks"]
+            "tc_first_chunks", "dscnnl_b4096_pw_nhwc", "dscnnl_b4096_first_nhwc",
+            "dscnnl_b4096_pw", "tc8_b8192_16x98", "tc8_b8192_24x49", "tc8_b8192_32x25",
+            "tc8_b8192_48x13"]
 # float32: the kernels sum in float64 where the plain version sums in float32
 # (torch's order), so mean and rstd differ in their last bits and y by a few
 # ulps of its magnitude; dx also comes from sums over 8-1,024 samples, within
@@ -219,8 +231,10 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2 **
 def test_kernels_match_the_plain_version(cuda_device, shape, layout, affine, dtype):
     """y, the saved statistics and both running statistics against the
     plain version on the card; then dx, dscale and dshift against the plain
-    backward from the kernels' own statistics (so both mask the same y);
-    the zero channel's variance is exactly 0 on both (the clip's tie)."""
+    backward from the kernels' own statistics (so both mask the same y),
+    in float32 dscale and dshift also within 1e-4 of their max; the zero
+    channel's variance is exactly 0 on both (the clip's tie); 6 launches a
+    forward and backward."""
     center, scale = affine
     x, weight, bias, dy = _inputs(shape, dtype, seed=sum(shape), device=cuda_device)
     if layout == "channels_last":
@@ -233,6 +247,7 @@ def test_kernels_match_the_plain_version(cuda_device, shape, layout, affine, dty
     for relu in (False, True):
         run_k = (torch.full((c,), 0.25, device=cuda_device), torch.ones(c, device=cuda_device))
         run_p = tuple(t.clone() for t in run_k)
+        before = launch_counts()
         y_k, stats_k = kb.kernel_forward(kb.kernel_layout(x), weight, bias, *run_k, 0.96, relu,
                                          dtype, None)
         y_p, stats_p = kb.plain_forward(x, weight, bias, *run_p, 0.96, relu, dtype, None)
@@ -247,6 +262,7 @@ def test_kernels_match_the_plain_version(cuda_device, shape, layout, affine, dty
                                               relu, None)
         dx_p, dw_p, db_p = kb.plain_backward(dy, x, weight, bias, stats_k, relu, None)
         torch.cuda.synchronize()
+        assert launches_since(before) == {"bn": 6}
         scale_dx = float(dx_p.float().abs().max())
         torch.testing.assert_close(dx_k.float(), dx_p.float(), rtol=tol["rtol"],
                                    atol=tol["atol"] * scale_dx)
@@ -255,6 +271,8 @@ def test_kernels_match_the_plain_version(cuda_device, shape, layout, affine, dty
             if k is not None:  # float32 sums over the batch of terms of both signs: they
                 # cancel to ~1% of their size, so their last bits reach 1e-4 of the largest
                 torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-4 * float(p.abs().max()))
+                if dtype == torch.float32:
+                    assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
 
 
 @pytest.mark.cuda

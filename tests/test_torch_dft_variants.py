@@ -475,7 +475,8 @@ def test_k3_plain_variant_on_dataset_rows_meets_float64(preset, variant):
     K9's) on synthetic dataset rows (loud tones: MFCCs up to ~160, where
     float32 steps are 1.5e-5) at 1 s, against the same augmented rows in
     float64: within ATOL, 1e-4 (measured <= 5.3e-5). The kernel is
-    held to the same float64 values on the card (chip_smoke.py, phase 22)."""
+    held to the same float64 values on the card
+    (tests/test_torch_cuda.py::test_k3_variants_equal_their_mfcc_of_k1)."""
     n = 16000
     cfg = dataclasses.replace(get_preset(preset).audio, dft_variant=variant)
     assert mfcc.resolve_dft_variant(cfg, n) == variant

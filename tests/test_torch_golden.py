@@ -4,7 +4,8 @@ tcresnet_tpu_torch/testdata/tcresnet8_golden.npz holds the JAX package's
 softmax for seeded wavs at full TCResNet8-1.0 geometry, with weights from
 `seeded_variables`. It stores only the seeds and the outputs: the wavs
 and the weights are made again from the seeds with numpy, here and on a
-machine without JAX (chip_smoke.py phase 4). This test recomputes it
+machine without JAX (tests/test_torch_cuda.py::test_k4_meets_the_jax_golden).
+This test recomputes it
 with the JAX XLA path at precision="highest".
 
 Regenerate with:  JAX_PLATFORMS=cpu python tests/test_torch_golden.py

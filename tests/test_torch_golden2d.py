@@ -5,7 +5,7 @@ softmax ("xla" path, precision="highest", on the CPU) for seeded wavs at
 full preset geometry, batch 2, weights from `seeded_variables`: one
 preset per family. It stores only the seeds and the outputs: the wavs and
 the weights are made again from the seeds with numpy, here and on a
-machine without JAX (chip_smoke.py phase 18).
+machine without JAX (tests/test_torch_cuda.py::test_k5_meets_the_jax_golden).
 
 Regenerate with:  JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_golden2d.py
 """

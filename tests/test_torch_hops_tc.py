@@ -30,8 +30,8 @@ from tests.test_torch_tconv_tc import _split
 
 torch.set_num_threads(1)
 
-ATOL = 1e-4  # the card's K2 gate (chip_smoke.py FEATURE_ATOL, the JAX kernel test's)
-BF16_TOL = 5e-3  # with dsp_matmul_dtype="bfloat16" (chip_smoke.py BF16_TOL)
+ATOL = 1e-4  # the card's K2 gate (tests/test_torch_cuda.py FEATURE_ATOL, the JAX kernel test's)
+BF16_TOL = 5e-3  # with dsp_matmul_dtype="bfloat16" (tests/test_torch_cuda.py BF16_TOL)
 N = 2560  # the JAX kernel tests' clip (tests/test_pallas.py); 2560 % 200 != 0: no 400/200
 CLIPS = [(geometry, 16000) for geometry in GEOMETRIES] + [
     (geometry, N) for geometry in ("480/160", "640/320", "320/160")]

@@ -2,7 +2,7 @@
 K2's tensor-core stage over `mfcc.tc_tile_plan`'s tiles of the batch's
 frames, and each utterance's conv stack runs in the block that stores the
 last of its rows. The kernel itself runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 3); here:
+(tests/test_torch_cuda.py); here:
 
 - the host plan at every preset x geometry x method x DSP dtype the kernel
   served before (availability unchanged; the conv stage's shared memory

@@ -26,8 +26,8 @@ from tests.test_torch_tconv_tc import _split, _toward_zero
 
 torch.set_num_threads(1)
 
-ATOL = 1e-4  # the card's K8 gate (chip_smoke.py FEATURE_ATOL, the JAX kernel test's)
-BF16_TOL = 5e-3  # with dsp_matmul_dtype="bfloat16" (chip_smoke.py BF16_TOL)
+ATOL = 1e-4  # the card's K8 gate (tests/test_torch_cuda.py FEATURE_ATOL, the JAX kernel test's)
+BF16_TOL = 5e-3  # with dsp_matmul_dtype="bfloat16" (tests/test_torch_cuda.py BF16_TOL)
 N = 2560  # the JAX kernel tests' clip (tests/test_pallas.py)
 CLIPS = {"480-160": "TCResNet8-1.0", "640-320": "DSCNNL"}  # 30/10 ms, 40/20 ms at 16 kHz
 

@@ -1,6 +1,6 @@
 """K7 dw's tensor-core design on the CPU (tcresnet_tpu_torch/csrc/tconv.cu,
-`k7_dw_kernel`): its host plan `tconv._dw_plan` at every conv geometry the
-card runs, a replay of the kernel's window staging and fragment indexing,
+`k7_dw_kernel`): its host plan `tconv._dw_plan` at the conv geometries of
+K7_GEOMETRIES, a replay of the kernel's window staging and fragment indexing,
 and an emulation of its 3xTF32 arithmetic in the kernel's order (k8 steps
 split over two row warps, their sums, then the chunks' partials in
 order), held to float64 and to the JAX Pallas kernel's dw (`jax.vjp` in
@@ -15,12 +15,11 @@ import torch
 from tcresnet_tpu.ops.pallas.tconv import pallas_temporal_conv as jax_tconv
 from tcresnet_tpu_torch.models.layers import same_padding
 from tcresnet_tpu_torch.ops.kernels import tconv
-from tests.test_torch_cuda import K7_GEOMETRIES
 from tests.test_torch_tconv import DW_TOL
-from tests.test_torch_tconv_tc import SMEM_LIMIT, _split, _toward_zero
+from tests.test_torch_tconv_tc import K7_GEOMETRIES, SMEM_LIMIT, _split, _toward_zero
 
 torch.set_num_threads(1)
-# the card's gate for K7 dw (chip_smoke.py TCONV_DW_REL): relative to max|dw|
+# the card's gate for K7 dw (tests/test_torch_cuda.py TCONV_DW_REL): relative to max|dw|
 TCONV_DW_REL = 1e-5
 WARPS = 4  # K7F_WARPS
 SMS = 132  # the H100's
@@ -42,7 +41,7 @@ def _windows(plan, batch: int, to: int):
 @pytest.mark.parametrize("batch", [1, 8, 1536])
 @pytest.mark.parametrize("k,stride,ci,co,t", K7_GEOMETRIES)
 def test_dw_plan_covers_every_row_and_output_once_and_fits(k, stride, ci, co, t, batch):
-    """At every geometry the card tests run: the chunks cover each (sample,
+    """At every geometry of K7_GEOMETRIES: the chunks cover each (sample,
     position) row once; the column blocks and the store's decode of the
     warps' fragments cover each (co, ci, j) of dw once; the tile pair is one
     the kernel instantiates; the block fits in 227 KB with both window

@@ -1,6 +1,6 @@
 """K7 dx's tensor-core design on the CPU (tcresnet_tpu_torch/csrc/tconv.cu,
 `k7_dx_kernel`): its host plan `tconv._dx_plan` and the phases
-`tconv.dx_phases` at every conv geometry the card runs, a replay of the
+`tconv.dx_phases` at the conv geometries of K7_GEOMETRIES, a replay of the
 kernel's staging and fragment indexing per stride phase, and an emulation
 of its 3xTF32 arithmetic in the kernel's order, held to float64 and to
 the JAX Pallas kernel's dx (`jax.vjp` in interpret mode)."""
@@ -14,18 +14,17 @@ import torch
 from tcresnet_tpu.ops.pallas.tconv import pallas_temporal_conv as jax_tconv
 from tcresnet_tpu_torch.models.layers import same_padding
 from tcresnet_tpu_torch.ops.kernels import tconv
-from tests.test_torch_cuda import K7_GEOMETRIES
-from tests.test_torch_tconv_tc import SMEM_LIMIT, _split, _toward_zero
+from tests.test_torch_tconv_tc import K7_GEOMETRIES, SMEM_LIMIT, _split, _toward_zero
 
 torch.set_num_threads(1)
-# the card's gate for K7 dx (chip_smoke.py TCONV_DX_TOL, the JAX kernel test)
+# the card's gate for K7 dx (tests/test_torch_cuda.py TCONV_DX_TOL, the JAX kernel test)
 DX_TOL = dict(atol=2e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("batch", [1, 8, 1536])
 @pytest.mark.parametrize("k,stride,ci,co,t", K7_GEOMETRIES)
 def test_dx_plan_covers_every_input_row_once_and_fits(k, stride, ci, co, t, batch):
-    """At every geometry the card tests run: the phases' rows, stored at t =
+    """At every geometry of K7_GEOMETRIES: the phases' rows, stored at t =
     s (q0 + r) + p - lo, cover each (sample, t) exactly once, phases with
     no tap included, and the grid's blocks cover each phase's rows and
     each input channel; every slot a fragment row reads at every tap lies

@@ -1,6 +1,6 @@
 """K7 fwd's tensor-core design on the CPU (tcresnet_tpu_torch/csrc/tconv.cu,
-`k7_fwd_kernel`): its host plan `tconv._fwd_plan` at every conv geometry
-the card runs, a replay of the kernel's staging and fragment indexing,
+`k7_fwd_kernel`): its host plan `tconv._fwd_plan` at TCResNet8-1.0's conv
+geometries and three more, a replay of the kernel's staging and fragment indexing,
 and an emulation of its 3xTF32 arithmetic in the kernel's order, held to
 float64 and to the JAX Pallas kernel in interpret mode."""
 
@@ -12,19 +12,24 @@ import torch
 from tcresnet_tpu.ops.pallas.tconv import pallas_temporal_conv as jax_tconv
 from tcresnet_tpu_torch.models.layers import same_padding
 from tcresnet_tpu_torch.ops.kernels import tconv
-from tests.test_torch_cuda import K7_GEOMETRIES
 
 torch.set_num_threads(1)
+# (k, stride, Ci, Co, T) of every TCResNet8-1.0 conv, then two of TCResNet14-1.5,
+# then an even tap count at stride 3 over 36 channels (not a multiple of 8)
+K7_GEOMETRIES = [(3, 1, 40, 16, 98), (1, 2, 16, 24, 98), (9, 2, 16, 24, 98), (9, 1, 24, 24, 49),
+                 (1, 2, 24, 32, 49), (9, 2, 24, 32, 49), (9, 1, 32, 32, 25), (1, 2, 32, 48, 25),
+                 (9, 2, 32, 48, 25), (9, 1, 48, 48, 13), (9, 2, 36, 48, 25), (9, 1, 72, 72, 13),
+                 (4, 3, 36, 36, 98)]
 # shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-# the card's gate for K7 fwd (chip_smoke.py TCONV_FWD_TOL, the JAX kernel test)
+# the card's gate for K7 fwd (tests/test_torch_cuda.py TCONV_FWD_TOL, the JAX kernel test)
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("batch", [1, 8, 1536])
 @pytest.mark.parametrize("k,stride,ci,co,t", K7_GEOMETRIES)
 def test_fwd_plan_covers_every_output_once_and_fits(k, stride, ci, co, t, batch):
-    """At every geometry the card tests run (tests/test_torch_cuda.py): the
+    """At every geometry of K7_GEOMETRIES (the card tests run them all): the
     grid covers each output row and channel exactly once; every slot a
     fragment row reads at every tap lies in the block's staged window, and
     the staging loop's decode of that slot (a product with ceil(2^32 / ql)
