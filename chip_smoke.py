@@ -12,7 +12,8 @@ it times; the wide sweeps of geometries, batches and dtypes,
 the JAX goldens and the serving routes' edge cases are the card tests'
 (the `cuda` marker):
 
-    python -m pytest tests/test_torch_cuda.py tests/test_torch_batchnorm.py -m cuda -q \
+    python -m pytest tests/test_torch_cuda.py tests/test_torch_batchnorm.py \
+        tests/test_torch_dwconv.py tests/test_torch_depthwise_spans.py -m cuda -q \
         --noconftest -p no:cacheprovider
 
 The phases print their lines; their numbers are kept where others went:
@@ -164,7 +165,9 @@ The phases print their lines; their numbers are kept where others went:
               latency at most the host's, K1 launched once a step and K7 dx /
               dw 9 / 10 times, the step's FLOP count (the meta device's,
               utils/profiling.py::step_flops) equal to the count of the
-              Trainer's plain step on the card at the same batch, and its rate
+              Trainer's plain step on the card at the same batch (batch
+              norm's kernels launched, and DSCNNL's depthwise convs', which
+              count as the composition they replace), and its rate
               below the card's peak for the dtype; the stage profiler
               (tools/profile_scaling.py) at batch 1536 and 2048 with
               dsp_backend "pallas", all eight stages, n1 5 and n2 20: every
@@ -182,6 +185,15 @@ The phases print their lines; their numbers are kept where others went:
               output and running statistic, a dead channel's tie, timed
               against its 5-pass byte bound, the plain version and
               F.batch_norm [+ F.relu] under autograd (CUDA events)
+
+ 31. dwconv   the depthwise 3x3 conv in training (csrc/dwconv.cu): the
+              ptxas line; at DS-CNN L's two shapes at batch 4096 (float32,
+              channels-last, bias: [276, 25, 10] stride 2 and [276, 13, 5]
+              stride 1) the kernels' forward + backward (3 launches) within
+              1e-5 of F.pad + F.conv2d under autograd in float64 in y, dx,
+              dW and db, timed against the byte bound (x, y, dy, x, dx
+              once) and that composition in float32, which is both its
+              plain version and the library's (CUDA events)
 
 then the kernel summary as one JSON line (each kernel with its launches on
 its main path, its time, the plain version's, the least time the card
@@ -223,6 +235,10 @@ FEATURE_TOL = dict(atol=1e-4, rtol=0)
 # batch norm: float64 sums against float32 ones over up to 1,024,000
 # elements a channel, relative to the output's max
 BN_REL = 1e-4
+# the depthwise conv: float32 sums of 9-10 products (y, dx), and of a
+# batch's in float32 blocks summed in float64 (dW, db), against the exact
+# float64 composition, relative to each output's max
+DW_REL = 1e-5
 # features of int16 dataset rows (loud tones, MFCC up to ~160, where
 # float32 steps are 1.5e-5) through a kernel against the plain path: the
 # JAX package's tolerance for the same comparison
@@ -243,7 +259,7 @@ TCONV_DW_REL = 1e-5
 # 62,400 (a silence row) moved the step-5 loss by 1.9e-3 relative; on the
 # H100 the legs agreed within 2e-7 (PERF.md)
 FIRST_STEP_RTOL, TRAIN_LEG_RTOL = 1e-5, 1e-2
-SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d", "batchnorm")
+SOURCES = ("infer", "augment", "mfcc", "frontend", "tconv", "infer2d", "batchnorm", "dwconv")
 # the H100 SXM's published peaks: float32 outside the tensor cores, and HBM
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # the H100 SXM's published dense bf16 tensor-core peak (phase 29's ceiling
@@ -476,6 +492,7 @@ def main() -> int:
     dp_phase(dev, card)
     tools_phase(dev, card, ds)
     bn_kernels = batchnorm_phase(dev, card)
+    dw_kernels = dwconv_phase(dev, card)
 
     summary = {"kernels": [{
         "name": "k4_infer", "route": "cuda",
@@ -496,7 +513,7 @@ def main() -> int:
         "library_ms_b1024": k4_lib[1024]["library_ms"],
         "ms_queued_b1024": k4_lib[1024]["ms"],
         "crossover_batch": crossover(k4_t),
-    }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels + bn_kernels}
+    }] + train_kernels + tconv_kernels + infer2d_kernels + variant_kernels + bn_kernels + dw_kernels}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2335,9 +2352,9 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
     # ---- 29.1 the sweep: bench_preset, the card's FLOP rate and latency ----
     spc = 10
     steps = spc * (1 + benchmark.TIMED_CALLS)
-    legs = (("TCResNet8-1.0", 1536, "bfloat16", "pallas", BF16_FLOPS),
-            ("DSCNNL", 100, "float32", None, FP32_FLOPS))
-    for name, batch, dtype, conv, peak in legs:
+    legs = (("TCResNet8-1.0", 1536, "bfloat16", "pallas", BF16_FLOPS, {"bn"}),
+            ("DSCNNL", 100, "float32", None, FP32_FLOPS, {"bn", "dw_conv"}))
+    for name, batch, dtype, conv, peak, plain_kernels in legs:
         reset_launch_counts()
         row = benchmark.bench_preset(name, batch, spc, dtype, ds, conv)
         got = {k: v for k, v in launch_counts().items() if v}
@@ -2355,7 +2372,9 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
         # here: the Trainer's step on the plain path, on the card at this
         # batch, counted as compiled_flops counts but for batch norm's
         # kernels, which a step on a card launches on the plain path too
-        # (elementwise work and sums, which the count takes as nothing)
+        # (elementwise work and sums, which the count takes as nothing), and
+        # DSCNNL's depthwise convs' (operators whose formulas count them as
+        # the composition they replace, utils/profiling.py::_ConvCount)
         cfg = get_preset(name)
         plain = plain_config(cfg).replace(train=dataclasses.replace(
             cfg.train, batch_size=batch, max_step=10**9, compute_dtype=dtype))
@@ -2365,8 +2384,8 @@ def tools_phase(dev: torch.device, card: str, ds) -> None:
             with FlopCounterMode(display=False, custom_mapping=_ConvCount().mapping()) as fc:
                 trainer.train_steps(1)
             launched = launches_since(before)
-        check(set(launched) == {"bn"},
-              f"29.1 {name}: the plain step launched {launched}, not batch norm's kernels alone")
+        check(set(launched) == plain_kernels,
+              f"29.1 {name}: the plain step launched {launched}, not {sorted(plain_kernels)}")
         counted = int(fc.get_total_flops())
         check(row["flops_per_step"] == counted,
               f"29.1 {name}: step_flops {row['flops_per_step']:,} on the meta device, the "
@@ -2540,10 +2559,88 @@ def batchnorm_phase(dev: torch.device, card: str) -> list:
                                 + ("" if relu else "_norelu"),
                         "route": "cuda", "source": "tcresnet_tpu_torch/csrc/batchnorm.cu",
                         "replaces": None, "batch": shape[0], "launches": launched["bn"],
-                        "ms": ms_k, "plain_ms": ms_p, **bnd, "library_ms": ms_l})
+                        "ms": ms_k, "plain_ms": ms_l, **bnd, "library_ms": ms_l})
         del x, dy
         torch.cuda.empty_cache()
     return entries
+
+# (shape, stride) of DS-CNN L's depthwise convs in its benchmarked step:
+# conv_ds_1 over the first conv's 25x10 map at stride 2, the four others
+# over 13x5 maps
+DW_CASES = (((4096, 276, 25, 10), (2, 2)), ((4096, 276, 13, 5), (1, 1)))
+
+
+def dwconv_phase(dev: torch.device, card: str) -> list:
+    """Phase 31: the depthwise conv kernels against the composition they
+    replace and timed at DS-CNN L's two shapes; (kernel summary entries)."""
+    import torch.nn.functional as F
+
+    from tcresnet_tpu_torch.models.layers import same_padding_2d
+    from tcresnet_tpu_torch.ops.kernels import dwconv as kd
+    from tcresnet_tpu_torch.ops.kernels import launches_since
+
+    def rel(a, b) -> float:
+        b = b.detach()
+        return float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    print(f"[build] dwconv.cu for sm_90a | {ptxas_line('dwconv')}")
+    entries = []
+    mask = (True, True, True)
+    for shape, stride in DW_CASES:
+        gen = torch.Generator(device=dev).manual_seed(31)
+        c, hw = shape[1], shape[2:]
+        pads = same_padding_2d(hw, (3, 3), stride)
+        out = (shape[0], c) + tuple(-(-n // s) for n, s in zip(hw, stride))
+        x = torch.randn(shape, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        dy = torch.randn(out, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        w = torch.randn(c, 1, 3, 3, device=dev, generator=gen) * 0.3
+        b = torch.randn(c, device=dev, generator=gen)
+
+        def kernels():
+            return (kd.kernel_forward(x, w, b, stride, pads),) + kd.kernel_backward(
+                dy, x, w, stride, pads, mask, True)
+
+        def composition(xx=x, ww=w, bb=b, gg=dy):  # the timing helper runs under no_grad
+            with torch.enable_grad():
+                xx, ww, bb = (t.detach().requires_grad_(True) for t in (xx, ww, bb))
+                y = F.conv2d(F.pad(xx, pads), ww, bb, stride=stride, groups=c)
+                return (y,) + torch.autograd.grad(y, (xx, ww, bb), gg)
+
+        before = launch_counts()
+        got = kernels()
+        torch.cuda.synchronize()
+        launched = launches_since(before)
+        check(launched == {"dw_conv": 3}, f"dwconv {shape}: launches {launched}, not 3 dw_conv")
+        want = composition(*(t.double() for t in (x, w, b, dy)))
+        errs = {k: rel(g, v) for k, g, v in zip(("y", "dx", "dW", "db"), got, want)}
+        check(all(e <= DW_REL for e in errs.values()),
+              f"dwconv {shape} stride {stride}: " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                                              errs.items())
+              + f" of their max (limit {DW_REL})")
+        del got, want
+        torch.cuda.empty_cache()
+        ms_k = device_ms(kernels)
+        ms_l = device_ms(composition)
+        nbytes = 4 * (2 * x.numel() + x.numel() + 2 * dy.numel())  # x, y | x, dy, dx
+        bnd = bound(0, nbytes)
+        p_f = kd._plan(x, out[2:], False, stride[0])
+        p_b = kd._plan(x, out[2:], True, stride[0])
+        print(f"[dw] {list(shape)} stride {stride[0]} f32 channels-last, bias: forward + "
+              f"backward {ms_k:.4f} ms, F.pad + F.conv2d under autograd (plain and library) "
+              f"{ms_l:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, x, y, dy, x, "
+              f"dx once: {bnd['bound_ms'] / ms_k:.1%} of it, {nbytes / ms_k / 1e6:.0f} GB/s); "
+              f"forward {p_f}, backward {p_b}; launches {launched}; max |err| of max: "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f" | {card}")
+        entries.append({"name": f"dw_conv_train_{'x'.join(map(str, shape[1:]))}_s{stride[0]}",
+                        "route": "cuda", "source": "tcresnet_tpu_torch/csrc/dwconv.cu",
+                        "replaces": None, "batch": shape[0], "launches": launched["dw_conv"],
+                        "ms": ms_k, "plain_ms": ms_l, **bnd, "library_ms": ms_l})
+        del x, dy
+        torch.cuda.empty_cache()
+    return entries
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -296,9 +296,11 @@ def plain_config(cfg: ExperimentConfig) -> ExperimentConfig:
     front end, the plain augmentation and no fused front end, so that
     every operation is a PyTorch operator. It is what torch.export traces
     and `utils.profiling`'s FLOP count sees (a kernel's ctypes launch is
-    neither). Batch norm in training mode still runs its kernels on a card
-    (`ops/kernels/batchnorm.py`): its work counts no FLOPs, and export
-    traces eval mode."""
+    neither). On a card batch norm in training mode and the depthwise 3x3
+    convs still run their kernels (`ops/kernels/batchnorm.py`,
+    `ops/kernels/dwconv.py`): batch norm's work counts no FLOPs, the
+    convs' operators count as the composition they replace, and export
+    traces eval mode and, for the convs, the composition."""
     return cfg.replace(
         model=dataclasses.replace(cfg.model, conv_backend="xla"),
         audio=dataclasses.replace(cfg.audio, dsp_backend="xla", frontend_fuse="off"),

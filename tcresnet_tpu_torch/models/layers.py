@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tcresnet_tpu_torch.ops.kernels import dwconv
 from tcresnet_tpu_torch.ops.kernels.batchnorm import batch_norm_train
 from tcresnet_tpu_torch.parallel import mesh as meshlib
 
@@ -155,7 +156,9 @@ class Conv2d(nn.Module):
     since PyTorch's padding="same" refuses stride 2) or VALID, stride,
     dilation, `groups` (groups == Ci is the depthwise conv) and an
     optional bias. weight [Co, Ci / groups, kh, kw] (the Flax kernel
-    [kh, kw, Ci / groups, Co] transposed)."""
+    [kh, kw, Ci / groups, Co] transposed). A depthwise 3x3 SAME conv
+    (DS-CNN's) on a card runs `ops/kernels/dwconv.py`'s kernels, pad and
+    bias inside; elsewhere, and while PyTorch traces, F.pad and F.conv2d."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), *, padding: str = "SAME",
@@ -172,11 +175,23 @@ class Conv2d(nn.Module):
         nn.init.xavier_uniform_(self.weight)
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if bias else None
 
+    def _depthwise_3x3(self, x: torch.Tensor) -> bool:
+        """Whether the conv is one `ops/kernels/dwconv.py` computes:
+        depthwise (groups equal to its input and output channels), 3x3,
+        dilation 1, SAME, strides 1 or 2."""
+        return (1 < self.groups == x.shape[1] == self.weight.shape[0] and self.kernel == (3, 3)
+                and self.dilation == 1 and self.padding == "SAME"
+                and all(s in (1, 2) for s in self.stride))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        if self.padding == "SAME":
-            x = F.pad(x, same_padding_2d(x.shape[-2:], self.kernel, self.stride, self.dilation))
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        pads = same_padding_2d(x.shape[-2:], self.kernel, self.stride, self.dilation) \
+            if self.padding == "SAME" else None
+        if self._depthwise_3x3(x) and dwconv.takes(x):
+            return dwconv.depthwise_conv3x3(x, self.weight.to(self.dtype), bias, self.stride, pads)
+        if pads is not None:
+            x = F.pad(x, pads)
         return F.conv2d(x, self.weight.to(self.dtype), bias, stride=self.stride,
                         dilation=self.dilation, groups=self.groups)
 

@@ -20,7 +20,8 @@ from typing import Dict
 # "k5_tables" the op tables K5's plan built (`FusedInfer2D._table`),
 # "dft_wgmma" the launches of K2, K8, K3 (hops, phases) and K4 whose tile
 # plan took the 128-row product (csrc/dft_wgmma.cuh), "bn" the batch-norm
-# kernels (six a training-mode forward and backward)
+# kernels (six a training-mode forward and backward), "dw_conv" the
+# depthwise conv's (three a forward and backward)
 COUNTERS = {
     "k1": ("augment", "k1_launches"),
     "k6": ("augment", "k6_launches"),
@@ -39,6 +40,7 @@ COUNTERS = {
     "k5_tables": ("infer2d", "k5_tables"),
     "dft_wgmma": ("mfcc", "wgmma_launches"),
     "bn": ("batchnorm", "launches"),
+    "dw_conv": ("dwconv", "launches"),
 }
 
 

@@ -312,16 +312,38 @@ class _ConvCount:
         one = 2 * self.macs(x, w, grad_out.shape, stride, padding, dilation, transposed)
         return one * (int(output_mask[0]) + int(output_mask[1]))
 
+    @staticmethod
+    def depthwise_macs(x, stride, pads, out_hw) -> int:
+        """Multiply-adds of one pass of the depthwise 3x3 conv of
+        `ops/kernels/dwconv.py` over the taps that land on the input (its
+        pad (left, right, top, bottom) read in place)."""
+        taps = valid_taps(x.shape[2], 3, stride[0], 1, pads[2], out_hw[0]) \
+            * valid_taps(x.shape[3], 3, stride[1], 1, pads[0], out_hw[1])
+        return x.shape[0] * x.shape[1] * taps
+
+    def depthwise_forward(self, x, w, bias, stride, pads, out_val=None) -> int:
+        return 2 * self.depthwise_macs(x, stride, pads, out_val.shape[2:])
+
+    def depthwise_backward(self, dy, x, w, stride, pads, mask, out_val=None) -> int:
+        """dx and dW as `backward` counts them, where `mask` asks for them."""
+        one = 2 * self.depthwise_macs(x, stride, pads, dy.shape[2:])
+        return one * (int(mask[0]) + int(mask[1]))
+
     def mapping(self) -> dict:
         """`FlopCounterMode`'s custom mapping: each formula takes the raw
-        arguments and output (`_get_raw`), not their shapes. The other
+        arguments and output (`_get_raw`), not their shapes. The depthwise
+        conv's kernels count as the composition they replace. The other
         conv operators PyTorch counts raise: nothing here reaches them, and
         their formula counts the padding."""
+        from tcresnet_tpu_torch.ops.kernels import dwconv
+
         def refuse(*args, **kwargs):
             raise NotImplementedError("compiled_flops counts convs at aten.convolution only")
 
         formulas = {_aten.constant_pad_nd: self.pad, _aten.convolution: self.forward,
-                    _aten.convolution_backward: self.backward}
+                    _aten.convolution_backward: self.backward,
+                    dwconv.forward_op: self.depthwise_forward,
+                    dwconv.backward_op: self.depthwise_backward}
         for op in (_aten._convolution, _aten.cudnn_convolution, _aten.convolution_overrideable,
                    _aten._slow_conv2d_forward):
             formulas[op] = refuse

@@ -5,8 +5,10 @@ DFT variants (csrc/frontend.cu), K7 (csrc/tconv.cu) and K5
 serving paths through them (backend "auto" and "fused" against "xla" at
 precision "highest"), and that the `xla` and `fused` serving paths wait on
 the device in no call (sync-debug mode "error"). With the card tests of
-tests/test_torch_batchnorm.py they are the port's on-card correctness
-checks; chip_smoke.py runs the long paths and times the kernels.
+tests/test_torch_batchnorm.py, tests/test_torch_dwconv.py and
+tests/test_torch_depthwise_spans.py they are the port's on-card
+correctness checks; chip_smoke.py runs the long paths and times the
+kernels.
 
 Each test carries the `cuda` marker and skips without a CUDA card (a CUDA
 kernel has no CPU mode; the plain versions are tested against JAX in
@@ -14,7 +16,8 @@ tests/test_torch_{infer,augment,mfcc,dft_variants,train,train2d,tconv,infer2d}.p
 This file imports no JAX,
 so it also runs on a machine with the card and without JAX:
 
-    python -m pytest tests/test_torch_cuda.py tests/test_torch_batchnorm.py -m cuda -q \
+    python -m pytest tests/test_torch_cuda.py tests/test_torch_batchnorm.py \
+        tests/test_torch_dwconv.py tests/test_torch_depthwise_spans.py -m cuda -q \
         --noconftest -p no:cacheprovider
 """
 
@@ -820,6 +823,35 @@ def test_compile_inference_graph_and_moved_artifact(cuda_device, batch):
     assert moved.device == x.device
     for ref in (eager, highest):
         assert (moved - ref(x)).abs().max() <= SOFTMAX_ATOL
+
+
+def test_a_ds_cnn_exported_on_the_card_traces_the_composition(cuda_device):
+    """export_serialized of DSCNNL traced on the card (the export CLI's
+    `--device auto` there): the program holds PyTorch's conv2d for each
+    conv and no operator of the depthwise conv kernels (which have no fake
+    tensor mode), and loaded back meets the eager xla path, whose
+    depthwise convs run those kernels."""
+    import io
+
+    from tcresnet_tpu_torch.models import ds_cnn
+    from tcresnet_tpu_torch.ops.kernels import launch_counts, launches_since
+    from tcresnet_tpu_torch.serve.export import export_serialized, load_serialized
+
+    cfg = get_preset("DSCNNL")
+    v = _variables(cfg.model, cfg.audio, cuda_device)
+    data = export_serialized(cfg, v, 4, device=cuda_device)
+    ops = [str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes
+           if n.op == "call_function"]
+    blocks = sum(b.type == "separable" for b in ds_cnn.L_NET_DEF)
+    assert ops.count("aten.conv2d.default") == 1 + 2 * blocks  # conv_1, each depthwise and 1x1
+    assert not any("tcresnet_dwconv" in op for op in ops)
+    x = _wavs(4, cfg.audio.desired_samples, cuda_device)
+    got = load_serialized(data)(x)
+    assert got.device == x.device
+    before = launch_counts()
+    want = build_inference_fn(cfg, v, device=cuda_device)(x)
+    assert launches_since(before).get("dw_conv") == 5
+    assert (got - want).abs().max() <= SOFTMAX_ATOL
 
 
 def test_streaming_on_the_card_matches_the_batch_model(cuda_device):

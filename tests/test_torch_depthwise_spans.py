@@ -3,7 +3,9 @@ the backward one through `utils/profiling.py::backward_span`) in a
 Trainer's step on the CPU, at a small geometry: with the tracer off a step
 runs no hook; with it on, each step records a forward
 and a backward span per depthwise conv, inside the step; the state is
-bit-equal either way; no other family records one."""
+bit-equal either way; no other family records one. On a card (`cuda`
+marker; skipped without one) the backward span opens and closes on the
+node of the depthwise conv's Function (`ops/kernels/dwconv.py`)."""
 
 import sys
 
@@ -83,6 +85,46 @@ def test_with_the_tracer_off_a_step_runs_no_hook(tmp_path, dataset):
         trainer.train_steps(1, start=1)
         drain()
     assert on.calls == ["pre", "post"] * len(DW_LAYERS)
+
+
+@pytest.mark.cuda
+def test_each_backward_span_opens_and_closes_on_the_depthwise_functions_node(tmp_path,
+                                                                           monkeypatch):
+    """On a card `backward_span` hooks each depthwise conv's output on the
+    node of `ops/kernels/dwconv.py`'s Function, one per conv and step, and
+    records one backward span there; that node hands back dx of the
+    conv's own input (no padded copy), dW [C, 1, 3, 3] and db [C]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the depthwise conv kernels have no CPU mode")
+    from tcresnet_tpu_torch.ops.kernels import dwconv
+
+    dev = torch.device("cuda", 0)
+    dataset = DeviceDataset(make_synthetic_dataset(num_samples=16, num_classes=4,
+                                                   desired_samples=2560, seed=5), dev)
+    nodes, grads = [], []
+    real = ds_cnn.backward_span
+
+    def spy(t, name, **attrs):
+        nodes.append((attrs["layer"], t.grad_fn))
+        t.grad_fn.register_hook(lambda grad_inputs, grad_outputs: grads.append(tuple(
+            None if g is None else tuple(g.shape) for g in grad_inputs)))
+        return real(t, name, **attrs)
+
+    monkeypatch.setattr(ds_cnn, "backward_span", spy)
+    trainer = Trainer(_cfg(tmp_path), dataset, steps_per_call=2)
+    with tracing():
+        trainer.train_steps(2, start=0)
+        torch.cuda.synchronize()
+        records = drain()
+    assert [layer for layer, _ in nodes] == DW_LAYERS * 2
+    assert all(node._forward_cls is dwconv.DepthwiseConv3x3 for _, node in nodes)
+    # 7 frames x 10 MFCCs are 4 x 10 after conv_1 (stride 2 x 1), then 2 x 5
+    # after conv_ds_1; autograd runs the last conv's node first
+    c = ds_cnn.L_NET_DEF[0].depth
+    step = [(4, c, 2, 5)] * (len(DW_LAYERS) - 1) + [(4, c, 4, 10)]
+    assert grads == [(x, (c, 1, 3, 3), (c,)) for x in step * 2]
+    assert sum(r["name"] == "model.depthwise" and r["attrs"]["phase"] == "backward"
+               for r in records) == len(nodes)
 
 
 def test_each_step_records_five_forward_and_five_backward_depthwise_spans(tmp_path, dataset):
